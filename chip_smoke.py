@@ -11,10 +11,14 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    csrc`` and prints the card's name and power limit;
 2. kernels: holds each kernel (K1 forward, K2 dK/dV, K3 dQ) against its
    plain PyTorch version on the same inputs, at the Transformer's shapes
-   (B 32, S 64, H 8, D 64, bf16; padding, causal and cross masks) and at a
-   ragged multi-tile shape (4, 333, 8, 64) in f32 and bf16, and times the
-   kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it);
+   (B 32, S 64, H 8, D 64, bf16; padding, causal and cross masks), at
+   head dims 32 and 128 (bf16, padding mask), at a ragged multi-tile shape
+   (4, 333, 8, 64) in f32 and bf16 with fully masked rows, at a ragged
+   cross shape (B 3, Sq 96, Sk 200, H 4, D 64, bf16, broadcast padding
+   mask) and at the long shape (B 8, S 512, H 8, D 64, bf16, causal); then
+   times the kernel, the plain version and ``scaled_dot_product_attention``
+   (a yardstick only: the port never calls it) at the slice's shape and at
+   the long shape, and prints (K2 + K3) / SDPA's backward for both;
 3. model: the full-width Transformer-base loss on one small batch on the
    card against the same model on the CPU (plain attention);
 4. slice: ``build_experiment(...).workon(objective)`` with random search,
@@ -372,17 +376,34 @@ def main() -> int:
                   "causal+empty", gen),
         make_case(torch, "ragged bf16 (4,333,8,64)", 4, 333, 333, 8, 64, bf16,
                   "causal+empty", gen),
+        make_case(torch, "slice-pad bf16 D32 (32,64,8,32)", 32, 64, 64, 8, 32, bf16, "pad", gen),
+        make_case(torch, "slice-pad bf16 D128 (32,64,8,128)", 32, 64, 64, 8, 128, bf16, "pad",
+                  gen),
+        make_case(torch, "ragged-cross bf16 (3,96x200,4,64)", 3, 96, 200, 4, 64, bf16, "cross",
+                  gen),
+        make_case(torch, "long-causal bf16 (8,512,8,64)", 8, 512, 512, 8, 64, bf16, "causal",
+                  gen),
     ]
     log("[kernels] max |kernel - plain| per case:")
     max_err = {n: 0.0 for n in att.launches}
+    case_err = {n: {} for n in att.launches}
     lse_delta = []
     for case in cases:
         errs, stats = check_case(torch, att, case)
         for n, e in errs.items():
             max_err[n] = max(max_err[n], e)
+            case_err[n][case["name"]] = e
         lse_delta.append(stats)
     log("[kernels] times at the slice's shapes (B 32, S 64, H 8, D 64, bf16, padding mask):")
     timing_stats = time_case(torch, att, cases[0], lse_delta[0])
+    log("[kernels] times at the long shape (B 8, S 512, H 8, D 64, bf16, causal mask):")
+    long_stats = time_case(torch, att, cases[-1], lse_delta[-1])
+    bwd_ratio = {}
+    for label, st in (("slice", timing_stats), ("long", long_stats)):
+        k2, k3 = st["flash_bwd_dkv"]["ms"], st["flash_bwd_dq"]["ms"]
+        bwd_ratio[label] = (k2 + k3) / st["flash_bwd_dkv"]["library_ms"]
+        log(f"[kernels] {label}: (K2 + K3) / SDPA backward = ({k2:.4f} + {k3:.4f}) / "
+            f"{st['flash_bwd_dkv']['library_ms']:.4f} ms = {bwd_ratio[label]:.2f}")
 
     # -- 3. full-width model against the CPU ---------------------------------
     hp = {"dropout": 0.0}
@@ -461,13 +482,16 @@ def main() -> int:
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         row = dict(timing_stats[name])
-        del row["bytes"], row["flops"]
+        long_row = dict(long_stats[name])
+        for r in (row, long_row):
+            del r["bytes"], r["flops"]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": max_err[name], **row,
+            "max_abs_err": max_err[name], **row, "long": long_row,
+            "max_abs_err_by_case": case_err[name],
         })
-    print(json.dumps({"kernels": kernels, "slice": {
+    print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "slice": {
         "ms_per_step": ms_step, "tokens_per_s": warm["tokens_per_step"] / ms_step * 1e3,
         "peak_mem_bytes": peak_mem, "build_s": build_s, "card": smi,
         "profile": breakdown}}), flush=True)

@@ -1,24 +1,45 @@
 // Flash attention for the demo Transformer, written for Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of metaopt_tpu/ops/attention.py:
-//   flash_fwd_kernel     <- _flash_fwd_kernel      (launched by _pallas_forward)
-//   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel  (pass 1 of _pallas_backward)
-//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel   (pass 2 of _pallas_backward)
+//   flash_fwd_kernel          <- _flash_fwd_kernel     (launched by _pallas_forward)
+//   flash_bwd_dkv_kernel_mma  <- _flash_bwd_dkv_kernel (pass 1 of _pallas_backward), bf16
+//   flash_bwd_dq_kernel_mma   <- _flash_bwd_dq_kernel  (pass 2 of _pallas_backward), bf16
+//   flash_bwd_dkv_kernel, flash_bwd_dq_kernel: the same two passes for f32
 //
-// What bounds them on an H100: at the demo Transformer's shapes (B 32,
-// S 64, H 8, D 64, bf16) each call moves 8-12 MB and does 0.3-0.5 GFLOP,
-// so all three are memory-bound (a few microseconds at 3.35 TB/s).
-// The design answers that bound by never writing the (Sq, Sk) score
-// matrix to device memory: each block streams tiles of the other axis
-// through shared memory and keeps the running softmax statistics and the
-// output accumulator on chip, so device memory sees each input read about
-// once per tile row and each output written once. This first version
-// computes in f32 on the CUDA cores (no wgmma, TMA or warp specialisation)
-// and reads tensors straight from the (B, S, H, D) layout through strides,
-// so no transposed or padded copies are made.
+// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense). At the
+// demo Transformer's shape (B 32, S 64, H 8, D 64, bf16, padding mask) each
+// call moves 8-13 MB and does 0.3-0.5 GFLOP, so all three are bound by
+// bytes: K1 2.5 us, K2 3.8 us, K3 3.2 us. At the Transformer's longest
+// sequence (B 8, S 512, H 8, D 64, causal mask) the work per byte grows
+// with S: K2 is bound by operations (8.6 GFLOP, 8.7 us), K3 and K1 still
+// by bytes (7.0 and 5.7 us). chip_smoke.py computes these bounds.
+//
+// Common design: the (Sq, Sk) score matrix never reaches device memory.
+// Each block owns a 64-row tile of one (batch, head), streams 64-row tiles
+// of the other axis through shared memory and keeps its accumulators on
+// chip; tensors are read straight from the (B, S, H, D) layout through
+// strides, so no transposed or padded copies are made.
+//
+// The bf16 backward (K2, K3) runs on the tensor cores, FlashAttention-2
+// style: four warps of 16 owned rows, tiles copied to shared memory as
+// bf16 with cp.async, two stages so the next tile's copy overlaps this
+// tile's math, and all four products per tile as mma.sync m16n8k16 fed by
+// ldmatrix. The score and dP tiles stay in registers, and their
+// accumulator layout is the A-fragment layout of the next product, so P
+// and dS never touch shared memory. At S = 64 a block does one tile step
+// and needs about 41 KB of shared memory at D = 64; registers (see ptxas
+// -v) let two K2 or three K3 blocks share an SM, so the slice's 256 blocks
+// are resident in one wave on 132 SMs and one block's loads overlap
+// another's math. wgmma and TMA are left for long sequences, where the
+// tensor cores, not latency, should set the time.
+//
+// K1 and the f32 backward stay on the CUDA cores (scalar f32 FMAs from
+// f32 tiles in shared memory): K1 is the next kernel to move to the tensor
+// cores, and f32 attention is off the Transformer's path and held to 1e-5
+// and 1e-4, which bf16 operands cannot meet.
 //
 // Semantics kept from the Pallas bodies:
-//   - q arrives pre-scaled; compute is f32 from f32 or bf16 inputs;
+//   - q arrives pre-scaled; softmax statistics and accumulators are f32;
 //   - the optional int8 mask is per batch, shared by the heads (bh / H),
 //     and is read through its strides (a broadcast mask needs no copy);
 //   - masked scores are -1e30 and the running max is floored at -5e29, so
@@ -29,7 +50,11 @@
 //   - rows and columns past Sq or Sk behave as the padded, masked tails of
 //     _block_and_pad: they contribute nothing and are not written;
 //   - two passes for the backward: dK/dV owned by one block per K tile,
-//     dQ by one block per Q tile, no atomics.
+//     dQ by one block per Q tile, no atomics, so results are deterministic.
+// On the tensor cores P is rounded to bf16 as an operand of dV = P^T dO,
+// as a TPU's default-precision f32 dot would round it; dS is split into
+// two bf16 terms (head + tail) for dK and dQ: its rows sum to zero, so
+// its products cancel, and one bf16 term leaves dQ outside the bf16 bound.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -37,6 +62,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -165,7 +194,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// K2: dK and dV. One block per (b*h, 64-row K tile); Q/dO tiles stream through.
+// K2 for f32: dK and dV. One block per (b*h, 64-row K tile); Q/dO tiles
+// stream through.
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -248,7 +278,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
-// K3: dQ. One block per (b*h, 64-row Q tile); K/V tiles stream through.
+// K3 for f32: dQ. One block per (b*h, 64-row Q tile); K/V tiles stream through.
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -317,6 +347,381 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K3 for bf16 inputs, on the tensor cores. Four warps per block; each
+// warp owns 16 rows of the block's 64-row tile and computes, per 16-row
+// chunk of the streamed tile, both score products with mma.sync into
+// registers, the probabilities and dS there, and feeds them, rounded to
+// bf16 (dS as head + tail), straight into the next products as A fragments.
+
+constexpr int kTile = 64;                 // rows of an owned or streamed tile
+constexpr int kMmaThreads = 128;          // four warps of 16 owned rows each
+constexpr int kKeepLd = kTile + 4;        // bytes per row of a keep-flag tile
+
+using bf16 = __nv_bfloat16;
+
+// Shared tiles hold kTile rows of D bf16 with a 16-byte pad per row, which
+// puts the eight rows one ldmatrix reads in eight distinct bank groups.
+template <int D> __host__ __device__ constexpr int tile_ld() { return D + 8; }
+template <int D> __host__ __device__ constexpr int tile_bytes() {
+    return kTile * tile_ld<D>() * 2;
+}
+
+// Start copying rows [row0, row0 + kTile) of one (batch, head) slice into a
+// shared tile, 16 bytes per cp.async; rows past n are zero-filled.
+template <int D>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, long long rs, int row0,
+                                        int n) {
+    constexpr int CPR = D / 8;  // 16-byte chunks per row
+#pragma unroll
+    for (int j = 0; j < kTile * CPR / kMmaThreads; ++j) {
+        const int i = threadIdx.x + j * kMmaThreads, r = i / CPR, c = (i % CPR) * 8;
+        const int gr = row0 + r;
+        cp_async16(dst + r * tile_ld<D>() + c, src + (long long)min(gr, n - 1) * rs + c,
+                   gr < n ? 16 : 0);
+    }
+}
+
+// keep[r][c] = 1 where query q0 + r may attend to key k0 + c: both in range
+// and, given a mask (already offset to the batch), allowed by it.
+__device__ __forceinline__ void keep_tile(uint8_t* keep, const int8_t* mb, long long msq,
+                                          long long msk, int q0, int Sq, int k0, int Sk) {
+#pragma unroll 8
+    for (int j = 0; j < kTile * kTile / kMmaThreads; ++j) {
+        const int i = threadIdx.x + j * kMmaThreads, r = i / kTile, c = i % kTile;
+        const int qi = q0 + r, kc = k0 + c;
+        bool ok = qi < Sq && kc < Sk;
+        if (ok && mb != nullptr) ok = mb[qi * msq + kc * msk] != 0;
+        keep[r * kKeepLd + c] = ok;
+    }
+}
+
+// A fragment: rows r0..r0+15, cols c0..c0+15 of a shared tile.
+template <int D>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* tile, int r0, int c0,
+                                       int lane) {
+    ldsm_x4(a, tile + (r0 + (lane & 15)) * tile_ld<D>() + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles with B[k][n] = tile[n0 + n][k0 + k]: b[0], b[1]
+// for n0..n0+7 and b[2], b[3] for n0+8..n0+15.
+template <int D>
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* tile, int n0, int k0,
+                                        int lane) {
+    ldsm_x4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * tile_ld<D>() + k0 +
+                   ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles with B[k][n] = tile[k0 + k][n0 + n].
+template <int D>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* tile, int k0, int n0,
+                                       int lane) {
+    ldsm_x4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * tile_ld<D>() + n0 +
+                     (lane >> 4) * 8);
+}
+
+// The A fragments of a warp's 16-row strip of a D-wide shared tile, held in
+// registers where they fit (D <= 64) and read from shared memory otherwise.
+template <int D>
+struct Strip {
+    static constexpr bool kHeld = D <= 64;
+    uint32_t f[kHeld ? D / 16 : 1][4];
+    const bf16* tile;
+    int r0;
+
+    __device__ __forceinline__ void init(const bf16* t, int r, int lane) {
+        tile = t;
+        r0 = r;
+        if constexpr (kHeld) {
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) frag_a<D>(f[kk], t, r, kk * 16, lane);
+        }
+    }
+    __device__ __forceinline__ void get(uint32_t (&a)[4], int kk, int lane) const {
+        if constexpr (kHeld) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+        } else {
+            frag_a<D>(a, tile, r0, kk * 16, lane);
+        }
+    }
+};
+
+// s += strip x rows n0..n0+15 of tile^T, over all of D (two n8 tiles).
+template <int D>
+__device__ __forceinline__ void strip_dot_rows(float (&s)[2][4], const Strip<D>& a,
+                                               const bf16* tile, int n0, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4], b[4];
+        a.get(af, kk, lane);
+        frag_bt<D>(b, tile, n0, kk * 16, lane);
+        mma_bf16(s[0], af, b[0], b[1]);
+        mma_bf16(s[1], af, b[2], b[3]);
+    }
+}
+
+// acc (16 x D) += (a[0] + ... + a[N-1]) x rows k0..k0+15 of tile, each a[j]
+// a 16 x 16 A fragment of the strip's rows (N = 2: a value split in two).
+template <int D, int N>
+__device__ __forceinline__ void strip_acc(float (&acc)[D / 8][4], const uint32_t (&a)[N][4],
+                                          const bf16* tile, int k0, int lane) {
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        frag_b<D>(b, tile, k0, dn * 16, lane);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            mma_bf16(acc[2 * dn], a[j], b[0], b[1]);
+            mma_bf16(acc[2 * dn + 1], a[j], b[2], b[3]);
+        }
+    }
+}
+
+// Round a warp's 16 x D accumulator to bf16 into its own 16 rows of a shared
+// tile (no other warp reads them), then store those rows with 16 bytes a
+// lane; rows past n are not written.
+template <int D>
+__device__ __forceinline__ void store_strip(bf16* dst, bf16* tile, const float (&acc)[D / 8][4],
+                                            int r0, int row0, int n, long long rs, int lane) {
+    constexpr int LD = tile_ld<D>(), CPR = D / 8;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+        bf16* p = tile + (r0 + g) * LD + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[j][0], acc[j][1]);
+        *reinterpret_cast<uint32_t*>(p + 8 * LD) = pack_bf16(acc[j][2], acc[j][3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 16 * CPR / 32; ++j) {
+        const int i = lane + 32 * j, r = r0 + i / CPR, c = (i % CPR) * 8;
+        if (row0 + r < n)
+            *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * rs + c) =
+                *reinterpret_cast<const uint4*>(tile + r * LD + c);
+    }
+}
+
+// K2 on the tensor cores. One block per (b*h, 64-row K tile); Q/dO tiles,
+// their keep flags, lse and delta stream through two shared stages, the
+// copy of tile i + 1 in flight while tile i is computed. Per warp and per
+// 16 query rows: S^T = K_w Q^T and dP^T = V_w dO^T (16 x 16 each), then
+// P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta), and dV_w += P^T dO,
+// dK_w += dS^T Q with P^T and dS^T (two terms) as bf16 A fragments.
+template <int D> __host__ __device__ constexpr int dkv_stage_bytes() {
+    return 2 * tile_bytes<D>() + kTile * kKeepLd + 2 * kTile * (int)sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int8_t* __restrict__ mask, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int H, int Sq, int Sk, long long msb,
+                         long long msq, long long msk) {
+    extern __shared__ __align__(16) unsigned char smem_mma[];
+    bf16* sK = reinterpret_cast<bf16*>(smem_mma);
+    bf16* sV = reinterpret_cast<bf16*>(smem_mma + tile_bytes<D>());
+    unsigned char* stages = smem_mma + 2 * tile_bytes<D>();
+    struct Stage {
+        bf16 *q, *g;
+        uint8_t* keep;
+        float *lse, *delta;
+    };
+    auto stage = [&](int s) {
+        unsigned char* p = stages + s * dkv_stage_bytes<D>();
+        Stage st;
+        st.q = reinterpret_cast<bf16*>(p);
+        st.g = reinterpret_cast<bf16*>(p + tile_bytes<D>());
+        st.keep = p + 2 * tile_bytes<D>();
+        st.lse = reinterpret_cast<float*>(st.keep + kTile * kKeepLd);
+        st.delta = st.lse + kTile;
+        return st;
+    };
+
+    const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+    const int k0 = blockIdx.y * kTile;
+    const int lane = threadIdx.x & 31, kw = (threadIdx.x >> 5) * 16;
+    const int gi = lane >> 2, ti = lane & 3;
+    const long long rs = (long long)H * D;
+    const bf16* qb = q + (long long)b * Sq * rs + (long long)h * D;
+    const bf16* gb = g + (long long)b * Sq * rs + (long long)h * D;
+    const int8_t* mb = mask ? mask + b * msb : nullptr;
+    const float* lse_b = lse + (long long)bh * Sq;
+    const float* delta_b = delta + (long long)bh * Sq;
+
+    auto load_q_tile = [&](int it) {
+        const Stage st = stage(it & 1);
+        const int q0 = it * kTile;
+        cp_tile<D>(st.q, qb, rs, q0, Sq);
+        cp_tile<D>(st.g, gb, rs, q0, Sq);
+        cp_async_commit();
+        keep_tile(st.keep, mb, msq, msk, q0, Sq, k0, Sk);
+        if (threadIdx.x < kTile) {
+            const int qi = q0 + threadIdx.x;
+            st.lse[threadIdx.x] = qi < Sq ? lse_b[qi] : INFINITY;
+            st.delta[threadIdx.x] = qi < Sq ? delta_b[qi] : 0.f;
+        }
+    };
+
+    cp_tile<D>(sK, k + (long long)b * Sk * rs + (long long)h * D, rs, k0, Sk);
+    cp_tile<D>(sV, v + (long long)b * Sk * rs + (long long)h * D, rs, k0, Sk);
+    load_q_tile(0);  // one group: K, V and the first Q/dO tile
+
+    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
+    Strip<D> fk, fv;
+    const int n_tiles = (Sq + kTile - 1) / kTile;
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            load_q_tile(it + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (it == 0) {
+            fk.init(sK, kw, lane);
+            fv.init(sV, kw, lane);
+        }
+        const Stage st = stage(it & 1);
+#pragma unroll
+        for (int qc = 0; qc < kTile; qc += 16) {
+            float s[2][4] = {}, dp[2][4] = {};
+            strip_dot_rows<D>(s, fk, st.q, qc, lane);
+            strip_dot_rows<D>(dp, fv, st.g, qc, lane);
+            uint32_t pa[1][4], da[2][4];
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+                float p[4], ds[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int qr = qc + 8 * n + 2 * ti + (i & 1), kr = kw + gi + 8 * (i >> 1);
+                    const float sv = st.keep[qr * kKeepLd + kr] ? s[n][i] : kNegBig;
+                    p[i] = expf(sv - st.lse[qr]);
+                    ds[i] = p[i] * (dp[n][i] - st.delta[qr]);
+                }
+                pa[0][2 * n] = pack_bf16(p[0], p[1]);
+                pa[0][2 * n + 1] = pack_bf16(p[2], p[3]);
+                pack_bf16_split(ds[0], ds[1], da[0][2 * n], da[1][2 * n]);
+                pack_bf16_split(ds[2], ds[3], da[0][2 * n + 1], da[1][2 * n + 1]);
+            }
+            strip_acc<D>(dva, pa, st.g, qc, lane);
+            strip_acc<D>(dka, da, st.q, qc, lane);
+        }
+        __syncthreads();  // the stage is refilled next iteration
+    }
+
+    const long long off = (long long)b * Sk * rs + (long long)h * D;
+    store_strip<D>(dk + off, sK, dka, kw, k0, Sk, rs, lane);
+    store_strip<D>(dv + off, sV, dva, kw, k0, Sk, rs, lane);
+}
+
+// K3 on the tensor cores. One block per (b*h, 64-row Q tile); K/V tiles and
+// their keep flags stream through two shared stages. Per warp and per 16
+// keys: S = Q_w K^T and dP = dO_w V^T, P = exp(S - lse), dS = P (dP - delta),
+// and dQ_w += dS K with dS as two bf16 A fragments.
+template <int D> __host__ __device__ constexpr int dq_stage_bytes() {
+    return 2 * tile_bytes<D>() + kTile * kKeepLd;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int8_t* __restrict__ mask, bf16* __restrict__ dq, int H, int Sq,
+                        int Sk, long long msb, long long msq, long long msk) {
+    extern __shared__ __align__(16) unsigned char smem_mma[];
+    bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+    bf16* sG = reinterpret_cast<bf16*>(smem_mma + tile_bytes<D>());
+    unsigned char* stages = smem_mma + 2 * tile_bytes<D>();
+    struct Stage {
+        bf16 *k, *v;
+        uint8_t* keep;
+    };
+    auto stage = [&](int s) {
+        unsigned char* p = stages + s * dq_stage_bytes<D>();
+        Stage st;
+        st.k = reinterpret_cast<bf16*>(p);
+        st.v = reinterpret_cast<bf16*>(p + tile_bytes<D>());
+        st.keep = p + 2 * tile_bytes<D>();
+        return st;
+    };
+
+    const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+    const int q0 = blockIdx.y * kTile;
+    const int lane = threadIdx.x & 31, qw = (threadIdx.x >> 5) * 16;
+    const int gi = lane >> 2, ti = lane & 3;
+    const long long rs = (long long)H * D;
+    const bf16* kb = k + (long long)b * Sk * rs + (long long)h * D;
+    const bf16* vb = v + (long long)b * Sk * rs + (long long)h * D;
+    const int8_t* mb = mask ? mask + b * msb : nullptr;
+    float lse_r[2], delta_r[2];  // of the thread's rows qw + gi and qw + gi + 8
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int qi = q0 + qw + gi + 8 * i;
+        lse_r[i] = qi < Sq ? lse[(long long)bh * Sq + qi] : INFINITY;
+        delta_r[i] = qi < Sq ? delta[(long long)bh * Sq + qi] : 0.f;
+    }
+
+    auto load_k_tile = [&](int it) {
+        const Stage st = stage(it & 1);
+        const int k0 = it * kTile;
+        cp_tile<D>(st.k, kb, rs, k0, Sk);
+        cp_tile<D>(st.v, vb, rs, k0, Sk);
+        cp_async_commit();
+        keep_tile(st.keep, mb, msq, msk, q0, Sq, k0, Sk);
+    };
+
+    const long long off = (long long)b * Sq * rs + (long long)h * D;
+    cp_tile<D>(sQ, q + off, rs, q0, Sq);
+    cp_tile<D>(sG, g + off, rs, q0, Sq);
+    load_k_tile(0);  // one group: Q, dO and the first K/V tile
+
+    float dqa[D / 8][4] = {};
+    Strip<D> fq, fg;
+    const int n_tiles = (Sk + kTile - 1) / kTile;
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            load_k_tile(it + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (it == 0) {
+            fq.init(sQ, qw, lane);
+            fg.init(sG, qw, lane);
+        }
+        const Stage st = stage(it & 1);
+#pragma unroll
+        for (int kc = 0; kc < kTile; kc += 16) {
+            float s[2][4] = {}, dp[2][4] = {};
+            strip_dot_rows<D>(s, fq, st.k, kc, lane);
+            strip_dot_rows<D>(dp, fg, st.v, kc, lane);
+            uint32_t da[2][4];
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+                float ds[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int qr = qw + gi + 8 * (i >> 1), kr = kc + 8 * n + 2 * ti + (i & 1);
+                    const float sv = st.keep[qr * kKeepLd + kr] ? s[n][i] : kNegBig;
+                    const float p = expf(sv - lse_r[i >> 1]);
+                    ds[i] = p * (dp[n][i] - delta_r[i >> 1]);
+                }
+                pack_bf16_split(ds[0], ds[1], da[0][2 * n], da[1][2 * n]);
+                pack_bf16_split(ds[2], ds[3], da[0][2 * n + 1], da[1][2 * n + 1]);
+            }
+            strip_acc<D>(dqa, da, st.k, kc, lane);
+        }
+        __syncthreads();  // the stage is refilled next iteration
+    }
+
+    store_strip<D>(dq + off, sQ, dqa, qw, q0, Sq, rs, lane);
+}
+
 template <int D> constexpr int fwd_smem() {
     return (int)sizeof(float) * (kRows * (D + 1) + 2 * kCols * (D + 1) + kRows * (kCols + 1));
 }
@@ -348,32 +753,62 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask, vo
     return (int)cudaGetLastError();
 }
 
+// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. The
+// tensor-core kernels take one stage of streamed tiles when there is only
+// one tile to stream, two otherwise (the opt-in covers two).
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                const void* delta, const void* mask, void* dk, void* dv, int B, int H, int Sq,
                int Sk, long long msb, long long msq, long long msk, cudaStream_t stream) {
-    constexpr int smem = dkv_smem<D>();
-    static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
-    if (attr != cudaSuccess) return (int)attr;
-    dim3 grid(B * H, (Sk + kRows - 1) / kRows);
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
-        (const float*)delta, (const int8_t*)mask, (T*)dk, (T*)dv, H, Sq, Sk, msb, msq, msk);
-    return (int)cudaGetLastError();
+    if constexpr (std::is_same_v<T, bf16>) {
+        constexpr int fixed = 2 * tile_bytes<D>(), per_stage = dkv_stage_bytes<D>();
+        static const cudaError_t attr =
+            allow_smem(flash_bwd_dkv_kernel_mma<D>, fixed + 2 * per_stage);
+        if (attr != cudaSuccess) return (int)attr;
+        const int smem = fixed + (Sq > kTile ? 2 : 1) * per_stage;
+        dim3 grid(B * H, (Sk + kTile - 1) / kTile);
+        flash_bwd_dkv_kernel_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)lse,
+            (const float*)delta, (const int8_t*)mask, (bf16*)dk, (bf16*)dv, H, Sq, Sk, msb,
+            msq, msk);
+        return (int)cudaGetLastError();
+    } else {
+        constexpr int smem = dkv_smem<D>();
+        static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
+        if (attr != cudaSuccess) return (int)attr;
+        dim3 grid(B * H, (Sk + kRows - 1) / kRows);
+        flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
+            (const float*)delta, (const int8_t*)mask, (T*)dk, (T*)dv, H, Sq, Sk, msb, msq, msk);
+        return (int)cudaGetLastError();
+    }
 }
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
               const void* delta, const void* mask, void* dq, int B, int H, int Sq, int Sk,
               long long msb, long long msq, long long msk, cudaStream_t stream) {
-    constexpr int smem = dq_smem<D>();
-    static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
-    if (attr != cudaSuccess) return (int)attr;
-    dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
-        (const float*)delta, (const int8_t*)mask, (T*)dq, H, Sq, Sk, msb, msq, msk);
-    return (int)cudaGetLastError();
+    if constexpr (std::is_same_v<T, bf16>) {
+        constexpr int fixed = 2 * tile_bytes<D>(), per_stage = dq_stage_bytes<D>();
+        static const cudaError_t attr =
+            allow_smem(flash_bwd_dq_kernel_mma<D>, fixed + 2 * per_stage);
+        if (attr != cudaSuccess) return (int)attr;
+        const int smem = fixed + (Sk > kTile ? 2 : 1) * per_stage;
+        dim3 grid(B * H, (Sq + kTile - 1) / kTile);
+        flash_bwd_dq_kernel_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)lse,
+            (const float*)delta, (const int8_t*)mask, (bf16*)dq, H, Sq, Sk, msb, msq, msk);
+        return (int)cudaGetLastError();
+    } else {
+        constexpr int smem = dq_smem<D>();
+        static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+        if (attr != cudaSuccess) return (int)attr;
+        dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+        flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
+            (const float*)delta, (const int8_t*)mask, (T*)dq, H, Sq, Sk, msb, msq, msk);
+        return (int)cudaGetLastError();
+    }
 }
 
 }  // namespace

@@ -7,6 +7,8 @@ and handed to both. Bounds are those of tests/unit/test_attention.py: f32
 1e-5 forward and 1e-4 gradients, bf16 3e-2.
 """
 
+import ctypes
+import re
 import zlib
 
 import jax
@@ -21,6 +23,7 @@ from metaopt_tpu.ops.attention import (
     flash_attention as jax_flash,
 )
 from metaopt_tpu_torch.ops import attention as att
+from metaopt_tpu_torch.utils.cuda_build import CSRC_DIR
 
 
 def make_inputs(seed, b, sq, sk, h, d, mask_kind):
@@ -149,6 +152,38 @@ def test_gradients_match_pallas(name):
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
 
 
+BF16_GRAD_MASKS = ("padding", "causal")
+
+
+@pytest.mark.parametrize("mask_kind", BF16_GRAD_MASKS)
+def test_bf16_gradients_match_pallas(mask_kind):
+    """The working type: bf16 inputs, gradients in bf16, against jax.grad of
+    the Pallas route in interpret mode, at the 3e-2 bound. This pins the
+    plain versions, the card's oracle for K2 and K3, to the reference."""
+    b, sq, sk, h, d = 2, 64, 64, 2, 64
+    arrays = make_inputs(zlib.crc32(mask_kind.encode()) % 1000 + 2, b, sq, sk, h, d,
+                         mask_kind)
+    w = np.random.default_rng(17).standard_normal((b, sq, h, d)).astype(np.float32)
+
+    q, k, v, mask = to_torch(*arrays, dtype=torch.bfloat16)
+    q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+    out = att.flash_attention(q, k, v, mask)
+    (out * torch.from_numpy(w)).sum().backward()
+
+    jq, jk, jv, jm = to_jax(*arrays, dtype=jnp.bfloat16)
+
+    def loss(qq, kk, vv):
+        o = jax_flash(qq, kk, vv, jm, impl="pallas", interpret=True)
+        return jnp.sum(o * w)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    for mine, ref in zip((q.grad, k.grad, v.grad), grads):
+        assert mine.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+        assert torch.isfinite(mine).all()
+        np.testing.assert_allclose(mine.float().numpy(), np.asarray(ref, np.float32),
+                                   atol=3e-2, rtol=3e-2)
+
+
 def test_plain_backward_passes_match_autograd_of_reference():
     """K2 and K3's plain versions, called directly, against autograd of the
     plain O(S²) attention."""
@@ -211,3 +246,46 @@ def test_cpu_wrappers_do_not_count_kernel_launches():
     q.requires_grad_()
     att.flash_attention(q, k, v, mask).sum().backward()
     assert att.launches == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+
+# ---------------------------------------------------------------------------
+# the C interface of csrc/flash_attention.cu against the ctypes declarations
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+def _kernel_source() -> str:
+    return (CSRC_DIR / "flash_attention.cu").read_text()
+
+
+def _c_entry_points():
+    """{name: [ctypes type of each parameter]} of the extern "C" block."""
+    src = _kernel_source()
+    block = src[src.index('extern "C" {'):]
+    entries = {}
+    for name, params in re.findall(r"\bint\s+(\w+)\(([^)]*)\)\s*\{", block):
+        types = [re.sub(r"\s*\w+$", "", p.strip()) for p in params.split(",")]
+        entries[name] = [_C_TYPES[t] for t in types]
+    return entries
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """A ctypes declaration with a missing or mistyped argument would pass
+    pointers as 32-bit ints, which only the card would show."""
+    entries = _c_entry_points()
+    assert set(entries) == set(att._SIGNATURES)
+    for name, argtypes in att._SIGNATURES.items():
+        assert entries[name] == argtypes, name
+
+
+def test_supported_pairs_match_the_kernel_dispatch():
+    """Every (dtype, head dim) the wrappers accept has an instantiation."""
+    cases = re.findall(r"case (\d+): return LAUNCH<(float|__nv_bfloat16), (\d+)>",
+                       _kernel_source())
+    names = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    want = {(names[dt], d) for dt in att.SUPPORTED_DTYPES for d in att.SUPPORTED_HEAD_DIMS}
+    assert {(t, int(d)) for _, t, d in cases} == want
+    for key, t, d in cases:  # the switch key is D * 2 + is_bf16
+        assert int(key) == int(d) * 2 + (t == "__nv_bfloat16")
