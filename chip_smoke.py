@@ -8,16 +8,22 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
 ``metaopt_tpu``) through five phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
-   csrc`` and prints the card's name and power limit;
+   csrc``, prints ptxas's registers and spills per kernel (and fails if
+   the bf16 K1 ``flash_fwd_kernel_mma`` is missing for a head dim), and
+   prints the card's name and power limit;
 2. kernels: holds each kernel (K1 forward, K2 dK/dV, K3 dQ) against its
    plain PyTorch version on the same inputs, at the Transformer's shapes
    (B 32, S 64, H 8, D 64, bf16; padding, causal and cross masks), at
    head dims 32 and 128 (bf16, padding mask), at a ragged multi-tile shape
    (4, 333, 8, 64) in f32 and bf16 with fully masked rows, at a ragged
    cross shape (B 3, Sq 96, Sk 200, H 4, D 64, bf16, broadcast padding
-   mask) and at the long shape (B 8, S 512, H 8, D 64, bf16, causal); then
-   times the kernel, the plain version and ``scaled_dot_product_attention``
-   (a yardstick only: the port never calls it) at the slice's shape and at
+   mask), at the long shape (B 8, S 512, H 8, D 64, bf16, causal) and at
+   (B 2, Sq 200, Sk 330, H 4, D 64, bf16) under tril(Sq, Sk), where K1
+   skips whole masked K tiles; runs ``flash_attention`` forward and
+   backward through autograd at the slice's shape (bf16, causal), so K2
+   and K3 take K1's own lse, against the same call on the CPU; then times
+   the kernel, the plain version and ``scaled_dot_product_attention`` (a
+   yardstick only: the port never calls it) at the slice's shape and at
    the long shape, and prints (K2 + K3) / SDPA's backward for both;
 3. model: the full-width Transformer-base loss on one small batch on the
    card against the same model on the CPU (plain attention);
@@ -25,8 +31,9 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    three trials of full-width Transformer-base training, and checks that
    every kernel ran 18 times per forward (K1) and per train step (K2, K3);
 5. profile: times five train steps, traces five more, and prints the
-   device busy share of the step, device time by kind of kernel and the
-   kernels that take the most device time.
+   device busy share of the step, device time by kind of kernel, the
+   kernels that take the most device time and the flash-attention
+   kernels; it fails if the trace holds no ``flash_fwd_kernel_mma``.
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -63,6 +71,30 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text: str):
+    """{"kernel<D>": registers and spill bytes} from ``nvcc -Xptxas=-v``
+    output: each "Compiling entry function" line names a kernel by its
+    mangled name, and the "spill" and "Used N registers" lines after it
+    belong to it."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"'_Z\w*?\d+(flash_\w+?)I\w*?Li(\d+)E", line)
+            cur = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if cur:
+                out[cur] = {"registers": None, "spill_stores": None, "spill_loads": None}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -100,8 +132,11 @@ def device_ms(torch, fn, n: int = 50, match: str = ""):
 
     ``ms`` is the device time of the kernels ``fn`` launches whose name
     holds ``match`` (all of them by default), from torch.profiler over
-    ``n`` calls. When the profiler yields no device time it is the CUDA-
-    event time, which also counts the host's gaps between launches."""
+    ``n`` calls. With ``match``, ``fn`` launches one such kernel a call,
+    and ``ms`` is the mean over the launches the trace recorded: the
+    profiler can drop records, and a sum over n calls would then read
+    low. When the profiler yields no device time it is the CUDA-event
+    time, which also counts the host's gaps between launches."""
     from torch.profiler import ProfilerActivity, profile
 
     ev = events_ms(torch, fn, n)
@@ -110,7 +145,13 @@ def device_ms(torch, fn, n: int = 50, match: str = ""):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = sum(ms for key, ms, _ in kernel_rows(prof, n) if match in key)
+        rows = [(ms, cnt) for key, ms, cnt in kernel_rows(prof, n) if match in key]
+        total = sum(ms for ms, _ in rows)
+        seen = round(sum(cnt for _, cnt in rows) * n)
+        if match and seen:
+            if seen != n:
+                log(f"  (the trace recorded {seen} of {n} launches of {match})")
+            total *= n / seen
     except Exception as err:  # the profiler is a measurement aid only
         log(f"  (torch.profiler unavailable: {type(err).__name__}: {err})")
         total = 0.0
@@ -138,10 +179,13 @@ def make_case(torch, name, b, sq, sk, h, d, dtype, kind, gen):
     klen = torch.randint(sk // 2, sk + 1, (b,), generator=gen, device=dev)
     kpad = torch.arange(sk, device=dev)[None, :] < klen[:, None]       # (b, sk)
     if kind in ("pad", "cross"):
-        mask = kpad[:, None, :].expand(b, sq, sk)
+        mask = kpad[:, None, :]                 # (b, 1, sk): read as a broadcast view
     elif kind == "causal":
         causal = torch.tril(torch.ones(sq, sk, dtype=torch.bool, device=dev))
         mask = causal[None] & kpad[:, None, :]
+    elif kind == "tril":                        # causal, unpadded: a broadcast view, and
+        # whole K tiles masked for a Q tile when Sk > Sq or Sq > 64
+        mask = torch.tril(torch.ones(sq, sk, dtype=torch.bool, device=dev))[None]
     elif kind == "causal+empty":
         causal = torch.tril(torch.ones(sq, sk, dtype=torch.bool, device=dev))
         mask = (causal[None] & torch.ones(b, 1, 1, dtype=torch.bool, device=dev)).clone()
@@ -149,9 +193,7 @@ def make_case(torch, name, b, sq, sk, h, d, dtype, kind, gen):
         mask[1, 100:140] = False
     else:
         raise ValueError(kind)
-    m8 = mask.to(torch.int8)
-    if kind in ("pad", "cross"):
-        m8 = kpad[:, None, :].to(torch.int8).expand(b, sq, sk)  # broadcast view
+    m8 = mask.to(torch.int8).expand(b, sq, sk)
     return dict(name=name, q=q, k=k, v=v, g=g, mask=m8, dtype=str(dtype).split(".")[-1])
 
 
@@ -201,6 +243,36 @@ def check_case(torch, att, case):
     if bad:
         raise AssertionError(f"{case['name']}: {bad} outside tolerance")
     return errs, (lse_p, delta)
+
+
+def check_autograd(torch, att, case):
+    """``flash_attention`` forward and backward through autograd on the card,
+    so K2 and K3 consume K1's own lse (``check_case`` hands them the plain
+    one), against the same call on the CPU tensors. Returns max |card - cpu|
+    per output."""
+    tol = TOL[case["dtype"]]["grad"]
+    res = {}
+    saved = dict(att.launches)
+    for dev in ("cuda", "cpu"):
+        q, k, v = (case[n].to(dev).detach().requires_grad_() for n in "qkv")
+        out = att.flash_attention(q, k, v, case["mask"].to(dev))
+        out.backward(case["g"].to(dev))
+        res[dev] = {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    torch.cuda.synchronize()
+    att.launches.update(saved)  # comparison launches do not count
+    errs, bad = {}, []
+    for name, ref in res["cpu"].items():
+        got = res["cuda"][name]
+        if not torch.isfinite(got.float()).all():
+            bad.append(name)
+        errs[name], ok = close(got.cpu(), ref, tol)
+        if not ok:
+            bad.append(name)
+    log(f"  autograd {case['name']}: " + "  ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f"  (card vs cpu, tol {tol})")
+    if bad:
+        raise AssertionError(f"autograd {case['name']}: {bad} outside tolerance or non-finite")
+    return errs
 
 
 def time_case(torch, att, case, lse_delta):
@@ -323,8 +395,12 @@ def profile_train_step(torch, tfm, steps: int = 5):
     log("[profile] top kernels by device ms/step:")
     for key, ms, n in rows[:12]:
         log(f"  {ms:8.4f} ms  x{n:5.1f}  {key[:90]}")
+    flash = [[k[:90], ms, n] for k, ms, n in rows if "flash_" in k]
+    log("[profile] flash-attention kernels by device ms/step:")
+    for key, ms, n in flash:
+        log(f"  {ms:8.4f} ms  x{n:5.1f}  {key}")
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms, "device_ms_by_kind": kinds,
+            "busy_share": busy_ms / wall_ms, "device_ms_by_kind": kinds, "flash": flash,
             "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]}
 
 
@@ -359,9 +435,18 @@ def main() -> int:
     lib = cuda_build.library_path("flash_attention",
                                   [cuda_build.CSRC_DIR / "flash_attention.cu"])
     log(f"[build] flash_attention built/loaded in {build_s:.2f} s ({lib.name})")
-    for line in lib.with_suffix(".log").read_text().splitlines():
+    ptxas_log = lib.with_suffix(".log").read_text()
+    for line in ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
+    ptxas = ptxas_summary(ptxas_log)
+    for kern, st in sorted(ptxas.items()):
+        log(f"[build] {kern}: {st['registers']} registers, spill stores/loads "
+            f"{st['spill_stores']}/{st['spill_loads']} bytes")
+    missing = [f"flash_fwd_kernel_mma<{d}>" for d in att.SUPPORTED_HEAD_DIMS
+               if f"flash_fwd_kernel_mma<{d}>" not in ptxas]
+    if missing:
+        raise AssertionError(f"ptxas compiled no {missing}")
     smi = nvidia_smi()
     log(smi)
 
@@ -383,6 +468,8 @@ def main() -> int:
                   gen),
         make_case(torch, "long-causal bf16 (8,512,8,64)", 8, 512, 512, 8, 64, bf16, "causal",
                   gen),
+        make_case(torch, "tile-skip causal bf16 (2,200x330,4,64)", 2, 200, 330, 4, 64, bf16,
+                  "tril", gen),
     ]
     log("[kernels] max |kernel - plain| per case:")
     max_err = {n: 0.0 for n in att.launches}
@@ -394,10 +481,13 @@ def main() -> int:
             max_err[n] = max(max_err[n], e)
             case_err[n][case["name"]] = e
         lse_delta.append(stats)
+    at = {c["name"].split(" ")[0]: i for i, c in enumerate(cases)}
+    log("[kernels] the slice's shape through autograd, K1's lse feeding K2 and K3:")
+    autograd_err = check_autograd(torch, att, cases[at["slice-causal"]])
     log("[kernels] times at the slice's shapes (B 32, S 64, H 8, D 64, bf16, padding mask):")
     timing_stats = time_case(torch, att, cases[0], lse_delta[0])
     log("[kernels] times at the long shape (B 8, S 512, H 8, D 64, bf16, causal mask):")
-    long_stats = time_case(torch, att, cases[-1], lse_delta[-1])
+    long_stats = time_case(torch, att, cases[at["long-causal"]], lse_delta[at["long-causal"]])
     bwd_ratio = {}
     for label, st in (("slice", timing_stats), ("long", long_stats)):
         k2, k3 = st["flash_bwd_dkv"]["ms"], st["flash_bwd_dq"]["ms"]
@@ -478,6 +568,9 @@ def main() -> int:
 
     # -- 5. where a train step's time goes (after the counted run) ----------
     breakdown = profile_train_step(torch, tfm)
+    if breakdown is not None and not any("flash_fwd_kernel_mma" in r[0]
+                                         for r in breakdown["flash"]):
+        raise AssertionError("the train step's trace shows no flash_fwd_kernel_mma")
 
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
@@ -491,7 +584,8 @@ def main() -> int:
             "max_abs_err": max_err[name], **row, "long": long_row,
             "max_abs_err_by_case": case_err[name],
         })
-    print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "slice": {
+    print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,
+                      "autograd_max_abs_err": autograd_err, "slice": {
         "ms_per_step": ms_step, "tokens_per_s": warm["tokens_per_step"] / ms_step * 1e3,
         "peak_mem_bytes": peak_mem, "build_s": build_s, "card": smi,
         "profile": breakdown}}), flush=True)

@@ -1,10 +1,10 @@
 // Flash attention for the demo Transformer, written for Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of metaopt_tpu/ops/attention.py:
-//   flash_fwd_kernel          <- _flash_fwd_kernel     (launched by _pallas_forward)
+//   flash_fwd_kernel_mma      <- _flash_fwd_kernel     (launched by _pallas_forward), bf16
 //   flash_bwd_dkv_kernel_mma  <- _flash_bwd_dkv_kernel (pass 1 of _pallas_backward), bf16
 //   flash_bwd_dq_kernel_mma   <- _flash_bwd_dq_kernel  (pass 2 of _pallas_backward), bf16
-//   flash_bwd_dkv_kernel, flash_bwd_dq_kernel: the same two passes for f32
+//   flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel: the same for f32
 //
 // What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense). At the
 // demo Transformer's shape (B 32, S 64, H 8, D 64, bf16, padding mask) each
@@ -20,23 +20,29 @@
 // chip; tensors are read straight from the (B, S, H, D) layout through
 // strides, so no transposed or padded copies are made.
 //
-// The bf16 backward (K2, K3) runs on the tensor cores, FlashAttention-2
-// style: four warps of 16 owned rows, tiles copied to shared memory as
-// bf16 with cp.async, two stages so the next tile's copy overlaps this
-// tile's math, and all four products per tile as mma.sync m16n8k16 fed by
-// ldmatrix. The score and dP tiles stay in registers, and their
-// accumulator layout is the A-fragment layout of the next product, so P
-// and dS never touch shared memory. At S = 64 a block does one tile step
-// and needs about 41 KB of shared memory at D = 64; registers (see ptxas
-// -v) let two K2 or three K3 blocks share an SM, so the slice's 256 blocks
+// In bf16 all three run on the tensor cores, FlashAttention-2 style: four
+// warps of 16 owned rows, tiles copied to shared memory as bf16 with
+// cp.async, two stages so the next tile's copy overlaps this tile's math,
+// and every product as mma.sync m16n8k16 fed by ldmatrix. Score, P and dP
+// tiles stay in registers, and their accumulator layout is the A-fragment
+// layout of the next product, so P and dS never touch shared memory. Bound
+// by bytes, K1 reads Q, K and V once each, as bf16, with 16-byte copies
+// that overlap the math of the tile before, reads the mask 16 bytes a load
+// (keep_tile), and writes O through 16-byte stores; its online softmax
+// runs on the score fragments, the row max and sum shared by the row's
+// four lanes with two shuffles. K tiles whose keep flags are all zero for
+// the block's Q tile (a causal mask's upper triangle, padded keys) are
+// skipped whole: 28 of the 64 tile pairs of a causal 512 x 512 mask. At
+// S = 64 a block does one tile step and needs
+// 32 KB (K1, D = 64) to 41 KB (K2) of shared memory, and registers (see
+// ptxas -v) let two or more blocks share an SM, so the slice's 256 blocks
 // are resident in one wave on 132 SMs and one block's loads overlap
 // another's math. wgmma and TMA are left for long sequences, where the
 // tensor cores, not latency, should set the time.
 //
-// K1 and the f32 backward stay on the CUDA cores (scalar f32 FMAs from
-// f32 tiles in shared memory): K1 is the next kernel to move to the tensor
-// cores, and f32 attention is off the Transformer's path and held to 1e-5
-// and 1e-4, which bf16 operands cannot meet.
+// f32 stays on the CUDA cores (scalar f32 FMAs from f32 tiles in shared
+// memory): f32 attention is off the Transformer's path and held to 1e-5
+// forward and 1e-4 for gradients, which bf16 operands cannot meet.
 //
 // Semantics kept from the Pallas bodies:
 //   - q arrives pre-scaled; softmax statistics and accumulators are f32;
@@ -52,9 +58,11 @@
 //   - two passes for the backward: dK/dV owned by one block per K tile,
 //     dQ by one block per Q tile, no atomics, so results are deterministic.
 // On the tensor cores P is rounded to bf16 as an operand of dV = P^T dO,
-// as a TPU's default-precision f32 dot would round it; dS is split into
-// two bf16 terms (head + tail) for dK and dQ: its rows sum to zero, so
-// its products cancel, and one bf16 term leaves dQ outside the bf16 bound.
+// as a TPU's default-precision f32 dot would round it. dS for dK and dQ,
+// and P for O = P V, are split into two bf16 terms (head + tail) whose sum
+// keeps 16 bits: dS's rows sum to zero, so dQ = dS K cancels, and a
+// rounding of 2^-9 per term of dS, or of P (which moves O, and through
+// delta = rowsum(dO * O) every dS), leaves dQ outside the bf16 bound.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -75,25 +83,16 @@ constexpr int kCols = 64;               // rows of the tile streamed per step
 constexpr int kTpr = 4;                 // threads per owned row
 constexpr float kNegBig = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
 // Copy rows [row0, row0 + rows) of one (batch, head) slice into shared
 // memory as f32 with a padded leading dimension; rows past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
                                           int row0, int n, int rows) {
     constexpr int LD = D + 1;
     for (int i = threadIdx.x; i < rows * D; i += kThreads) {
         const int r = i / D, c = i - r * D;
         const int g = row0 + r;
-        dst[r * LD + c] = g < n ? to_f32(src[(long long)g * row_stride + c]) : 0.f;
+        dst[r * LD + c] = g < n ? src[(long long)g * row_stride + c] : 0.f;
     }
 }
 
@@ -118,11 +117,12 @@ __device__ __forceinline__ float group_sum(float x) {
 // ---------------------------------------------------------------------------
 // K1: forward. One block per (b*h, 64-row Q tile); K/V tiles stream through.
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Sk, long long msb, long long msq, long long msk) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int8_t* __restrict__ mask,
+                 float* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
+                 long long msb, long long msq, long long msk) {
     constexpr int LD = D + 1, LP = kCols + 1, NC = D / kTpr, NS = kCols / kTpr;
     extern __shared__ float smem[];
     float* sQ = smem;
@@ -135,12 +135,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = threadIdx.x / kTpr, sub = threadIdx.x % kTpr;
     const int qi = q0 + r;
     const long long rs = (long long)H * D;
-    const T* qb = q + (long long)b * Sq * rs + (long long)h * D;
-    const T* kb = k + (long long)b * Sk * rs + (long long)h * D;
-    const T* vb = v + (long long)b * Sk * rs + (long long)h * D;
+    const float* qb = q + (long long)b * Sq * rs + (long long)h * D;
+    const float* kb = k + (long long)b * Sk * rs + (long long)h * D;
+    const float* vb = v + (long long)b * Sk * rs + (long long)h * D;
     const int8_t* mrow = mask ? mask + b * msb + (long long)min(qi, Sq - 1) * msq : nullptr;
 
-    load_tile<T, D>(sQ, qb, rs, q0, Sq, kRows);
+    load_tile<D>(sQ, qb, rs, q0, Sq, kRows);
 
     float m = -INFINITY, l = 0.f, acc[NC];
 #pragma unroll
@@ -148,8 +148,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     for (int k0 = 0; k0 < Sk; k0 += kCols) {
         __syncthreads();  // everyone is done with the previous K/V tile
-        load_tile<T, D>(sK, kb, rs, k0, Sk, kCols);
-        load_tile<T, D>(sV, vb, rs, k0, Sk, kCols);
+        load_tile<D>(sK, kb, rs, k0, Sk, kCols);
+        load_tile<D>(sV, vb, rs, k0, Sk, kCols);
         __syncthreads();
 
         float s[NS], mx = -INFINITY;
@@ -186,9 +186,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     if (qi < Sq) {
         const float denom = fmaxf(l, 1e-30f);
-        T* orow = o + ((long long)b * Sq + qi) * rs + (long long)h * D + sub;
+        float* orow = o + ((long long)b * Sq + qi) * rs + (long long)h * D + sub;
 #pragma unroll
-        for (int j = 0; j < NC; ++j) orow[kTpr * j] = from_f32<T>(acc[j] / denom);
+        for (int j = 0; j < NC; ++j) orow[kTpr * j] = acc[j] / denom;
         if (sub == 0) lse[(long long)bh * Sq + qi] = l > 0.f ? m + logf(denom) : INFINITY;
     }
 }
@@ -197,12 +197,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // K2 for f32: dK and dV. One block per (b*h, 64-row K tile); Q/dO tiles
 // stream through.
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ g, const float* __restrict__ lse,
-                     const float* __restrict__ delta, const int8_t* __restrict__ mask,
-                     T* __restrict__ dk, T* __restrict__ dv,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ g,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int8_t* __restrict__ mask,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      int H, int Sq, int Sk, long long msb, long long msq, long long msk) {
     constexpr int LD = D + 1, LP = kCols + 1, NC = D / kTpr, NS = kCols / kTpr;
     extern __shared__ float smem[];
@@ -220,14 +221,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int r = threadIdx.x / kTpr, sub = threadIdx.x % kTpr;
     const int kr = k0 + r;
     const long long rs = (long long)H * D;
-    const T* qb = q + (long long)b * Sq * rs + (long long)h * D;
-    const T* gb = g + (long long)b * Sq * rs + (long long)h * D;
-    const T* kb = k + (long long)b * Sk * rs + (long long)h * D;
-    const T* vb = v + (long long)b * Sk * rs + (long long)h * D;
+    const float* qb = q + (long long)b * Sq * rs + (long long)h * D;
+    const float* gb = g + (long long)b * Sq * rs + (long long)h * D;
+    const float* kb = k + (long long)b * Sk * rs + (long long)h * D;
+    const float* vb = v + (long long)b * Sk * rs + (long long)h * D;
     const int8_t* mcol = mask ? mask + b * msb + (long long)min(kr, Sk - 1) * msk : nullptr;
 
-    load_tile<T, D>(sK, kb, rs, k0, Sk, kRows);
-    load_tile<T, D>(sV, vb, rs, k0, Sk, kRows);
+    load_tile<D>(sK, kb, rs, k0, Sk, kRows);
+    load_tile<D>(sV, vb, rs, k0, Sk, kRows);
 
     float dka[NC], dva[NC];
 #pragma unroll
@@ -235,8 +236,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
     for (int q0 = 0; q0 < Sq; q0 += kCols) {
         __syncthreads();
-        load_tile<T, D>(sQ, qb, rs, q0, Sq, kCols);
-        load_tile<T, D>(sG, gb, rs, q0, Sq, kCols);
+        load_tile<D>(sQ, qb, rs, q0, Sq, kCols);
+        load_tile<D>(sG, gb, rs, q0, Sq, kCols);
         for (int i = threadIdx.x; i < kCols; i += kThreads) {
             const bool in = q0 + i < Sq;
             sL[i] = in ? lse[(long long)bh * Sq + q0 + i] : INFINITY;
@@ -271,8 +272,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const long long off = ((long long)b * Sk + kr) * rs + (long long)h * D + sub;
 #pragma unroll
         for (int j = 0; j < NC; ++j) {
-            dk[off + kTpr * j] = from_f32<T>(dka[j]);
-            dv[off + kTpr * j] = from_f32<T>(dva[j]);
+            dk[off + kTpr * j] = dka[j];
+            dv[off + kTpr * j] = dva[j];
         }
     }
 }
@@ -280,12 +281,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // ---------------------------------------------------------------------------
 // K3 for f32: dQ. One block per (b*h, 64-row Q tile); K/V tiles stream through.
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ g, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const int8_t* __restrict__ mask,
-                    T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ g,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const int8_t* __restrict__ mask,
+                    float* __restrict__ dq,
                     int H, int Sq, int Sk, long long msb, long long msq, long long msk) {
     constexpr int LD = D + 1, LP = kCols + 1, NC = D / kTpr, NS = kCols / kTpr;
     extern __shared__ float smem[];
@@ -300,16 +302,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int r = threadIdx.x / kTpr, sub = threadIdx.x % kTpr;
     const int qi = q0 + r;
     const long long rs = (long long)H * D;
-    const T* qb = q + (long long)b * Sq * rs + (long long)h * D;
-    const T* gb = g + (long long)b * Sq * rs + (long long)h * D;
-    const T* kb = k + (long long)b * Sk * rs + (long long)h * D;
-    const T* vb = v + (long long)b * Sk * rs + (long long)h * D;
+    const float* qb = q + (long long)b * Sq * rs + (long long)h * D;
+    const float* gb = g + (long long)b * Sq * rs + (long long)h * D;
+    const float* kb = k + (long long)b * Sk * rs + (long long)h * D;
+    const float* vb = v + (long long)b * Sk * rs + (long long)h * D;
     const int8_t* mrow = mask ? mask + b * msb + (long long)min(qi, Sq - 1) * msq : nullptr;
     const float lse_r = qi < Sq ? lse[(long long)bh * Sq + qi] : INFINITY;
     const float delta_r = qi < Sq ? delta[(long long)bh * Sq + qi] : 0.f;
 
-    load_tile<T, D>(sQ, qb, rs, q0, Sq, kRows);
-    load_tile<T, D>(sG, gb, rs, q0, Sq, kRows);
+    load_tile<D>(sQ, qb, rs, q0, Sq, kRows);
+    load_tile<D>(sG, gb, rs, q0, Sq, kRows);
 
     float dqa[NC];
 #pragma unroll
@@ -317,8 +319,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
     for (int k0 = 0; k0 < Sk; k0 += kCols) {
         __syncthreads();
-        load_tile<T, D>(sK, kb, rs, k0, Sk, kCols);
-        load_tile<T, D>(sV, vb, rs, k0, Sk, kCols);
+        load_tile<D>(sK, kb, rs, k0, Sk, kCols);
+        load_tile<D>(sV, vb, rs, k0, Sk, kCols);
         __syncthreads();
 
 #pragma unroll
@@ -341,9 +343,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 
     if (qi < Sq) {
-        T* row = dq + ((long long)b * Sq + qi) * ((long long)H * D) + (long long)h * D + sub;
+        float* row = dq + ((long long)b * Sq + qi) * ((long long)H * D) + (long long)h * D + sub;
 #pragma unroll
-        for (int j = 0; j < NC; ++j) row[kTpr * j] = from_f32<T>(dqa[j]);
+        for (int j = 0; j < NC; ++j) row[kTpr * j] = dqa[j];
     }
 }
 
@@ -382,10 +384,33 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, long long rs
     }
 }
 
-// keep[r][c] = 1 where query q0 + r may attend to key k0 + c: both in range
-// and, given a mask (already offset to the batch), allowed by it.
-__device__ __forceinline__ void keep_tile(uint8_t* keep, const int8_t* mb, long long msq,
+// keep[r][c] is nonzero where query q0 + r may attend to key k0 + c: both
+// in range and, given a mask (already offset to the batch), allowed by it.
+// Returns whether any flag this thread wrote is set. Where the tile lies
+// within Sk and the mask's rows are contiguous and 16-byte aligned (the
+// Transformer's masks), a thread copies 16 mask bytes a load: two loads
+// in flight instead of 32 one-byte loads.
+__device__ __forceinline__ bool keep_tile(uint8_t* keep, const int8_t* mb, long long msq,
                                           long long msk, int q0, int Sq, int k0, int Sk) {
+    bool any = false;
+    if (mb != nullptr && msk == 1 && k0 + kTile <= Sk && msq % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(mb + k0) % 16 == 0) {
+        constexpr int CPR = kTile / 16;  // 16-byte chunks per row
+#pragma unroll
+        for (int j = 0; j < kTile * CPR / kMmaThreads; ++j) {
+            const int i = threadIdx.x + j * kMmaThreads, r = i / CPR, c = (i % CPR) * 16;
+            const int qi = q0 + r;
+            const uint4 f = qi < Sq ? *reinterpret_cast<const uint4*>(mb + qi * msq + k0 + c)
+                                    : make_uint4(0, 0, 0, 0);
+            uint32_t* dst = reinterpret_cast<uint32_t*>(keep + r * kKeepLd + c);
+            dst[0] = f.x;
+            dst[1] = f.y;
+            dst[2] = f.z;
+            dst[3] = f.w;
+            any |= (f.x | f.y | f.z | f.w) != 0;
+        }
+        return any;
+    }
 #pragma unroll 8
     for (int j = 0; j < kTile * kTile / kMmaThreads; ++j) {
         const int i = threadIdx.x + j * kMmaThreads, r = i / kTile, c = i % kTile;
@@ -393,7 +418,9 @@ __device__ __forceinline__ void keep_tile(uint8_t* keep, const int8_t* mb, long 
         bool ok = qi < Sq && kc < Sk;
         if (ok && mb != nullptr) ok = mb[qi * msq + kc * msk] != 0;
         keep[r * kKeepLd + c] = ok;
+        any |= ok;
     }
+    return any;
 }
 
 // A fragment: rows r0..r0+15, cols c0..c0+15 of a shared tile.
@@ -722,6 +749,149 @@ flash_bwd_dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     store_strip<D>(dq + off, sQ, dqa, qw, q0, Sq, rs, lane);
 }
 
+// K1 on the tensor cores. One block per (b*h, 64-row Q tile); K/V tiles and
+// their keep flags stream through two shared stages, as in K3. Per warp and
+// per K tile: S = Q_w K^T (16 x 64) in registers, the online softmax on its
+// accumulator fragments (each row's four lanes share its max by shuffles),
+// and acc = alpha acc + P V with P as two bf16 A fragments (head + tail) in
+// registers.
+// A K tile whose 64 x 64 keep flags are all zero is skipped by the whole
+// block: it would add exp(-1e30 - m) = 0 to every sum, so skipping it is
+// exact (a row that saw only such tiles keeps m = -inf instead of -5e29,
+// and every later alpha is 0 either way).
+template <int D> __host__ __device__ constexpr int fwd_stage_bytes() {
+    return 2 * tile_bytes<D>() + kTile * kKeepLd;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int8_t* __restrict__ mask,
+                     bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
+                     long long msb, long long msq, long long msk) {
+    extern __shared__ __align__(16) unsigned char smem_mma[];
+    bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+    unsigned char* stages = smem_mma + tile_bytes<D>();
+    struct Stage {
+        bf16 *k, *v;
+        uint8_t* keep;
+    };
+    auto stage = [&](int s) {
+        unsigned char* p = stages + s * fwd_stage_bytes<D>();
+        Stage st;
+        st.k = reinterpret_cast<bf16*>(p);
+        st.v = reinterpret_cast<bf16*>(p + tile_bytes<D>());
+        st.keep = p + 2 * tile_bytes<D>();
+        return st;
+    };
+
+    const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+    const int q0 = blockIdx.y * kTile;
+    const int lane = threadIdx.x & 31, qw = (threadIdx.x >> 5) * 16;
+    const int gi = lane >> 2, ti = lane & 3;
+    const long long rs = (long long)H * D;
+    const bf16* kb = k + (long long)b * Sk * rs + (long long)h * D;
+    const bf16* vb = v + (long long)b * Sk * rs + (long long)h * D;
+    const int8_t* mb = mask ? mask + b * msb : nullptr;
+
+    auto load_k_tile = [&](int it) {
+        const Stage st = stage(it & 1);
+        const int k0 = it * kTile;
+        cp_tile<D>(st.k, kb, rs, k0, Sk);
+        cp_tile<D>(st.v, vb, rs, k0, Sk);
+        cp_async_commit();
+        return keep_tile(st.keep, mb, msq, msk, q0, Sq, k0, Sk);
+    };
+
+    const long long off = (long long)b * Sq * rs + (long long)h * D;
+    cp_tile<D>(sQ, q + off, rs, q0, Sq);
+    bool any = load_k_tile(0);  // one group: Q and the first K/V tile
+
+    // Per thread: rows qw + gi and qw + gi + 8 (index r), running max m[r]
+    // and the thread's partial row sum l[r] of its own columns.
+    float acc[D / 8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    Strip<D> fq;
+    const int n_tiles = (Sk + kTile - 1) / kTile;
+    for (int it = 0; it < n_tiles; ++it) {
+        bool any_next = false;
+        if (it + 1 < n_tiles) {
+            any_next = load_k_tile(it + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        const bool live = __syncthreads_or(any);
+        any = any_next;
+        if (it == 0) fq.init(sQ, qw, lane);
+        if (!live) {
+            __syncthreads();  // the stage is refilled next iteration
+            continue;
+        }
+        const Stage st = stage(it & 1);
+        float s[kTile / 16][2][4] = {};
+#pragma unroll
+        for (int kc = 0; kc < kTile / 16; ++kc) strip_dot_rows<D>(s[kc], fq, st.k, kc * 16, lane);
+
+        // s[kc][n][i] is (row qw + gi + 8 (i >> 1), key kc 16 + 8 n + 2 ti + (i & 1))
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int kc = 0; kc < kTile / 16; ++kc)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int qr = qw + gi + 8 * (i >> 1), kr = kc * 16 + 8 * n + 2 * ti + (i & 1);
+                    if (!st.keep[qr * kKeepLd + kr]) s[kc][n][i] = kNegBig;
+                    mx[i >> 1] = fmaxf(mx[i >> 1], s[kc][n][i]);
+                }
+        float alpha[2], m_new[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            m_new[r] = fmaxf(fmaxf(m[r], group_max(mx[r])), 0.5f * kNegBig);
+            alpha[r] = expf(m[r] - m_new[r]);  // 0 on the first live tile (m = -inf)
+            m[r] = m_new[r];
+            l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][i] *= alpha[i >> 1];
+#pragma unroll
+        for (int kc = 0; kc < kTile / 16; ++kc) {
+            uint32_t pa[2][4];
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+                float p[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    p[i] = expf(s[kc][n][i] - m_new[i >> 1]);
+                    l[i >> 1] += p[i];
+                }
+                pack_bf16_split(p[0], p[1], pa[0][2 * n], pa[1][2 * n]);
+                pack_bf16_split(p[2], p[3], pa[0][2 * n + 1], pa[1][2 * n + 1]);
+            }
+            strip_acc<D>(acc, pa, st.v, kc * 16, lane);
+        }
+        __syncthreads();  // the stage is refilled next iteration
+    }
+
+    float denom[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] = group_sum(l[r]);
+        denom[r] = fmaxf(l[r], 1e-30f);
+        const int qi = q0 + qw + gi + 8 * r;
+        if (ti == 0 && qi < Sq)
+            lse[(long long)bh * Sq + qi] = l[r] > 0.f ? m[r] + logf(denom[r]) : INFINITY;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] /= denom[i >> 1];
+    // the warp's own rows of the Q tile: no other warp reads them
+    store_strip<D>(o + off, sQ, acc, qw, q0, Sq, rs, lane);
+}
+
 template <int D> constexpr int fwd_smem() {
     return (int)sizeof(float) * (kRows * (D + 1) + 2 * kCols * (D + 1) + kRows * (kCols + 1));
 }
@@ -739,23 +909,36 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. The
+// tensor-core kernels take one stage of streamed tiles when there is only
+// one tile to stream, two otherwise (the opt-in covers two).
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                void* lse, int B, int H, int Sq, int Sk, long long msb, long long msq,
                long long msk, cudaStream_t stream) {
-    constexpr int smem = fwd_smem<D>();
-    static const cudaError_t attr = allow_smem(flash_fwd_kernel<T, D>, smem);
-    if (attr != cudaSuccess) return (int)attr;
-    dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-    flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const int8_t*)mask, (T*)o, (float*)lse,
-        H, Sq, Sk, msb, msq, msk);
-    return (int)cudaGetLastError();
+    if constexpr (std::is_same_v<T, bf16>) {
+        constexpr int fixed = tile_bytes<D>(), per_stage = fwd_stage_bytes<D>();
+        static const cudaError_t attr =
+            allow_smem(flash_fwd_kernel_mma<D>, fixed + 2 * per_stage);
+        if (attr != cudaSuccess) return (int)attr;
+        const int smem = fixed + (Sk > kTile ? 2 : 1) * per_stage;
+        dim3 grid(B * H, (Sq + kTile - 1) / kTile);
+        flash_fwd_kernel_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int8_t*)mask, (bf16*)o,
+            (float*)lse, H, Sq, Sk, msb, msq, msk);
+        return (int)cudaGetLastError();
+    } else {
+        constexpr int smem = fwd_smem<D>();
+        static const cudaError_t attr = allow_smem(flash_fwd_kernel<D>, smem);
+        if (attr != cudaSuccess) return (int)attr;
+        dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+        flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const int8_t*)mask, (T*)o, (float*)lse,
+            H, Sq, Sk, msb, msq, msk);
+        return (int)cudaGetLastError();
+    }
 }
 
-// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. The
-// tensor-core kernels take one stage of streamed tiles when there is only
-// one tile to stream, two otherwise (the opt-in covers two).
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                const void* delta, const void* mask, void* dk, void* dv, int B, int H, int Sq,
@@ -774,10 +957,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
         return (int)cudaGetLastError();
     } else {
         constexpr int smem = dkv_smem<D>();
-        static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
+        static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<D>, smem);
         if (attr != cudaSuccess) return (int)attr;
         dim3 grid(B * H, (Sk + kRows - 1) / kRows);
-        flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
             (const float*)delta, (const int8_t*)mask, (T*)dk, (T*)dv, H, Sq, Sk, msb, msq, msk);
         return (int)cudaGetLastError();
@@ -801,10 +984,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g, const 
         return (int)cudaGetLastError();
     } else {
         constexpr int smem = dq_smem<D>();
-        static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+        static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<D>, smem);
         if (attr != cudaSuccess) return (int)attr;
         dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-        flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
             (const float*)delta, (const int8_t*)mask, (T*)dq, H, Sq, Sk, msb, msq, msk);
         return (int)cudaGetLastError();

@@ -13,8 +13,11 @@ The port matches the reference's numerics where the two frameworks differ:
 - layer norms compute in f32 with epsilon 1e-6 (flax's default);
 - q is scaled by 1/sqrt(d_head) before the kernel. The reference's
   ``bf16 / np.float64`` promotes q to f32 there; the port keeps q in bf16,
-  which is exact when sqrt(d_head) is a power of two (d_head 64), and the
-  kernels compute in f32 either way;
+  which is exact when sqrt(d_head) is a power of two (d_head 64);
+- the attention kernels take bf16 operands on the tensor cores and keep
+  softmax statistics and accumulators in f32, where the reference's
+  kernels compute in f32: they round P to bf16 for dV, and split P (for
+  O) and dS (for dK and dQ) into two bf16 terms, head + tail;
 - the embedding lookup is bf16 and the tied readout is
   ``bf16(y) @ f32 embedding`` in f32, as jnp promotes it;
 - init mirrors flax in distribution: truncated-normal lecun for the dense

@@ -10,9 +10,10 @@ the three Pallas TPU kernels:
   K tile;
 - K3 ``flash_bwd_dq``  ← ``_flash_bwd_dq_kernel``: dQ, one block per Q tile.
 
-For bf16, K2 and K3 run on the tensor cores (``mma.sync``, with P and dS
-rounded to bf16 operands in registers, dS as two terms); K1 and the f32
-backward compute in f32 on the CUDA cores.
+For bf16 all three run on the tensor cores (``mma.sync``, with P and dS
+rounded to bf16 operands in registers: P as one term for dV, P for O and
+dS as two terms, head + tail); K1 skips K tiles that its mask hides from
+a whole 64-row Q tile. For f32 they compute in f32 on the CUDA cores.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
 tensor it runs the plain PyTorch version beside it (``*_plain``: the same

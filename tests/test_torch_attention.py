@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from metaopt_tpu.ops.attention import (
+    _block_and_pad,
     _pallas_forward,
     _reference_attention,
     flash_attention as jax_flash,
@@ -119,6 +120,120 @@ def test_bf16_io_matches_pallas():
     pallas = jax_flash(jq, jk, jv, jm, impl="pallas", interpret=True)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(pallas, np.float32),
                                atol=3e-2, rtol=3e-2)
+
+
+KERNEL_TILE = 64  # rows and columns of flash_fwd_kernel_mma's tiles
+
+
+def mma_forward_model(q, k, v, keep, skip_empty_tiles=True):
+    """Test-only model of the arithmetic of ``flash_fwd_kernel_mma`` (the bf16
+    K1 in csrc/flash_attention.cu), which no CPU test can run: 64-column K
+    tiles; S in f32 from the bf16 operands; masked scores -1e30 and the
+    running max floored at -5e29; l summed from the f32 P, and P entering
+    P·V as two bf16 terms, head + tail. With ``skip_empty_tiles``, a K tile
+    whose keep flags are all zero for a 64-row Q tile leaves that Q tile's
+    rows untouched, as the kernel's block skips it. Returns (out bf16
+    (B,Sq,H,D), lse (B,H,Sq), the number of (batch, head, Q tile, K tile)
+    steps skipped)."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    b, h, sq, d = qf.shape
+    sk = kf.shape[2]
+    n_qt = -(-sq // KERNEL_TILE)
+    m = torch.full((b, h, sq, 1), -float("inf"))
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    n_skipped = 0
+    for k0 in range(0, sk, KERNEL_TILE):
+        cols = slice(k0, k0 + KERNEL_TILE)
+        kt = keep[:, None, :, cols]                                   # (B, 1, Sq, Bk)
+        s = torch.where(kt, qf @ kf[:, :, cols].transpose(-1, -2), -1e30)
+        m_new = torch.clamp_min(torch.maximum(m, s.amax(-1, keepdim=True)), -5e29)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l_new = alpha * l + p.sum(-1, keepdim=True)
+        head = p.bfloat16().float()
+        acc_new = alpha * acc + (head + (p - head).bfloat16().float()) @ vf[:, :, cols]
+        live = torch.ones((b, 1, sq, 1), dtype=torch.bool)
+        if skip_empty_tiles:
+            rows = kt.any(-1)                                         # (B, 1, Sq)
+            rows = torch.nn.functional.pad(rows, (0, n_qt * KERNEL_TILE - sq))
+            tiles = rows.reshape(b, 1, n_qt, KERNEL_TILE).any(-1)     # (B, 1, n_qt)
+            n_skipped += h * int((~tiles).sum())
+            live = tiles.repeat_interleave(KERNEL_TILE, -1)[..., :sq, None]
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+        acc = torch.where(live, acc_new, acc)
+    out = (acc / torch.clamp_min(l, 1e-30)).bfloat16().permute(0, 2, 1, 3)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), float("inf"))
+    return out, lse[..., 0], n_skipped
+
+
+def pallas_forward_with_lse(q, k, v, mask):
+    """(out, lse) of the JAX package's Pallas forward in interpret mode, with
+    ragged lengths padded to its blocks as its ``flash_attention`` pads them."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    bq, sq_p = _block_and_pad(sq, 128)
+    bk, sk_p = _block_and_pad(sk, 128)
+    q = jnp.pad(q, ((0, 0), (0, sq_p - sq), (0, 0), (0, 0)))
+    k = jnp.pad(k, ((0, 0), (0, sk_p - sk), (0, 0), (0, 0)))
+    v = jnp.pad(v, ((0, 0), (0, sk_p - sk), (0, 0), (0, 0)))
+    mask = jnp.pad(mask, ((0, 0), (0, sq_p - sq), (0, sk_p - sk)))
+    out, lse = _pallas_forward(q, k, v, mask, bq, bk, True)
+    return np.asarray(out[:, :sq], np.float32), np.asarray(lse[..., :sq])
+
+
+MMA_MODEL_MASKS = ("padding", "causal", "random", "empty_rows")
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("mask_kind", MMA_MODEL_MASKS)
+def test_mma_forward_model_matches_pallas(mask_kind, d):
+    """The bf16 K1's numerics (P rounded to bf16, 64-column tiles, skipped
+    tiles) against the Pallas forward in bf16, at a ragged multi-tile shape
+    (two Q tiles, three K tiles), at the bf16 bound; and skipping fully
+    masked tiles changes no bit of the result."""
+    b, sq, sk, h = 2, 80, 150, 2
+    arrays = make_inputs(zlib.crc32(f"mma-{mask_kind}-{d}".encode()) % 1000, b, sq, sk, h, d,
+                         mask_kind)
+    q, k, v, mask = to_torch(*arrays, dtype=torch.bfloat16)
+    out, lse, n_skipped = mma_forward_model(q, k, v, mask)
+    out_all, lse_all, none_skipped = mma_forward_model(q, k, v, mask, skip_empty_tiles=False)
+    assert none_skipped == 0
+    if mask_kind in ("causal", "empty_rows"):
+        assert n_skipped > 0  # the skip is exercised, so the comparison below means something
+    assert torch.equal(out.view(torch.int16), out_all.view(torch.int16))
+    assert torch.equal(lse.view(torch.int32), lse_all.view(torch.int32))
+
+    jout, jlse = pallas_forward_with_lse(*to_jax(*arrays, dtype=jnp.bfloat16))
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    np.testing.assert_allclose(out.float().numpy(), jout, atol=3e-2, rtol=3e-2)
+    np.testing.assert_array_equal(np.isinf(lse.numpy()), np.isinf(jlse))
+    fin = np.isfinite(jlse)
+    np.testing.assert_allclose(lse.numpy()[fin], jlse[fin], atol=3e-2, rtol=3e-2)
+
+
+def test_mma_forward_model_feeds_the_backward_within_the_bound():
+    """The chain the Transformer runs: the bf16 K1's O and lse (the model
+    above) feeding the backward passes, through delta = rowsum(dO * O),
+    against the same chain from the plain forward, at the slice's shape
+    (B 32, S 64, H 8, D 64, causal) and the bf16 bound. dQ = dS K cancels
+    (dS's rows sum to zero), so it amplifies any error in O: with P as one
+    bf16 term, O moves by up to two bf16 steps and dQ leaves the bound."""
+    b, s, h, d = 32, 64, 8, 64
+    q, k, v, mask = to_torch(*make_inputs(21, b, s, s, h, d, "causal"), dtype=torch.bfloat16)
+    m8 = mask.to(torch.int8)
+    g = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (b, s, h, d)).astype(np.float32)).bfloat16()
+    grads = []
+    for out, lse in (mma_forward_model(q, k, v, mask)[:2], att.flash_fwd_plain(q, k, v, m8)):
+        delta = att.attention_delta(g, out)
+        dk, dv = att.flash_bwd_dkv_plain(q, k, v, g, lse, delta, m8)
+        dq = att.flash_bwd_dq_plain(q, k, v, g, lse, delta, m8)
+        grads.append((out, dq, dk, dv))
+    for mine, ref in zip(*grads):
+        np.testing.assert_allclose(mine.float().numpy(), ref.float().numpy(),
+                                   atol=3e-2, rtol=3e-2)
 
 
 GRAD_CASES = {
