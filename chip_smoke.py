@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through five phases and exits non-zero if any fails:
+``metaopt_tpu``) through six phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -33,10 +33,21 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
 5. profile: times five train steps, traces five more, and prints the
    device busy share of the step, device time by kind of kernel, the
    kernels that take the most device time and the flash-attention
-   kernels; it fails if the trace holds no ``flash_fwd_kernel_mma``.
+   kernels; it fails if the trace holds no ``flash_fwd_kernel_mma``;
+6. tpe: ``tpe_suggest_fused`` on the card against the CPU on the same
+   inputs and injected draws (n 16 and 4096, d 4 with one categorical
+   column, a NaN objective, a liar overlay): fit tensors within 1e-5,
+   identical winners; the card's own draws against the CPU generator's by a
+   two-sample KS test; then ``build_experiment(algorithm={"tpe": ...})
+   .workon`` of BASELINE config 2 (the 4-hparam MLP, full-size trials: 8192
+   train and 2048 validation images, batch 256, 3 epochs), 10 random then 6
+   EI trials; then the suggest side's times: host ms per EI launch, device
+   ms and CUDA kernels per ``tpe_suggest_fused`` and of its scorer alone,
+   at n 10-16 and 4096, H2D bytes per suggest, prefetch hits and misses,
+   ms per MLP train step and per trial.
 
-It prints a ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": {...}}`` line.
+It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line and,
+last, the ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 STEPS = 20             # train steps per trial
 TRIALS = 3
@@ -55,6 +67,14 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16; f32 non-tensor
 TOL = {"float32": {"fwd": 1e-5, "grad": 1e-4}, "bfloat16": {"fwd": 3e-2, "grad": 3e-2}}
 KERNEL_SOURCE = "metaopt_tpu_torch/csrc/flash_attention.cu"
+TPE_SPACE = {  # BASELINE config 2: examples/mlp_mnist.py's docstring
+    "lr": "loguniform(1e-4, 1e-1)",
+    "width": "uniform(64, 1024, discrete=True)",
+    "depth": "uniform(1, 6, discrete=True)",
+    "dropout": "uniform(0.0, 0.5)",
+}
+TPE_TRIALS, TPE_INITIAL = 16, 10
+TPE_TOL = 1e-5          # fit tensors, card against CPU
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
     "flash_bwd_dkv": "metaopt_tpu/ops/attention.py:181 (_flash_bwd_dkv_kernel)",
@@ -405,6 +425,254 @@ def profile_train_step(torch, tfm, steps: int = 5):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: TPE on the card
+
+
+def tpe_case(np, n: int, seed: int):
+    """Observation rows (d 4, the last column categorical with 3 choices),
+    objectives with a NaN, 3 pending rows for the liar overlay, and the
+    injected draws of 2 pools of 8 slots x 24 candidates."""
+    rng = np.random.default_rng(seed)
+    X = rng.random((n, 4)).astype(np.float32)
+    X[:, 3] = ((rng.integers(0, 3, n) + 0.5) / 3).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    y[1] = np.nan
+    pend = [rng.random(4).astype(np.float32) for _ in range(3)]
+    C = 8 * 24
+    draws = [tuple(rng.random((C, 4)).astype(np.float32) if i in (0, 3)
+                   else rng.standard_normal((C, 4)).astype(np.float32) for i in range(4))
+             for _ in range(2)]
+    return list(X), [float(v) for v in y], pend, draws
+
+
+def tpe_on(torch, np, P, ObservationBuffer, case, dev):
+    """(fit, winners, inputs) of ``tpe_suggest_fused`` on ``dev``: the
+    buffer synced from the rows, the liar overlay, then the launch."""
+    rows, vals, pend, pools = case
+    buf = ObservationBuffer(4, dev)
+    buf.sync(rows, vals)
+    Xa, ya, n_eff = buf.overlay(pend, float(np.nanmean(vals)))
+    nch = torch.tensor([1, 1, 1, 3], dtype=torch.int32, device=dev)
+    cont = nch <= 1
+    g_pad, b_pad = P.split_pads(n_eff, 0.25)
+    kw = dict(kmax=3, equal_weight=False, n_good_pad=g_pad, n_bad_pad=b_pad)
+    args = (Xa, ya, n_eff, 0, P.stream_seed(0, len(vals)), nch, cont, 0.25, 1.0, 25)
+    fit = P._tpe_fit(Xa, ya, n_eff, nch, 0.25, 1.0, 25, **kw)
+    injected = [tuple(torch.from_numpy(a).to(dev) for a in pool) for pool in pools]
+    win = P.tpe_suggest_fused(*args, n_cand=24, n_out=8, n_pools=2, draws=injected, **kw)
+    return fit, win, (args, kw)
+
+
+def profile_calls(torch, fn, n: int = 10):
+    """(host ms per call, device ms per call, CUDA kernels per call) of
+    ``fn``: host time around ``n`` synchronized calls untraced, device
+    time and kernel count from torch.profiler over ``n`` more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof, n)
+        dev_ms, kernels = sum(r[1] for r in rows), sum(r[2] for r in rows)
+    except Exception as err:  # the profiler is a measurement aid only
+        log(f"  (torch.profiler unavailable: {type(err).__name__}: {err})")
+        dev_ms, kernels = None, None
+    return host_ms, dev_ms, kernels
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def tpe_phase(torch, smi: str):
+    import numpy as np
+    import scipy.stats
+
+    from metaopt_tpu_torch import build_experiment
+    from metaopt_tpu_torch.algo import ObservationBuffer, make_algorithm
+    from metaopt_tpu_torch.ledger.trial import Trial
+    from metaopt_tpu_torch.models import mlp
+    from metaopt_tpu_torch.ops import tpe_math as P
+
+    out = {"card": smi}
+    # -- card against CPU on the same inputs and draws ---------------------
+    agree = {}
+    for n in (16, 4096):
+        case = tpe_case(np, n, seed=n)
+        fit_c, win_c, _ = tpe_on(torch, np, P, ObservationBuffer, case, "cuda")
+        fit_h, win_h, _ = tpe_on(torch, np, P, ObservationBuffer, case, "cpu")
+        errs = {}
+        for name, a, b in zip(P.TPEFit._fields, fit_c, fit_h):
+            a = a.cpu()
+            if not torch.equal(torch.isinf(a), torch.isinf(b)):
+                raise AssertionError(f"[tpe] n {n}: {name} -inf pattern differs")
+            fin = torch.isfinite(b)
+            errs[name] = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+            if not torch.allclose(a[fin], b[fin], rtol=TPE_TOL, atol=TPE_TOL):
+                raise AssertionError(f"[tpe] n {n}: {name} off by {errs[name]:.3e}")
+        same = torch.equal(win_c.cpu(), win_h)
+        agree[n] = {"fit_max_abs_err": max(errs.values()), "winners_identical": same,
+                    "winners_max_abs_diff": float((win_c.cpu() - win_h).abs().max())}
+        log(f"[tpe] card vs cpu, n {n} (+3 pending): fit max |diff| "
+            f"{max(errs.values()):.3e} (tol {TPE_TOL}); winners identical: {same}")
+        if not same:
+            raise AssertionError(f"[tpe] n {n}: the card's winners differ from the CPU's")
+    out["card_vs_cpu"] = agree
+
+    # the card's own draws against the CPU generator's, one fit, 512 winners
+    case = tpe_case(np, 64, seed=5)
+    _, _, (args, kw) = tpe_on(torch, np, P, ObservationBuffer, case, "cuda")
+    wide = dict(kw, n_cand=24, n_out=512)
+    card = P.tpe_suggest_fused(*args, **wide).cpu().numpy()
+    _, _, (args_h, _) = tpe_on(torch, np, P, ObservationBuffer, case, "cpu")
+    host = P.tpe_suggest_fused(*args_h, **wide).numpy()
+    ks = [float(scipy.stats.ks_2samp(card[:, j], host[:, j]).pvalue) for j in range(4)]
+    log(f"[tpe] card draws vs cpu draws, 512 winners: KS p-values {ks} (bound > 1e-3)")
+    if min(ks) <= 1e-3:
+        raise AssertionError("[tpe] the card's draws do not follow the CPU's mixture")
+    out["ks_pvalues_card_vs_cpu_draws"] = ks
+
+    # -- the config-2 hunt -------------------------------------------------
+    exp = build_experiment("tpe-mlp", space=TPE_SPACE, max_trials=TPE_TRIALS,
+                           algorithm={"tpe": {"seed": 0, "n_initial_points": TPE_INITIAL}})
+    algo = make_algorithm(exp.space, exp.experiment.algorithm)
+    launch = []
+    ei_launch = algo._launch_ei
+
+    def timed_launch(num):
+        t0 = time.perf_counter()
+        pts = ei_launch(num)
+        launch.append(((time.perf_counter() - t0) * 1e3, len(algo._y)))
+        return pts
+
+    algo._launch_ei = timed_launch
+    rep, reports = {}, []
+    trial_fn = mlp.make_objective(report=rep)
+
+    def objective(params):
+        err = trial_fn(params)
+        reports.append(dict(rep))
+        return err
+
+    t0 = time.perf_counter()
+    stats = exp.workon(objective, algorithm=algo)
+    algo.drain_suggest_ahead()
+    torch.cuda.synchronize()
+    hunt_s = time.perf_counter() - t0
+    done = exp.fetch_trials("completed")
+    tel = algo.telemetry()
+    ei_suggests = tel["prefetch_hits"] + tel["prefetch_misses"]
+    log(f"[tpe] hunt: {len(done)} completed in {hunt_s:.2f} s; telemetry {tel}; "
+        f"producer {stats.producer_timings}")
+    for t in done:
+        log(f"  {t.params}: val error {t.objective:.4f}")
+    if len(done) != TPE_TRIALS or not all(math.isfinite(t.objective) for t in done):
+        raise AssertionError(f"[tpe] expected {TPE_TRIALS} finite trials, got "
+                             f"{[(t.status, t.objective) for t in exp.fetch_trials()]}")
+    if tel["kernel_launches"] < 1 or ei_suggests < TPE_TRIALS - TPE_INITIAL:
+        raise AssertionError(f"[tpe] the EI path ran too little: {tel}")
+    if not all(t.params in exp.space for t in done):
+        raise AssertionError("[tpe] a trial's point lies outside the space")
+    if algo._buf.Xdev is None or algo._buf.Xdev.device.type != "cuda":
+        raise AssertionError("[tpe] the observation buffer is not on the card")
+    step_ms = [r["train_s"] / r["steps"] * 1e3 for r in reports]
+    trial_s = [r["trial_s"] for r in reports]
+    launch_small = [ms for ms, _ in launch]
+    log(f"[tpe] EI launches at n {sorted({n for _, n in launch})}: host ms "
+        f"{[round(ms, 3) for ms in launch_small]}; MLP ms/step median "
+        f"{median(step_ms):.3f} (first trial {step_ms[0]:.3f}); s/trial median "
+        f"{median(trial_s):.3f} (first {trial_s[0]:.3f})")
+    out["hunt"] = {
+        "trials": len(done), "wall_s": hunt_s, "telemetry": tel,
+        "ei_suggests": ei_suggests, "h2d_bytes_per_ei_suggest": tel["h2d_bytes"] / ei_suggests,
+        "launch_host_ms": launch_small, "launch_n_obs": [n for _, n in launch],
+        "mlp_ms_per_step": step_ms, "mlp_s_per_trial": trial_s,
+        "mlp_ms_per_step_median": median(step_ms), "mlp_s_per_trial_median": median(trial_s),
+        "producer_timings": stats.producer_timings,
+        "best": min(t.objective for t in done),
+    }
+
+    # -- suggest-side times at n 16 and 4096 --------------------------------
+    sizes = {}
+    for n in (16, 4096):
+        tpe = make_algorithm(exp.space, {"tpe": {"seed": 1, "n_initial_points": TPE_INITIAL}})
+        pts = exp.space.sample(n, seed=n)
+        vals = np.random.default_rng(n).random(n)
+        trials = []
+        for p, v in zip(pts, vals):
+            t = Trial(params=p, experiment="timing", status="completed")
+            t.attach_results([{"name": "o", "type": "objective", "value": float(v)}])
+            trials.append(t)
+        tpe._suggest_ahead_async = lambda: None       # launches only when timed
+        tpe.observe(trials)
+        t0 = time.perf_counter()
+        tpe._launch_ei(8)                             # first launch: bulk upload
+        first_ms = (time.perf_counter() - t0) * 1e3
+        host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            tpe._launch_ei(8)
+            host.append((time.perf_counter() - t0) * 1e3)
+        # device syncs of one steady launch: torch flags each one it makes
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                tpe._launch_ei(8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        buf = tpe._buf
+        g_pad, b_pad = P.split_pads(n, tpe.gamma)
+        kw = dict(n_cand=tpe.n_ei_candidates, n_out=8, kmax=tpe._kmax,
+                  equal_weight=tpe.equal_weight, n_good_pad=g_pad, n_bad_pad=b_pad)
+        args = (buf.Xdev, buf.ydev, n, 0, 0, tpe._n_choices_dev, tpe._cont_mask_dev,
+                tpe.gamma, tpe.prior_weight, tpe.full_weight_num)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        P.tpe_suggest_fused(*args, **kw).cpu()
+        peak = torch.cuda.max_memory_allocated() - base
+        call_host, call_dev, call_kernels = profile_calls(
+            torch, lambda: P.tpe_suggest_fused(*args, **kw).cpu())
+        fit = P._tpe_fit(*args[:3], args[5], *args[7:], kmax=kw["kmax"],
+                         equal_weight=kw["equal_weight"], n_good_pad=g_pad, n_bad_pad=b_pad)
+        cand = P._sample_candidates(fit, P.pool_draws(0, 0, 8 * 24, 4, "cuda"), args[5],
+                                    args[6], kw["kmax"])
+        sc_host, sc_dev, sc_kernels = profile_calls(
+            torch, lambda: P._score_candidates(fit, cand, args[5], args[6]))
+        row = {
+            "launch_host_ms_median": median(host), "launch_host_ms": host,
+            "first_launch_host_ms": first_ms, "syncs_per_launch": syncs,
+            "fused_host_ms": call_host, "fused_device_ms": call_dev,
+            "fused_cuda_kernels": call_kernels, "fused_peak_bytes": peak,
+            "scorer_device_ms": sc_dev, "scorer_cuda_kernels": sc_kernels,
+            "scorer_share_of_launch": (sc_dev / median(host)) if sc_dev else None,
+            "device_share_of_launch": (call_dev / median(host)) if call_dev else None,
+            "n_good_pad": g_pad, "n_bad_pad": b_pad,
+            "h2d_bytes_first_launch": buf.h2d_bytes,
+        }
+        sizes[n] = row
+        log(f"[tpe] n {n}: _launch_ei host {median(host):.3f} ms median (first "
+            f"{first_ms:.3f}), {syncs} device sync(s); tpe_suggest_fused host {call_host:.3f} ms, device "
+            f"{call_dev} ms in {call_kernels} CUDA kernels, peak {peak} bytes; "
+            f"scorer device {sc_dev} ms in {sc_kernels} kernels; card {smi}")
+    out["sizes"] = sizes
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -572,6 +840,9 @@ def main() -> int:
                                          for r in breakdown["flash"]):
         raise AssertionError("the train step's trace shows no flash_fwd_kernel_mma")
 
+    # -- 6. TPE on the card ---------------------------------------------------
+    tpe_stats = tpe_phase(torch, smi)
+
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         row = dict(timing_stats[name])
@@ -589,6 +860,7 @@ def main() -> int:
         "ms_per_step": ms_step, "tokens_per_s": warm["tokens_per_step"] / ms_step * 1e3,
         "peak_mem_bytes": peak_mem, "build_s": build_s, "card": smi,
         "profile": breakdown}}), flush=True)
+    print(json.dumps({"tpe": tpe_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,9 @@ A second package beside the JAX one, held against it module by module. It
 imports ``torch`` and never JAX nor anything of ``metaopt_tpu``. Device
 entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 What is ported so far: the ``build_experiment(...).workon(fn)`` path with
-random search and the in-memory ledger, and the demo Transformer with its
-flash-attention kernels written in CUDA C++ for Hopper (``csrc/``).
+random search or TPE (its EI launches on the device) and the in-memory
+ledger, the demo MLP, and the demo Transformer with its flash-attention
+kernels written in CUDA C++ for Hopper (``csrc/``).
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,19 @@
 """Optimization algorithms (port of ``metaopt_tpu.algo``).
 
-Only what is ported is registered: the :class:`BaseAlgorithm` contract, the
-registry, :func:`make_algorithm` and :class:`Random`. The others (TPE and
-the rest) are queued in ROADMAP.md.
+Only what is ported is registered: the :class:`BaseAlgorithm` contract with
+the :class:`SuggestAhead` mixin, the registry, :func:`make_algorithm`,
+:class:`Random` and :class:`TPE`. The others are queued in ROADMAP.md.
 """
 
-from metaopt_tpu_torch.algo.base import BaseAlgorithm, algo_registry, make_algorithm
+from metaopt_tpu_torch.algo.base import (
+    BaseAlgorithm,
+    SuggestAhead,
+    algo_registry,
+    make_algorithm,
+)
+from metaopt_tpu_torch.algo.obs_buffer import ObservationBuffer
 from metaopt_tpu_torch.algo.random_search import Random
+from metaopt_tpu_torch.algo.tpe import TPE
 
-__all__ = ["BaseAlgorithm", "algo_registry", "make_algorithm", "Random"]
+__all__ = ["BaseAlgorithm", "SuggestAhead", "algo_registry", "make_algorithm",
+           "ObservationBuffer", "Random", "TPE"]

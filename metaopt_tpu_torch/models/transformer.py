@@ -50,6 +50,15 @@ _LN_EPS = 1e-6  # flax nn.LayerNorm default
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
+@torch.no_grad()
+def init_dense_like_flax(layer: nn.Linear, generator: torch.Generator) -> None:
+    """flax ``Dense``'s defaults: a lecun-normal kernel truncated to two
+    standard deviations, and a zero bias."""
+    std = math.sqrt(1.0 / layer.in_features) / _TRUNC_STD
+    nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+    nn.init.zeros_(layer.bias)
+
+
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """flax ``Dense(dtype=bf16)``: input, kernel and bias all cast to bf16;
     the product is rounded to bf16 before the bias add, as in flax."""
@@ -143,7 +152,8 @@ class Transformer(nn.Module):
         self.vocab = vocab
         self.max_len = max_len
         self.embed = nn.Embedding(vocab, d_model)
-        self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
+        # zeros until init_like_flax or a loaded state: never uninitialized memory
+        self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
         self.enc = nn.ModuleList(
             EncoderLayer(d_model, n_heads, d_ff) for _ in range(n_layers))
         self.enc_ln = nn.LayerNorm(d_model)
@@ -156,10 +166,7 @@ class Transformer(nn.Module):
         """Re-initialize in flax's distributions from ``generator``."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                nn.init.zeros_(mod.bias)
+                init_dense_like_flax(mod, generator)
             elif isinstance(mod, nn.LayerNorm):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)

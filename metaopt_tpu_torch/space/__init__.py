@@ -13,6 +13,7 @@ from metaopt_tpu_torch.space.dimensions import (
 )
 from metaopt_tpu_torch.space.space import Space
 from metaopt_tpu_torch.space.builder import PriorSyntaxError, build_space, parse_prior
+from metaopt_tpu_torch.space.transforms import UnitCube
 
 __all__ = [
     "Dimension",
@@ -24,4 +25,5 @@ __all__ = [
     "PriorSyntaxError",
     "parse_prior",
     "build_space",
+    "UnitCube",
 ]

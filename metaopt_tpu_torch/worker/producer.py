@@ -2,6 +2,7 @@
 
 Port of ``metaopt_tpu/worker/producer.py``, trimmed to the local
 :class:`Producer` cycle: fetch completed trials → ``algo.observe()`` →
+``algo.set_pending(reserved)`` for parallel-strategy algorithms →
 ``algo.suggest(pool_size)`` → register (the ledger's duplicate detection
 absorbs suggestion races between workers). The reference's warm start,
 transfer priors and EVC branch adaptation, and the coordinator-hosted
@@ -43,6 +44,11 @@ class Producer:
         )
         self.algorithm.observe(new_done)
         self._completed_cursor = next_cursor
+        if self.algorithm.supports_pending:
+            # parallel strategy (lineage "liar"): in-flight trials join
+            # the fit with a lie objective so N racing workers don't pile
+            # suggestions onto points already being evaluated
+            self.algorithm.set_pending(exp.fetch_trials("reserved"))
         self.timings["observe_s"] += time.perf_counter() - t0
         self.timings["cycles"] += 1
 

@@ -39,7 +39,9 @@ def test_scan_sees_the_whole_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for must in ("metaopt_tpu_torch/ops/attention.py",
                  "metaopt_tpu_torch/models/transformer.py",
-                 "metaopt_tpu_torch/client/api.py", "chip_smoke.py"):
+                 "metaopt_tpu_torch/client/api.py", "metaopt_tpu_torch/algo/tpe.py",
+                 "metaopt_tpu_torch/ops/tpe_math.py", "metaopt_tpu_torch/models/mlp.py",
+                 "chip_smoke.py"):
         assert must in names
 
 

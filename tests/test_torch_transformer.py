@@ -153,6 +153,16 @@ def test_first_update_uses_zero_learning_rate():
         assert torch.equal(v.detach(), before[k]), k
 
 
+def test_fresh_model_holds_no_uninitialized_memory():
+    # freed NaNs of the same size are what a torch.empty parameter picks up
+    junk = torch.full((HP["max_len"], HP["d_model"]), float("nan"))
+    del junk
+    model = tt.make_model(HP)
+    for k, v in model.named_parameters():
+        assert torch.isfinite(v).all(), k
+    assert not model.pos_embed.any()
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tt.make_model(dict(HP, n_experts=4))
