@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through six phases and exits non-zero if any fails:
+``metaopt_tpu``) through seven phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -44,21 +44,38 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    EI trials; then the suggest side's times: host ms per EI launch, device
    ms and CUDA kernels per ``tpe_suggest_fused`` and of its scorer alone,
    at n 10-16 and 4096, H2D bytes per suggest, prefetch hits and misses,
-   ms per MLP train step and per trial.
+   ms per MLP train step and per trial;
+7. hunt: the port's CLI, ``python -m metaopt_tpu_torch hunt`` in fresh
+   processes with subprocess trials on a ``file:`` ledger in a temp dir:
+   (a) BASELINE config 1, random search (seed 0) on
+   ``metaopt_tpu_torch/examples/rosenbrock.py`` with 4 workers and 100
+   trials — all completed, none broken, none run twice, a finite best, and
+   ``status --json`` from another fresh process agreeing; (b) BASELINE
+   config 2, TPE (``examples/tpe.yaml``'s settings, passed as JSON) on
+   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 16 trials each a fresh
+   process on the card — finite, at least 6 suggested by EI, in the space,
+   each on CUDA — split into process start → first CUDA op, training, and
+   the rest of the trial's ledger wall; (c) ``cuda_backend_reachable()``.
 
-It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line and,
-last, the ``{"ok": true, "device": {...}}`` line.
+It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
+``{"hunt": {...}}`` line and, last, the ``{"ok": true, "device": {...}}``
+line.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 STEPS = 20             # train steps per trial
 TRIALS = 3
@@ -74,6 +91,14 @@ TPE_SPACE = {  # BASELINE config 2: examples/mlp_mnist.py's docstring
     "dropout": "uniform(0.0, 0.5)",
 }
 TPE_TRIALS, TPE_INITIAL = 16, 10
+ROSEN_TRIALS, ROSEN_WORKERS = 100, 4    # BASELINE config 1
+ROSEN_SPACE = {"x": "uniform(-5, 10)", "y": "uniform(-5, 10)"}
+# a CLI process's deadline: its own start (import torch, ~10 s on the card's
+# host; TPE's CUDA context) plus an allowance per trial and worker, ~3x the
+# slowest trial measured (config 1 0.41 s, config 2 31 s with torch.optim's
+# first Adam, which the MLP no longer builds; PR 5's chip runs)
+HUNT_START_S = 120
+ROSEN_TRIAL_S, MLP_TRIAL_S = 5, 45
 TPE_TOL = 1e-5          # fit tensors, card against CPU
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
@@ -673,6 +698,205 @@ def tpe_phase(torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the hunt CLI with subprocess trials
+
+
+def run_cli(args, root: Path, env, trials: int = 0, workers: int = 1, trial_s: float = 0.0):
+    """``python -m metaopt_tpu_torch ARGS`` in a fresh process: (parsed
+    JSON stdout, wall s). Its deadline is ``HUNT_START_S`` plus
+    ``trial_s`` for each of the ``trials`` a worker of ``workers`` runs. On
+    the deadline the hunt gets SIGINT (it kills its trial's process group
+    and marks the trial interrupted), then SIGKILL."""
+    deadline_s = HUNT_START_S + trial_s * math.ceil(trials / workers)
+    t0 = time.perf_counter()
+    with open(root / "cli.out", "w+") as out, open(root / "cli.err", "w+") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "metaopt_tpu_torch", *args],
+                                stdout=out, stderr=err, env=env, cwd=root)
+        try:
+            rc = proc.wait(timeout=deadline_s)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            rc = None
+        wall = time.perf_counter() - t0
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    if rc != 0:
+        raise AssertionError(f"[hunt] {' '.join(args[:3])} exited {rc} (deadline "
+                             f"{deadline_s:.0f} s); stderr tail:\n"
+                             f"{stderr[-3000:]}")
+    return json.loads(stdout), wall
+
+
+def statistics_of(t):
+    return {r.name: r.value for r in t.results if r.type == "statistic"}
+
+
+def hunt_phase(torch, smi: str):
+    from metaopt_tpu_torch.ledger import FileLedger
+    from metaopt_tpu_torch.space import build_space
+    from metaopt_tpu_torch.utils.procs import cuda_backend_reachable
+
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_hunt_"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    ledger = f"file:{root / 'ledger'}"
+    out = {"card": smi}
+    try:
+        import yaml  # noqa: F401
+        out["pyyaml"] = True
+    except ImportError:
+        out["pyyaml"] = False
+    log(f"[hunt] PyYAML importable: {out['pyyaml']} (the configs below are JSON either way)")
+    try:
+        # -- (a) BASELINE config 1 -----------------------------------------
+        cfg = root / "random.json"
+        cfg.write_text(json.dumps({"algorithm": {"random": {"seed": 0}}}))
+        summary, wall = run_cli(
+            ["hunt", "-n", "rosen", "--ledger", ledger, "--max-trials", str(ROSEN_TRIALS),
+             "--n-workers", str(ROSEN_WORKERS), "--config", str(cfg),
+             str(examples / "rosenbrock.py")] + [f"-{k}~{v}" for k, v in ROSEN_SPACE.items()],
+            root, env, ROSEN_TRIALS, ROSEN_WORKERS, ROSEN_TRIAL_S)
+        status, status_wall = run_cli(["status", "-n", "rosen", "--ledger", ledger, "--json"],
+                                      root, env)
+        trials = FileLedger(str(root / "ledger")).fetch("rosen")
+        done = [t for t in trials if t.status == "completed"]
+        n_results = {t.id: sum(r.type == "objective" for r in t.results) for t in done}
+        best = summary["best"]
+        problems = []
+        if len(done) < ROSEN_TRIALS:
+            problems.append(f"{len(done)} completed")
+        if summary["total"].get("broken", 0) or summary["broken_by_worker"]:
+            problems.append(f"broken {summary['total'].get('broken', 0)}")
+        if len({t.id for t in done}) != len(done) or set(n_results.values()) != {1} \
+                or summary["completed_by_worker"] != len(done):
+            problems.append(f"a trial ran twice ({summary['completed_by_worker']} pushes for "
+                            f"{len(done)} completed, results per id {set(n_results.values())})")
+        if best is None or not math.isfinite(best["objective"]):
+            problems.append(f"best {best}")
+        if status[0]["by_status"] != summary["total"] or status[0]["best"] != best:
+            problems.append(f"status disagrees: {status[0]} vs {summary}")
+        if problems:
+            raise AssertionError(f"[hunt] config 1: {problems}")
+        walls = [t.end_time - t.start_time for t in done]
+        span = max(t.end_time for t in done) - min(t.start_time for t in done)
+        out["config1"] = {
+            "trials": len(done), "workers": ROSEN_WORKERS, "hunt_wall_s": wall,
+            "trials_per_s": len(done) / wall, "ledger_span_s": span,
+            "trials_per_s_in_span": len(done) / span, "median_trial_wall_s": median(walls),
+            "status_wall_s": status_wall, "best": best["objective"],
+            "producer_timings": summary["producer_timings"],
+        }
+        log(f"[hunt] config 1: {len(done)} completed, 0 broken, {ROSEN_WORKERS} workers in "
+            f"{wall:.2f} s = {len(done) / wall:.2f} trials/s ({len(done) / span:.2f} over the "
+            f"ledger's {span:.2f} s span); median trial wall {median(walls):.3f} s; best "
+            f"{best['objective']:.6g}; status from a fresh process agrees ({status_wall:.2f} s)")
+
+        # -- (b) BASELINE config 2 -----------------------------------------
+        cfg = root / "tpe.json"   # examples/tpe.yaml's settings
+        cfg.write_text(json.dumps({"algorithm": {"tpe": {"seed": 0,
+                                                         "n_initial_points": TPE_INITIAL}}}))
+        summary, wall = run_cli(
+            ["hunt", "-n", "mlp", "--ledger", ledger, "--max-trials", str(TPE_TRIALS),
+             "--config", str(cfg), str(examples / "mlp_mnist.py")]
+            + [f"--{k}~{v}" for k, v in TPE_SPACE.items()], root, env, TPE_TRIALS, 1,
+            MLP_TRIAL_S)
+        trials = FileLedger(str(root / "ledger")).fetch("mlp")
+        done = sorted((t for t in trials if t.status == "completed"), key=lambda t: t.start_time)
+        space = build_space(TPE_SPACE)
+        switch = sorted(t.end_time for t in done)[TPE_INITIAL - 1] if len(done) >= TPE_INITIAL \
+            else math.inf
+        by_ei = [t for t in trials if t.submit_time > switch]
+        name = torch.cuda.get_device_name(0)
+        stats = [statistics_of(t) for t in done]
+        problems = []
+        if len(done) != TPE_TRIALS or not all(math.isfinite(t.objective) for t in done):
+            problems.append(f"{[(t.status, t.objective) for t in trials]}")
+        if len(by_ei) < TPE_TRIALS - TPE_INITIAL:
+            problems.append(f"{len(by_ei)} trials suggested by EI")
+        if not all(t.params in space for t in done):
+            problems.append("a point outside the space")
+        if not all(st.get("device") == name for st in stats):
+            problems.append(f"devices {sorted({st.get('device') for st in stats})}")
+        if problems:
+            raise AssertionError(f"[hunt] config 2: {problems}")
+        rows = []
+        for t, st in zip(done, stats):
+            trial_s = t.end_time - t.start_time
+            rows.append({"trial_s": trial_s, "first_cuda_op_s": st["first_device_op_s"],
+                         "first_matmul_s": st["first_matmul_s"],
+                         "train_s": st["train_s"], "train_ms_per_step": st["train_ms_per_step"],
+                         "train_and_eval_s": st["train_and_eval_s"],
+                         "rest_s": trial_s - st["first_device_op_s"] - st["train_s"],
+                         # the rest, split: the first matrix product
+                         # (cuBLAS loading); model, data and optimizer before
+                         # the step loop (and the optimizer's construction
+                         # alone); eval after it; then everything outside
+                         # train_and_eval (spawn, report, exit, the poll)
+                         "cublas_s": st["first_matmul_s"] - st["first_device_op_s"],
+                         "setup_s": st["setup_s"],
+                         "optimizer_init_s": st["optimizer_init_s"],
+                         "eval_s": st["train_and_eval_s"] - st["setup_s"] - st["train_s"],
+                         "outside_s": trial_s - st["first_matmul_s"]
+                         - st["train_and_eval_s"],
+                         "val_error": t.objective})
+        med = {k: median([r[k] for r in rows]) for k in rows[0]}
+        out["config2"] = {
+            "trials": len(done), "ei_suggested": len(by_ei), "hunt_wall_s": wall,
+            "s_per_trial": wall / len(done), "median": med, "first": rows[0],
+            "per_trial": rows, "producer_timings": summary["producer_timings"],
+            "best": summary["best"]["objective"], "device": name,
+            "in_process_s_per_trial_pr4": [0.185, 0.434],
+        }
+        log(f"[hunt] config 2: {len(done)} finite trials, {len(by_ei)} suggested by EI, all on "
+            f"{name}, in {wall:.2f} s ({wall / len(done):.3f} s/trial); per trial (median, first):"
+            f" ledger wall {med['trial_s']:.3f} / {rows[0]['trial_s']:.3f} s = process start -> "
+            f"first CUDA op {med['first_cuda_op_s']:.3f} / {rows[0]['first_cuda_op_s']:.3f} + "
+            f"training {med['train_s']:.3f} / {rows[0]['train_s']:.3f} + rest "
+            f"{med['rest_s']:.3f} / {rows[0]['rest_s']:.3f} (first matmul "
+            f"{med['cublas_s']:.3f}, setup {med['setup_s']:.3f} of which the optimizer's "
+            f"construction {med['optimizer_init_s']:.3f}, eval {med['eval_s']:.3f}, outside "
+            f"the call {med['outside_s']:.3f}); "
+            f"{med['train_ms_per_step']:.3f} ms/"
+            f"step; best val error {summary['best']['objective']:.4f}; card {smi}")
+
+        # -- (c) the breaker's probe ---------------------------------------
+        t0 = time.perf_counter()
+        ok = cuda_backend_reachable()
+        out["cuda_probe"] = {"reachable": ok, "s": time.perf_counter() - t0}
+        log(f"[hunt] cuda_backend_reachable() = {ok} in {out['cuda_probe']['s']:.3f} s")
+        if not ok:
+            raise AssertionError("[hunt] cuda_backend_reachable() is False on the card")
+    except BaseException:
+        log_ledger(root / "ledger")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def log_ledger(path: Path) -> None:
+    """Every trial of a failed phase's ledger: status, wall, statistics."""
+    from metaopt_tpu_torch.ledger import FileLedger
+
+    if not path.is_dir():
+        return
+    led = FileLedger(str(path))
+    for name in led.list_experiments():
+        for t in led.fetch(name):
+            wall = (t.end_time - t.start_time) if t.end_time and t.start_time else None
+            log(f"  {name} {t.id[:8]} {t.status} exit {t.exit_code} wall {wall} "
+                f"objective {t.objective} {statistics_of(t)}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -843,6 +1067,9 @@ def main() -> int:
     # -- 6. TPE on the card ---------------------------------------------------
     tpe_stats = tpe_phase(torch, smi)
 
+    # -- 7. the hunt CLI --------------------------------------------------------
+    hunt_stats = hunt_phase(torch, smi)
+
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         row = dict(timing_stats[name])
@@ -861,6 +1088,7 @@ def main() -> int:
         "peak_mem_bytes": peak_mem, "build_s": build_s, "card": smi,
         "profile": breakdown}}), flush=True)
     print(json.dumps({"tpe": tpe_stats}), flush=True)
+    print(json.dumps({"hunt": hunt_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

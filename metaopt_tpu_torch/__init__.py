@@ -3,10 +3,12 @@
 A second package beside the JAX one, held against it module by module. It
 imports ``torch`` and never JAX nor anything of ``metaopt_tpu``. Device
 entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-What is ported so far: the ``build_experiment(...).workon(fn)`` path with
-random search or TPE (its EI launches on the device) and the in-memory
-ledger, the demo MLP, and the demo Transformer with its flash-attention
-kernels written in CUDA C++ for Hopper (``csrc/``).
+What is ported so far: the ``build_experiment(...).workon(fn)`` path and
+the ``python -m metaopt_tpu_torch hunt`` CLI with subprocess trials, random
+search or TPE (its EI launches on the device), the in-memory and file
+ledgers, the demo MLP and closed-form objectives, and the demo Transformer
+with its flash-attention kernels written in CUDA C++ for Hopper
+(``csrc/``).
 """
 
 __version__ = "0.1.0"

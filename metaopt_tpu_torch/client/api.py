@@ -212,8 +212,9 @@ def build_experiment(
 
     ``space`` maps names to ``~prior`` expressions (``{"x": "uniform(-5,
     5)"}``); ``algorithm`` is the one-key config (``{"tpe": {...}}``,
-    default random); ``ledger`` is a backend instance or the spec string
-    ``"memory"`` (the one ledger ported so far). Re-calling
+    default random); ``ledger`` is a backend instance or a spec string —
+    ``"memory"``, ``"file:<dir>"`` or a bare directory (the CLI's
+    ``--ledger`` grammar). Re-calling
     with the same name on the same ledger ADOPTS the stored
     configuration, exactly like re-running ``hunt`` (resume semantics).
     """

@@ -22,6 +22,10 @@ class ExecutionResult:
     results: List[Dict[str, Any]] = field(default_factory=list)
     exit_code: Optional[int] = None
     note: str = ""
+    #: infrastructure (not script) failure: the worker releases the trial
+    #: back to 'new' so the hunt retries it once the device recovers,
+    #: instead of leaving it for a manual `resume`
+    requeue: bool = False
 
 
 class Executor:

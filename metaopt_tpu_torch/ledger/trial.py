@@ -118,6 +118,27 @@ class Trial:
         elif new_status in ("completed", "broken", "interrupted"):
             self.end_time = now
 
+    def reset_to_new(self) -> None:
+        """Return to ``new``, clearing the residue a past run left behind.
+
+        A revived trial must not look like it already ran: worker claim,
+        timing, heartbeat, exit code, AND results all reset so the
+        reserve CAS, the status surfaces, and ``Trial.objective`` (which
+        reads the FIRST objective-typed result — a stale one would shadow
+        the re-run's) treat it exactly like a fresh registration.
+        Used by ``resume`` and the worker loop's requeue path.
+        """
+        self.status = "new"
+        self.worker = None
+        self.start_time = None
+        self.end_time = None
+        self.heartbeat = None
+        self.exit_code = None
+        self.results = []
+        # stale device assignments must not leak into the next run's env
+        # (the executor re-injects resources["env"] at launch)
+        self.resources = {}
+
     # -- results ----------------------------------------------------------
     @property
     def objective(self) -> Optional[float]:

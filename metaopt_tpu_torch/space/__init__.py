@@ -12,7 +12,13 @@ from metaopt_tpu_torch.space.dimensions import (
     Real,
 )
 from metaopt_tpu_torch.space.space import Space
-from metaopt_tpu_torch.space.builder import PriorSyntaxError, build_space, parse_prior
+from metaopt_tpu_torch.space.builder import (
+    CommandTemplate,
+    PriorSyntaxError,
+    SpaceBuilder,
+    build_space,
+    parse_prior,
+)
 from metaopt_tpu_torch.space.transforms import UnitCube
 
 __all__ = [
@@ -23,6 +29,8 @@ __all__ = [
     "Fidelity",
     "Space",
     "PriorSyntaxError",
+    "SpaceBuilder",
+    "CommandTemplate",
     "parse_prior",
     "build_space",
     "UnitCube",

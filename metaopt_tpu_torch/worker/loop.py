@@ -5,9 +5,10 @@ produce → reserve → consume until the experiment is done; KeyboardInterrupt
 marks the in-flight trial interrupted. Kept from the reference: throttled
 stale-reservation release (every ``stale_sweep_interval_s``, and always on
 the first cycle), per-worker trial caps (``worker_trials``), the
-``max_broken`` guard, idle backoff, and the judge wiring into the executor.
+``max_broken`` guard, idle backoff, the judge wiring into the executor, and
+infrastructure requeues (``ExecutionResult.requeue``, bounded per trial).
 Not ported yet: the coordinator-hosted producer and its fused cycle, the
-batched hunt (``batch_size > 1``), suspension, and infrastructure requeues.
+batched hunt (``batch_size > 1``) and suspension.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ class WorkerStats:
     broken: int = 0
     interrupted: int = 0
     pruned: int = 0
+    #: trials bounced back to 'new' after an infrastructure failure
+    #: (executor set ExecutionResult.requeue) — retried, not lost
+    requeued: int = 0
     idle_cycles: int = 0
     events: List[Dict[str, Any]] = field(default_factory=list)
     #: producer timing aggregates (observe/suggest latency)
@@ -49,6 +53,7 @@ def workon(
     heartbeat_timeout_s: float = 60.0,
     idle_sleep_s: float = 0.05,
     max_idle_cycles: int = 200,
+    producer_mode: str = "local",
     stop_event: Optional[Any] = None,
     stale_sweep_interval_s: float = 2.0,
 ) -> WorkerStats:
@@ -59,10 +64,22 @@ def workon(
     forever. ``stop_event`` (a ``threading.Event``-like) is checked between
     trials. ``stale_sweep_interval_s``: how often this worker sweeps lapsed
     reservations back to ``new``; the first cycle always sweeps.
+    ``producer_mode`` must be ``"local"`` (the algorithm fits in this
+    worker); the reference's coordinator-hosted ``"coord"`` producer is not
+    ported yet.
     """
+    if producer_mode != "local":
+        raise NotImplementedError(f"producer {producer_mode!r}: coordinator producer "
+                                  "not ported yet")
     algo = algorithm or make_algorithm(experiment.space, experiment.algorithm)
     producer = Producer(experiment, algo)
     stats = WorkerStats()
+    # per-trial requeue budget: a wedge-attributed infrastructure failure
+    # releases the trial (ExecutionResult.requeue), but only this many
+    # times — a permanently dead device must converge to interrupted.
+    # The count persists on the trial document (resources), so N workers
+    # (or a restarted worker) share ONE budget instead of multiplying it.
+    max_requeues = 3
     last_sweep = 0.0
     last_broken_note = ""
 
@@ -137,7 +154,36 @@ def workon(
                     "%s lost reservation of %s before result push",
                     worker_id, trial.id,
                 )
+        elif (res.requeue
+              and int(trial.resources.get("requeues", 0)) < max_requeues):
+            # infrastructure failure (device wedge/park budget): release the
+            # trial back to 'new' so this or another worker retries it once
+            # the device recovers; bounded per trial so a permanently dead
+            # device still converges to interrupted
+            n_req = int(trial.resources.get("requeues", 0)) + 1
+            trial.reset_to_new()
+            # AFTER reset_to_new, which clears resources — the counter must
+            # survive into the ledger or the budget never binds
+            trial.resources["requeues"] = n_req
+            if experiment.ledger.update_trial(
+                trial, expected_status="reserved", expected_worker=worker_id
+            ):
+                stats.requeued += 1
+                log.warning(
+                    "%s requeued trial %s (%d/%d): %s", worker_id,
+                    trial.id[:8], n_req, max_requeues, res.note,
+                )
+            else:
+                log.warning(
+                    "%s lost reservation of %s before requeue write-back",
+                    worker_id, trial.id,
+                )
         else:
+            if res.requeue:
+                # the executor flagged a retry, but the shared budget is
+                # spent — the stored outcome must say what actually happens
+                # (nothing, until a human resumes it)
+                res.note += " (requeue budget exhausted — see `resume`)"
             trial.transition(res.status)
             experiment.ledger.update_trial(
                 trial, expected_status="reserved", expected_worker=worker_id

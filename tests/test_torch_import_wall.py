@@ -3,7 +3,9 @@
 An AST scan covers every file of ``metaopt_tpu_torch/`` and
 ``chip_smoke.py``; a subprocess (this test process already imported jax in
 tests/conftest.py) then makes those imports fail with a ``sys.meta_path``
-hook, imports every module of the port and runs one CPU ``workon``.
+hook, imports every module of the port, runs one CPU ``workon`` and one
+``hunt`` of the port's Rosenbrock example through ``cli.main`` (its trial
+processes start outside the wall).
 """
 
 import ast
@@ -41,7 +43,10 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/models/transformer.py",
                  "metaopt_tpu_torch/client/api.py", "metaopt_tpu_torch/algo/tpe.py",
                  "metaopt_tpu_torch/ops/tpe_math.py", "metaopt_tpu_torch/models/mlp.py",
-                 "chip_smoke.py"):
+                 "metaopt_tpu_torch/cli/main.py", "metaopt_tpu_torch/executor/subproc.py",
+                 "metaopt_tpu_torch/client/__init__.py", "metaopt_tpu_torch/__main__.py",
+                 "metaopt_tpu_torch/examples/rosenbrock.py",
+                 "metaopt_tpu_torch/examples/mlp_mnist.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -77,6 +82,18 @@ exp = build_experiment("walled", space={"lr": "loguniform(1e-4, 1e-2)"},
 stats = exp.workon(lambda p: train_and_eval({**p, **tiny}, n_train=8, batch_size=4,
                                             seq_len=8, steps=2, device="cpu"))
 assert stats.completed == 1, stats.events
+
+import json, os, sys, tempfile
+from metaopt_tpu_torch.cli import main
+root = tempfile.mkdtemp()
+cfg = os.path.join(root, "random.json")
+with open(cfg, "w") as f:
+    json.dump({"algorithm": {"random": {"seed": 0}}}, f)
+rosen = os.path.join(os.path.dirname(metaopt_tpu_torch.__file__), "examples", "rosenbrock.py")
+rc = main(["hunt", "-n", "rosen", "--ledger", "file:" + os.path.join(root, "ledger"),
+           "--max-trials", "2", "--config", cfg, rosen,
+           "-x~uniform(-5, 10)", "-y~uniform(-5, 10)"])
+assert rc == 0, rc
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not leaked, leaked
 print("WALL-OK", len(mods))
@@ -91,3 +108,27 @@ def test_port_runs_with_jax_unimportable():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "WALL-OK" in proc.stdout
+    assert '"completed": 2' in proc.stdout
+
+
+HANDSHAKE = r'''
+import sys
+import metaopt_tpu_torch.client
+import metaopt_tpu_torch.models.objectives
+loaded = sorted(n for n in sys.modules if n.split(".")[0] == "torch")
+assert not loaded, loaded
+assert "metaopt_tpu_torch.client.api" not in sys.modules
+print("NO-TORCH")
+'''
+
+
+def test_the_trial_handshake_loads_no_torch():
+    """Every trial process imports the client to report; a closed-form
+    objective (config 1) must not pay ``import torch`` for it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-c", HANDSHAKE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO-TORCH" in proc.stdout

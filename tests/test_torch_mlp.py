@@ -7,6 +7,9 @@ a tiny MLP objective through ``workon`` on the CPU into its EI phase.
 """
 
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -91,7 +94,7 @@ def test_three_adam_steps_match_optax(setup):
 
     model = tm.MLP(32, 2, 0.0)
     model.load_state_dict(tm.params_from_flax(setup["params"]["params"]))
-    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    opt = tm.Adam(model.parameters(), lr=lr)
     for xb, yb in batches:
         opt.zero_grad()
         tm.loss_fn(model, torch.from_numpy(xb), torch.from_numpy(yb)).backward()
@@ -152,6 +155,19 @@ def test_train_and_eval_learns_on_cpu():
     assert 0.0 <= err < 0.85
     assert rep["steps"] == 24 and len(rep["losses"]) == 3
     assert rep["losses"][-1] < rep["losses"][0]
+
+
+def test_a_trial_process_never_imports_dynamo():
+    # a trial through the CLI is a fresh process: torch.optim's first
+    # optimizer would import torch._dynamo there, once per trial
+    code = ("import sys; from metaopt_tpu_torch.models import mlp; "
+            "mlp.train_and_eval({'lr': 1e-3, 'width': 16, 'depth': 1}, n_train=64, "
+            "n_val=32, batch_size=32, epochs=1, device='cpu'); "
+            "print(sorted(m for m in sys.modules if m.startswith('torch._dynamo')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("fixed,params,expect_epochs", [
