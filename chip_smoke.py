@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through seven phases and exits non-zero if any fails:
+``metaopt_tpu``) through eight phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -55,11 +55,25 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    ``metaopt_tpu_torch/examples/mlp_mnist.py``, 16 trials each a fresh
    process on the card — finite, at least 6 suggested by EI, in the space,
    each on CUDA — split into process start → first CUDA op, training, and
-   the rest of the trial's ledger wall; (c) ``cuda_backend_reachable()``.
+   the rest of the trial's ledger wall; (c) ``cuda_backend_reachable()``;
+8. asha: BASELINE config 3. (a) The full-width ResNet-50 on the card
+   against the same weights on the CPU (batch 8, eval and train mode, bf16
+   bound); a 3-epoch in-process ``train_and_eval`` at the reference's
+   defaults whose mean training loss must fall; 20 timed and 5 traced
+   train steps (batch 128): ms per step, images per second, device busy
+   share, device ms by kind of kernel, peak memory. (b) ASHA (``asha.json``,
+   seed 0, pool 1) on ``metaopt_tpu_torch/examples/resnet_cifar.py`` at
+   full size through ``hunt --n-chips 1``, 21 trials, each a fresh process
+   pinned to the card — all completed and finite, budgets 1, 4 and 16
+   reached, promotions on their parents' lineage, every trial on the
+   card, the GPU registry empty after, ``status --rungs --json`` from a
+   fresh process equal to ASHA replayed over the ledger. (c) Config 3's
+   trials per hour and each trial's split: process start → first CUDA op,
+   setup, training, eval, the rest.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
-``{"hunt": {...}}`` line and, last, the ``{"ok": true, "device": {...}}``
-line.
+``{"hunt": {...}}`` line, an ``{"asha": {...}}`` line and, last, the
+``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -100,6 +114,29 @@ ROSEN_SPACE = {"x": "uniform(-5, 10)", "y": "uniform(-5, 10)"}
 HUNT_START_S = 120
 ROSEN_TRIAL_S, MLP_TRIAL_S = 5, 45
 TPE_TOL = 1e-5          # fit tensors, card against CPU
+RESNET_SPACE = {  # BASELINE config 3: examples/resnet_cifar.py's docstring
+    "lr": "loguniform(1e-3, 1.0)",
+    "momentum": "uniform(0.8, 0.99)",
+    "weight-decay": "loguniform(1e-6, 1e-2)",
+    "epochs": "fidelity(1, 16, base=4)",
+}
+# the fewest trials with which ASHA (one worker, pool 1) reaches budget 16
+# whatever the objectives: 16 at 1 epoch, 4 at 4, 1 at 16 (the example runs
+# 64; at asha.json's pool of 4 one worker never reaches 16, see
+# examples/resnet_cifar.py)
+ASHA_TRIALS = 21
+RESNET_BATCH, RESNET_TIMED_STEPS, RESNET_TRACED_STEPS = 128, 20, 5
+# a config-3 trial's wall-clock timeout, and its share of the CLI's deadline
+RESNET_TIMEOUT_S, RESNET_TRIAL_S = 300, 40
+RESNET_KINDS = (  # first match wins: cuDNN's batch-norm kernels before its convolutions
+    ("batch norm (cuDNN)", ("batchnorm", "batch_norm")),
+    ("running-stat reduction (var_mean)", ("WelfordOps",)),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "sm90")),
+    ("convolutions as matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass")),
+    ("optimizer (foreach SGD)", ("multi_tensor_apply",)),
+    ("reductions", ("reduce_kernel",)),
+    ("casts and copies", ("copy_kernel",)),
+)
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
     "flash_bwd_dkv": "metaopt_tpu/ops/attention.py:181 (_flash_bwd_dkv_kernel)",
@@ -395,12 +432,58 @@ KERNEL_KINDS = (
 )
 
 
+def trace_steps(torch, step, steps: int, traced: int, kinds):
+    """Time ``steps`` calls of ``step`` untraced, then trace ``traced`` more:
+    wall ms per step of both, device busy ms per step and its share of the
+    untraced wall, device ms per step by kind of kernel (the first kind in
+    ``kinds`` whose pattern a kernel's name holds, else "other
+    elementwise"), and every kernel's row sorted by device ms. None where
+    the profiler yields nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(traced):
+                step()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / traced
+        rows = kernel_rows(prof, traced)
+    except Exception as err:  # the profiler is a measurement aid only
+        log(f"[profile] not measured ({type(err).__name__}: {err})")
+        return None
+    busy_ms = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    by_kind = {}
+    for key, ms, _ in rows:
+        kind = next((k for k, pats in kinds if any(p in key for p in pats)),
+                    "other elementwise")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "device_ms_by_kind": by_kind, "rows": rows}
+
+
+def log_breakdown(tag: str, what: str, st) -> None:
+    log(f"[{tag}] {what}: wall {st['wall_ms']:.3f} ms untraced ({st['traced_wall_ms']:.3f} ms "
+        f"traced); device busy {st['device_busy_ms']:.3f} ms = "
+        f"{100 * st['busy_share']:.1f}% of the untraced wall. Device ms/step by kind:")
+    for kind, ms in sorted(st["device_ms_by_kind"].items(), key=lambda kv: -kv[1]):
+        log(f"  {ms:8.4f} ms  {kind}")
+    log(f"[{tag}] top kernels by device ms/step:")
+    for key, ms, n in st["rows"][:12]:
+        log(f"  {ms:8.4f} ms  x{n:5.1f}  {key[:90]}")
+
+
 def profile_train_step(torch, tfm, steps: int = 5):
     """Time ``steps`` full-width train steps untraced, then trace as many:
     device busy share of the untraced wall time, device time by kind of
     kernel, and the kernels that took the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     model = tfm.make_model({"dropout": 0.0}).init_like_flax(
         torch.Generator().manual_seed(0)).cuda()
     opt = tfm.trial_setup({"lr": 1e-3, "warmup": 2}, model.parameters(), 100)
@@ -408,45 +491,16 @@ def profile_train_step(torch, tfm, steps: int = 5):
     src, tgt = tfm.synthetic_seq2seq(32, 64, 1000, seed=0, device="cuda")
     for _ in range(3):
         step((src, tgt))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step((src, tgt))
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step((src, tgt))
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / steps
-        rows = kernel_rows(prof, steps)
-    except Exception as err:  # the profiler is a measurement aid only
-        log(f"[profile] not measured ({type(err).__name__}: {err})")
+    st = trace_steps(torch, lambda: step((src, tgt)), steps, steps, KERNEL_KINDS)
+    if st is None:
         return None
-    busy_ms = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    kinds = {}
-    for key, ms, _ in rows:
-        kind = next((k for k, pats in KERNEL_KINDS if any(p in key for p in pats)),
-                    "other elementwise")
-        kinds[kind] = kinds.get(kind, 0.0) + ms
-    log(f"[profile] train step: wall {wall_ms:.3f} ms untraced ({traced_ms:.3f} ms "
-        f"traced); device busy {busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}% of "
-        f"the untraced wall. Device ms/step by kind:")
-    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        log(f"  {ms:8.4f} ms  {kind}")
-    log("[profile] top kernels by device ms/step:")
-    for key, ms, n in rows[:12]:
-        log(f"  {ms:8.4f} ms  x{n:5.1f}  {key[:90]}")
+    rows = st.pop("rows")
+    log_breakdown("profile", "train step", {**st, "rows": rows})
     flash = [[k[:90], ms, n] for k, ms, n in rows if "flash_" in k]
     log("[profile] flash-attention kernels by device ms/step:")
     for key, ms, n in flash:
         log(f"  {ms:8.4f} ms  x{n:5.1f}  {key}")
-    return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms, "device_ms_by_kind": kinds, "flash": flash,
-            "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]}
+    return {**st, "flash": flash, "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]}
 
 
 # ---------------------------------------------------------------------------
@@ -897,6 +951,225 @@ def log_ledger(path: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: BASELINE config 3, ASHA on ResNet-50 through the CLI
+
+
+def resnet_train_flops(model, hw: int, batch: int) -> float:
+    """Operations of one training step: 3x the forward's convolutions and
+    dense head (forward, input gradient, weight gradient), 2 per MAC."""
+    def conv(c, size):
+        out = -(-size // c.stride[0])  # 'SAME': ceil(size / stride)
+        return 2 * batch * out * out * c.out_channels * c.in_channels * c.kernel_size[0] ** 2, out
+
+    flops, size = conv(model.stem, hw)
+    for b in model.blocks:
+        size_in = size
+        for c in (b.conv1, b.conv2, getattr(b, "conv3", None)):
+            if c is not None:
+                f, size = conv(c, size)
+                flops += f
+        if b.proj is not None:
+            flops += conv(b.proj, size_in)[0]
+    return 3 * (flops + 2 * batch * model.head.in_features * model.head.out_features)
+
+
+def randomize_norms(torch, rn, model, gen):
+    """Seeded scales, biases and running statistics for every batch norm of
+    the port's ResNet: a block's last scale from U(0.1, 0.3), every other
+    from U(0.5, 1.5), biases and running means N(0, 0.1), running variances
+    U(0.5, 2) (the distributions of tests/test_torch_resnet.py)."""
+    with torch.no_grad():
+        for norm in model.modules():
+            if isinstance(norm, rn.BatchNorm):
+                c = norm.weight.shape[0]
+                lo, hi = (0.1, 0.3) if norm.zero_scale else (0.5, 1.5)
+                norm.weight.copy_(lo + (hi - lo) * torch.rand(c, generator=gen))
+                norm.bias.copy_(0.1 * torch.randn(c, generator=gen))
+                norm.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                norm.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=gen))
+
+
+def asha_phase(torch, smi: str):
+    from metaopt_tpu_torch.algo import make_algorithm
+    from metaopt_tpu_torch.ledger import Experiment, FileLedger
+    from metaopt_tpu_torch.models import resnet as rn
+    from metaopt_tpu_torch.models.data import synthetic_images
+    from metaopt_tpu_torch.space import build_space
+
+    out = {"card": smi}
+    # -- (a) the full-width model on the card ------------------------------
+    # flax's init zeroes each block's last batch-norm scale, which would leave
+    # every residual branch at 0: seeded random norms put all 16 blocks'
+    # convolutions and norms into the logits compared
+    model_cpu = rn.ResNet().init_like_flax(torch.Generator().manual_seed(4))
+    randomize_norms(torch, rn, model_cpu, torch.Generator().manual_seed(5))
+    model_gpu = rn.ResNet()
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    model_gpu.to("cuda", memory_format=torch.channels_last)
+    x, _ = synthetic_images(8, hw=32, channels=3, seed=9, device="cpu")
+    state = {k: v.clone() for k, v in model_cpu.state_dict().items()}
+    fwd, wants = {}, {}
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            got = model_gpu(x.to("cuda"), train=mode == "train").cpu()
+            wants[mode] = want = model_cpu(x, train=mode == "train")
+            excess = float(((got - want).abs() - (3e-2 + 3e-2 * want.abs())).max())
+            fwd[mode] = {"max_abs_err": float((got - want).abs().max()), "excess": excess,
+                         "finite": bool(torch.isfinite(got).all())}
+        # the same weights with flax's zero last scales: the bodies' share
+        model_cpu.load_state_dict(state)
+        for norm in model_cpu.modules():
+            if isinstance(norm, rn.BatchNorm) and norm.zero_scale:
+                norm.weight.zero_()
+        bodies = float((model_cpu(x) - wants["eval"]).abs().max())
+    log(f"[asha] ResNet-50 logits on a batch of 8, card against CPU (bf16 convolutions on "
+        f"both; random batch norms; bound 3e-2 + 3e-2|cpu|): eval max |diff| "
+        f"{fwd['eval']['max_abs_err']:.3e}, train-mode {fwd['train']['max_abs_err']:.3e}; "
+        f"the blocks' bodies move the eval logits by {bodies:.3e}")
+    if not all(f["finite"] and f["excess"] <= 0 for f in fwd.values()):
+        raise AssertionError(f"[asha] ResNet-50 on the card disagrees with the CPU: {fwd}")
+    if bodies <= 3e-2 + 3e-2 * float(wants["eval"].abs().max()):
+        raise AssertionError(f"[asha] the blocks' bodies do not reach the logits ({bodies})")
+    fwd["bodies_move_eval_logits"] = bodies
+    out["forward_vs_cpu"] = fwd
+    del model_gpu, model_cpu
+
+    rep = {}
+    err = rn.train_and_eval({"lr": 0.1, "momentum": 0.9, "weight_decay": 1e-4}, epochs=3,
+                            device="cuda", report=rep)
+    log(f"[asha] in-process train_and_eval, 3 epochs (lr 0.1, momentum 0.9, wd 1e-4): mean "
+        f"loss per epoch {[round(v, 4) for v in rep['losses']]}, val error {err:.4f}; setup "
+        f"{rep['setup_s']:.2f} s, training {rep['train_s']:.2f} s "
+        f"({rep['train_s'] / rep['steps'] * 1e3:.2f} ms/step), eval {rep['eval_s']:.2f} s")
+    if not (all(math.isfinite(v) for v in rep["losses"]) and rep["losses"][2] < rep["losses"][0]):
+        raise AssertionError(f"[asha] the loss did not fall over 3 epochs: {rep['losses']}")
+    out["in_process"] = {**rep, "val_error": err}
+
+    model = rn.ResNet().to("cuda", memory_format=torch.channels_last)
+    model.init_like_flax(torch.Generator(device="cuda").manual_seed(0))
+    opt = rn.SGD(model.parameters(), 0.1, 0.9, 1e-4)
+    xs, ys = synthetic_images(4096, hw=32, channels=3, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        rn.train_step(model, opt, xs, ys, gen, RESNET_BATCH)
+
+    for _ in range(3):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    st = trace_steps(torch, step, RESNET_TIMED_STEPS, RESNET_TRACED_STEPS, RESNET_KINDS)
+    peak = torch.cuda.max_memory_allocated()
+    flops = resnet_train_flops(model, 32, RESNET_BATCH)
+    if st is None:
+        raise AssertionError("[asha] the profiler traced no ResNet-50 step")
+    rows = st.pop("rows")
+    log_breakdown("asha", f"ResNet-50 train step (batch {RESNET_BATCH}, 32x32x3)",
+                  {**st, "rows": rows})
+    log(f"[asha] ResNet-50: {st['wall_ms']:.3f} ms/step untraced = "
+        f"{RESNET_BATCH / st['wall_ms'] * 1e3:.0f} images/s; {flops / 1e12:.3f} TFLOP/step "
+        f"(bound at the bf16 peak {flops / PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms); peak "
+        f"memory {peak / 2**30:.3f} GiB; card {smi}")
+    out["step"] = {**st, "images_per_s": RESNET_BATCH / st["wall_ms"] * 1e3,
+                   "flops": flops, "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3,
+                   "peak_mem_bytes": peak, "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]}
+    del model, opt, xs, ys
+    torch.cuda.empty_cache()
+
+    # -- (b) config 3 through the CLI ----------------------------------------
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_asha_"))
+    # TMPDIR: the hunt's GPU registry file is this phase's own
+    env = dict(os.environ, TMPDIR=str(root))
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    ledger = f"file:{root / 'ledger'}"
+    try:
+        summary, wall = run_cli(
+            ["hunt", "-n", "resnet", "--n-chips", "1", "--max-trials", str(ASHA_TRIALS),
+             "--pool-size", "1", "--timeout-s", str(RESNET_TIMEOUT_S), "--ledger", ledger,
+             "--config", str(examples / "asha.json"), str(examples / "resnet_cifar.py")]
+            + [f"--{k}~{v}" for k, v in RESNET_SPACE.items()],
+            root, env, ASHA_TRIALS, 1, RESNET_TRIAL_S)
+        status, status_wall = run_cli(["status", "-n", "resnet", "--rungs", "--json",
+                                       "--ledger", ledger], root, env)
+        led = FileLedger(str(root / "ledger"))
+        exp = Experiment("resnet", led).configure()
+        replay = make_algorithm(exp.space, exp.algorithm)
+        replay.observe(exp.fetch_completed_trials())
+        trials = sorted(led.fetch("resnet"), key=lambda t: t.start_time or 0)
+        done = [t for t in trials if t.status == "completed"]
+        space = build_space(RESNET_SPACE)
+        name = torch.cuda.get_device_name(0)
+        stats = [statistics_of(t) for t in done]
+        registry = json.loads((root / "metaopt_tpu_torch-gpus-1.json").read_text())
+        budgets = {t.params["epochs"] for t in done}
+        lineages = {(t.lineage, t.params["epochs"]) for t in done}
+        problems = []
+        if len(done) != ASHA_TRIALS or summary["total"] != {"completed": ASHA_TRIALS}:
+            problems.append(f"{[(t.status, t.objective) for t in trials]}")
+        if not all(math.isfinite(t.objective) for t in done):
+            problems.append("a non-finite objective")
+        if budgets != {1, 4, 16}:
+            problems.append(f"budgets reached {sorted(budgets)}")
+        if not all(t.lineage == space.hash_point(t.params) and (
+                t.params["epochs"] == 1 or (t.lineage, t.params["epochs"] // 4) in lineages)
+                for t in done):
+            problems.append("a promotion without its parent's lineage")
+        if not all(st.get("device") == name for st in stats):
+            problems.append(f"devices {sorted({str(st.get('device')) for st in stats})}")
+        if registry != {"claims": {}}:
+            problems.append(f"the GPU registry still holds {registry}")
+        if status[0].get("rungs") != replay.rung_table:
+            problems.append(f"status --rungs {status[0].get('rungs')} != {replay.rung_table}")
+        if problems:
+            raise AssertionError(f"[asha] config 3: {problems}")
+
+        # -- (c) trials/hour and the per-trial split ------------------------
+        rows = []
+        for t, st in zip(done, stats):
+            trial_s = t.end_time - t.start_time
+            parts = {k: st[k] for k in ("first_device_op_s", "setup_s", "train_s", "eval_s")}
+            rows.append({"epochs": t.params["epochs"], "trial_s": trial_s, **parts,
+                         "rest_s": trial_s - sum(parts.values()),
+                         "train_ms_per_step": st["train_ms_per_step"],
+                         "epoch_losses": st["epoch_losses"], "val_error": t.objective})
+        keys = ("trial_s", "first_device_op_s", "setup_s", "train_s", "eval_s", "rest_s")
+        total = {k: sum(r[k] for r in rows) for k in keys}
+        by_budget = {b: {k: median([r[k] for r in rows if r["epochs"] == b])
+                         for k in keys + ("train_ms_per_step",)} | {
+                         "trials": sum(r["epochs"] == b for r in rows)} for b in (1, 4, 16)}
+        out["config3"] = {
+            "trials": len(done), "hunt_wall_s": wall, "trials_per_hour": len(done) / wall * 3600,
+            "status_wall_s": status_wall, "rungs": status[0]["rungs"], "sum": total,
+            "share": {k: total[k] / total["trial_s"] for k in keys[1:]},
+            "median_by_budget": by_budget, "per_trial": rows,
+            "best": summary["best"]["objective"], "device": name,
+            "producer_timings": summary["producer_timings"],
+        }
+        log(f"[asha] config 3: {len(done)} trials completed on {name} ({by_budget[1]['trials']} "
+            f"at 1 epoch, {by_budget[4]['trials']} at 4, {by_budget[16]['trials']} at 16), "
+            f"none broken, promotions on their parents' lineage, registry empty, status "
+            f"--rungs from a fresh process equal to the replay ({status_wall:.2f} s); "
+            f"{wall:.2f} s = {len(done) / wall * 3600:.1f} trials/hour; best val error "
+            f"{summary['best']['objective']:.4f}")
+        log(f"[asha] config 3, summed over trials: ledger wall {total['trial_s']:.2f} s = "
+            + ", ".join(f"{k[:-2]} {total[k]:.2f} s ({100 * total[k] / total['trial_s']:.1f}%)"
+                        for k in keys[1:]))
+        for b, m in by_budget.items():
+            log(f"[asha]   budget {b:2d} (median of {m['trials']}): trial {m['trial_s']:.2f} s ="
+                f" start -> first CUDA op {m['first_device_op_s']:.2f} + setup "
+                f"{m['setup_s']:.2f} + training {m['train_s']:.2f} "
+                f"({m['train_ms_per_step']:.2f} ms/step) + eval {m['eval_s']:.2f} + rest "
+                f"{m['rest_s']:.2f}; card {smi}")
+    except BaseException:
+        log_ledger(root / "ledger")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1070,6 +1343,9 @@ def main() -> int:
     # -- 7. the hunt CLI --------------------------------------------------------
     hunt_stats = hunt_phase(torch, smi)
 
+    # -- 8. BASELINE config 3: ASHA on ResNet-50 through the CLI ----------------
+    asha_stats = asha_phase(torch, smi)
+
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         row = dict(timing_stats[name])
@@ -1089,6 +1365,7 @@ def main() -> int:
         "profile": breakdown}}), flush=True)
     print(json.dumps({"tpe": tpe_stats}), flush=True)
     print(json.dumps({"hunt": hunt_stats}), flush=True)
+    print(json.dumps({"asha": asha_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 Only what is ported is registered: the :class:`BaseAlgorithm` contract with
 the :class:`SuggestAhead` mixin, the registry, :func:`make_algorithm`,
-:class:`Random` and :class:`TPE`. The others are queued in ROADMAP.md.
+:class:`Random`, :class:`TPE` and :class:`ASHA`. The others are queued in
+ROADMAP.md.
 """
 
 from metaopt_tpu_torch.algo.base import (
@@ -11,9 +12,10 @@ from metaopt_tpu_torch.algo.base import (
     algo_registry,
     make_algorithm,
 )
+from metaopt_tpu_torch.algo.asha import ASHA
 from metaopt_tpu_torch.algo.obs_buffer import ObservationBuffer
 from metaopt_tpu_torch.algo.random_search import Random
 from metaopt_tpu_torch.algo.tpe import TPE
 
-__all__ = ["BaseAlgorithm", "SuggestAhead", "algo_registry", "make_algorithm",
+__all__ = ["ASHA", "BaseAlgorithm", "SuggestAhead", "algo_registry", "make_algorithm",
            "ObservationBuffer", "Random", "TPE"]

@@ -180,9 +180,17 @@ class BaseAlgorithm(ABC):
     algorithm is waiting on in-flight trials — e.g. ASHA rungs full).
     """
 
+    #: set by multi-fidelity algorithms; checked at construction time
+    requires_fidelity: bool = False
+
     def __init__(self, space: Space, seed: Optional[int] = None, **config: Any):
         self.space = space
         self._config = dict(config, seed=seed)
+        if self.requires_fidelity and space.fidelity is None:
+            raise ValueError(
+                f"{type(self).__name__} needs a fidelity dimension, e.g. "
+                "epochs~fidelity(1, 16, base=4)"
+            )
         self.rng = np.random.default_rng(seed)
         self._observed: Dict[str, float] = {}  # trial id -> objective
         #: how many of the oldest observations were seeded from an

@@ -10,10 +10,13 @@ own command line, with ``~priors`` marking searchable arguments:
         -x~'uniform(-5, 10)' -y~'uniform(-5, 10)'
 
 Ported subcommands: ``hunt``, ``init-only``, ``insert``, ``resume``,
-``list``, ``status`` and ``info``. Flags whose machinery is not ported yet
-(EVC branching and warm start, ``--n-chips`` device placement, the batched
-hunt, the coordinator producer, ``status --rungs`` for a multi-fidelity
-algorithm) are accepted by the parser and raise a clear "not ported yet".
+``list``, ``status`` and ``info``. ``hunt --n-chips N`` (or
+``executor.n_chips`` in the config file) places each trial on its own block
+of N GPUs (:class:`~metaopt_tpu_torch.executor.GPUExecutor`), and ``status
+--rungs`` shows a multi-fidelity algorithm's rung occupancy. Flags whose
+machinery is not ported yet (EVC branching and warm start, the batched
+hunt, the coordinator producer) are accepted by the parser and raise a
+clear "not ported yet".
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import sys
 import time
 from typing import Any, Dict, List, Optional
 
-from metaopt_tpu_torch.executor import SubprocessExecutor
+from metaopt_tpu_torch.executor import GPUExecutor, SubprocessExecutor
 from metaopt_tpu_torch.io.resolve_config import DEFAULTS, resolve_config
 from metaopt_tpu_torch.ledger import Experiment
 from metaopt_tpu_torch.ledger.backends import (
@@ -79,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                       help="abort after this many broken trials")
     hunt.add_argument("--working-dir")
     hunt.add_argument("--n-chips", type=int, default=None,
-                      help="GPUs per trial (device placement; not ported yet)")
+                      help="GPUs per trial: each trial runs pinned to its own "
+                           "block of GPUs (CUDA_VISIBLE_DEVICES)")
     hunt.add_argument("--timeout-s", type=float, default=None,
                       help="per-trial wall-clock timeout")
     hunt.add_argument("--warm-start", dest="warm_start", default=None,
@@ -150,8 +154,7 @@ def build_parser() -> argparse.ArgumentParser:
     common(st)
     st.add_argument("--json", action="store_true", dest="as_json")
     st.add_argument("--rungs", action="store_true",
-                    help="rung occupancy for multi-fidelity algorithms "
-                         "(not ported yet)")
+                    help="rung occupancy for multi-fidelity algorithms")
     st.add_argument("--workers", action="store_true",
                     help="per-worker liveness derived from trial "
                          "ownership + heartbeats (who holds what, last "
@@ -356,10 +359,6 @@ def _cmd_hunt(args, cfg: Dict[str, Any]) -> int:
             or getattr(args, "vector_objective", None)
             or cfg.get("vector_objective")):
         raise _not_ported("the batched hunt (--batch-size/--vector-objective)")
-    # trials inherit this process's CUDA_VISIBLE_DEVICES; placing each trial
-    # on its own GPUs is the reference's TPUExecutor role
-    if args.n_chips is not None:
-        raise _not_ported(f"--n-chips {args.n_chips} (GPU trial placement)")
     exp, template = _experiment_from_args(args, cfg, need_cmd=False)
     if template is None or not exp.user_args:
         raise SystemExit("hunt needs a user command (or an experiment that has one)")
@@ -369,15 +368,21 @@ def _cmd_hunt(args, cfg: Dict[str, Any]) -> int:
     if script.endswith(".py") and not os.access(script, os.X_OK):
         interpreter = [sys.executable]
 
+    n_chips = args.n_chips if args.n_chips is not None else (
+        (cfg.get("executor") or {}).get("n_chips")
+    )
+
     def make_executor(tmpl):
-        return SubprocessExecutor(
-            tmpl,
+        kwargs = dict(
             working_dir=args.working_dir or cfg.get("working_dir"),
             interpreter=interpreter,
             timeout_s=args.timeout_s,
             profile_dir=args.profile_dir,
             ckpt_root=args.ckpt_root or cfg.get("ckpt_root"),
         )
+        if n_chips:
+            return GPUExecutor(tmpl, n_chips=int(n_chips), **kwargs)
+        return SubprocessExecutor(tmpl, **kwargs)
 
     workon_kwargs = dict(
         worker_trials=(
@@ -594,7 +599,11 @@ def _cmd_status(args, cfg: Dict[str, Any]) -> int:
         exp = Experiment(name, ledger).configure()
         s = exp.stats
         if args.rungs and exp.algorithm and exp.space.fidelity is not None:
-            raise _not_ported("status --rungs (multi-fidelity algorithms)")
+            from metaopt_tpu_torch.algo.base import make_algorithm
+
+            algo = make_algorithm(exp.space, exp.algorithm)
+            algo.observe(exp.fetch_completed_trials())
+            s["rungs"] = getattr(algo, "rung_table", None)
         if args.workers:
             from metaopt_tpu_torch.io.webapi import worker_table
 
@@ -609,6 +618,9 @@ def _cmd_status(args, cfg: Dict[str, Any]) -> int:
             if s["best"]:
                 print(f"  best objective {s['best']['objective']:.6g} "
                       f"at {s['best']['params']}")
+            for r in s.get("rungs") or []:
+                print(f"  bracket {r['bracket']} budget {r['budget']:>5}: "
+                      f"{r['n']} completed, {r['promoted']} promoted")
             for w in s.get("workers") or []:
                 age = w["last_seen_age_s"]
                 seen = f"last seen {age:.0f}s ago" if age is not None \
@@ -679,6 +691,13 @@ _COMMANDS = {
 }
 
 
+#: the CLI's lowest config layer: the reference's defaults with
+#: ``executor.n_chips`` unset. The reference pins every hunt by its default
+#: of 1; a host without a GPU has nothing to pin to, and a CPU objective
+#: (config 1) needs none, so only ``--n-chips`` or a config file pins.
+CLI_DEFAULTS = {**DEFAULTS, "executor": {**DEFAULTS["executor"], "n_chips": None}}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args, extras = parser.parse_known_args(argv)
@@ -695,6 +714,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "pool_size": getattr(args, "pool_size", None),
         },
         getattr(args, "config", None),
+        defaults=CLI_DEFAULTS,
     )
     try:
         return _COMMANDS[args.command](args, cfg)

@@ -20,20 +20,9 @@ train step, and the seconds of the whole ``train_and_eval`` call.
 """
 
 import argparse
-import os
 import time
 
-
-def process_age_s() -> float:
-    """Seconds since this process started, from the kernel's start stamp
-    (``/proc/self/stat`` field 22, in clock ticks since boot)."""
-    with open("/proc/self/stat") as f:
-        # the command name (field 2) may hold spaces: split after its ')'
-        fields = f.read().rsplit(")", 1)[1].split()
-    start_ticks = int(fields[19])
-    with open("/proc/uptime") as f:
-        uptime = float(f.read().split()[0])
-    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+from metaopt_tpu_torch.utils.procs import process_age_s
 
 
 def main():

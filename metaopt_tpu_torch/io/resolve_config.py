@@ -102,9 +102,12 @@ def load_config_file(path: str) -> Any:
 def resolve_config(
     cmdargs: Optional[Dict[str, Any]] = None,
     config_path: Optional[str] = None,
+    defaults: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
-    """Merge defaults < environment < yaml file < explicit command args."""
-    cfg = copy.deepcopy(DEFAULTS)
+    """Merge defaults < environment < yaml file < explicit command args.
+
+    ``defaults`` replaces :data:`DEFAULTS` as the lowest layer."""
+    cfg = copy.deepcopy(DEFAULTS if defaults is None else defaults)
 
     env_overlay: Dict[str, Any] = {}
     for var, dotted in ENV_VARS.items():

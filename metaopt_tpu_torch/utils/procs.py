@@ -3,7 +3,8 @@
 Port of ``metaopt_tpu/utils/procs.py``, trimmed to :func:`run_with_deadline`
 and the device probe the subprocess executor's circuit breaker runs,
 :func:`cuda_backend_reachable` (the counterpart of the reference's
-``tpu_backend_reachable``). A probe child that hangs in CUDA runtime or context
+``tpu_backend_reachable``); plus :func:`process_age_s`, which the example
+trial scripts report their start-up cost with. A probe child that hangs in CUDA runtime or context
 initialization must not hang its parent, so children run Popen + poll +
 kill — never ``subprocess.run(timeout=...)``, whose post-timeout cleanup
 waits on the child — with their output sent to /dev/null.
@@ -55,3 +56,15 @@ def cuda_backend_reachable(timeout_s: float = 90.0) -> bool:
         return False
     return run_with_deadline([sys.executable, "-c", CUDA_PROBE], timeout_s=timeout_s,
                              poll_s=0.2) == 0
+
+
+def process_age_s() -> float:
+    """Seconds since this process started, from the kernel's start stamp
+    (``/proc/self/stat`` field 22, in clock ticks since boot)."""
+    with open("/proc/self/stat") as f:
+        # the command name (field 2) may hold spaces: split after its ')'
+        fields = f.read().rsplit(")", 1)[1].split()
+    start_ticks = int(fields[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")

@@ -9,6 +9,9 @@ code, ``--n-workers`` never runs a trial twice, ``init-only`` → ``insert``
 cannot match threefry) is held to in-space, finite, and reaching EI; the
 MLP example trains for real on ``--device=cpu``. Without CUDA, TPE and the
 MLP script raise unless asked for the CPU, and such a trial is ``broken``.
+ASHA with ``--n-chips 1`` (each trial pinned to a GPU block) draws with
+numpy only, so both CLIs give the same ledger and the same ``status
+--rungs``; the ResNet example runs one tiny trial on ``--device=cpu``.
 """
 
 import json
@@ -29,6 +32,7 @@ from metaopt_tpu_torch.space import build_space
 REPO = Path(__file__).resolve().parents[1]
 ROSENBROCK = str(REPO / "metaopt_tpu_torch" / "examples" / "rosenbrock.py")
 MLP = str(REPO / "metaopt_tpu_torch" / "examples" / "mlp_mnist.py")
+RESNET = str(REPO / "metaopt_tpu_torch" / "examples" / "resnet_cifar.py")
 
 QUAD = '''
 import argparse
@@ -175,7 +179,6 @@ def test_on_conflict_fail_and_adopt(tmp_path, quad, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--n-chips", "1"], "--n-chips"),
     (["--batch-size", "4"], "batched hunt"),
     (["--vector-objective", "rosenbrock"], "batched hunt"),
     (["--branch-from", "a"], "--branch-from"),
@@ -309,3 +312,131 @@ def test_python_dash_m_runs_the_cli(tmp_path):
     assert s["by_status"]["completed"] >= 4
     x, y = s["best"]["params"]["x"], s["best"]["params"]["y"]
     assert s["best"]["objective"] == (1.0 - x) ** 2 + 100.0 * (y - x * x) ** 2
+
+
+ASHA_SCRIPT = '''
+import argparse
+from metaopt_tpu_torch.client import report_partial, report_results
+p = argparse.ArgumentParser()
+p.add_argument("-x", type=float, required=True)
+p.add_argument("--epochs", type=int, required=True)
+a = p.parse_args()
+for e in range(1, a.epochs + 1):
+    err = (a.x - 1.0) ** 2 + 1.0 / e
+    report_partial(err, e)
+report_results([{"name": "objective", "type": "objective", "value": err}])
+'''
+ASHA_PRIORS = ["-x~uniform(-5, 5)", "--epochs~fidelity(1, 4, base=2)"]
+
+
+@pytest.fixture(scope="module")
+def asha_hunts(tmp_path_factory):
+    """One ASHA hunt per pool size with ``--n-chips 1`` through each CLI on
+    its own file ledger, with the GPU registry in this fixture's TMPDIR."""
+    import tempfile
+
+    root = tmp_path_factory.mktemp("asha")
+    script = root / "asha_trial.py"
+    script.write_text(ASHA_SCRIPT)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MTPU_SLICE_CHIPS", "1")
+        mp.setenv("TMPDIR", str(root))
+        mp.setattr(tempfile, "tempdir", str(root))
+        for pool in (1, 4):
+            cfg = root / f"asha{pool}.json"
+            cfg.write_text(json.dumps({"algorithm": {"asha": {"seed": 0}}, "pool_size": pool}))
+            for tag, cli in (("ref", ref_main), ("port", main)):
+                rc = cli(["hunt", "-n", "asha", "--n-chips", "1", "--max-trials", "12",
+                          "--ledger", f"file:{root / f'{tag}{pool}'}", "--config", str(cfg),
+                          str(script)] + ASHA_PRIORS)
+                assert rc == 0
+    return root
+
+
+def asha_rows(root, name):
+    return sorted((t.id, json.dumps(t.params, sort_keys=True), t.objective, t.status,
+                   t.lineage, t.parent) for t in FileLedger(root).fetch(name))
+
+
+@pytest.mark.parametrize("pool", [1, 4])
+def test_asha_hunt_on_gpu_blocks_matches_reference_cli(asha_hunts, pool):
+    want = asha_rows(str(asha_hunts / f"ref{pool}"), "asha")
+    got = asha_rows(str(asha_hunts / f"port{pool}"), "asha")
+    assert len(got) == 12 and got == want
+    trials = FileLedger(str(asha_hunts / f"port{pool}")).fetch("asha")
+    assert all(t.status == "completed" for t in trials)
+    # every trial ran pinned to GPU 0, and the registry holds no claim after
+    assert all(t.resources["chips"] == [0] and t.resources["env"]["CUDA_VISIBLE_DEVICES"] == "0"
+               for t in trials)
+    assert json.loads((asha_hunts / "metaopt_tpu_torch-gpus-1.json").read_text()) == {
+        "claims": {}}
+    # a promotion keeps its parent's lineage: same point, a higher budget
+    by_lineage = {}
+    for t in trials:
+        by_lineage.setdefault(t.lineage, set()).add(t.params["epochs"])
+    assert any(len(b) > 1 for b in by_lineage.values())
+    budgets = {t.params["epochs"] for t in trials}
+    # one worker at pool 4 registers four fresh trials per cycle while it
+    # completes one: the budget fills before ASHA reaches the top rung
+    assert budgets == ({1, 2, 4} if pool == 1 else {1, 2})
+
+
+@pytest.mark.parametrize("as_json", [True, False], ids=["json", "text"])
+def test_status_rungs_matches_reference_cli(asha_hunts, capsys, as_json):
+    outs = []
+    for tag, cli in (("ref", ref_main), ("port", main)):
+        capsys.readouterr()
+        argv = ["status", "-n", "asha", "--rungs", "--ledger", f"file:{asha_hunts / f'{tag}1'}"]
+        assert cli(argv + (["--json"] if as_json else [])) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[1] == outs[0]
+    if as_json:
+        (s,) = json.loads(outs[1])
+        assert [(r["budget"], r["promoted"]) for r in s["rungs"]] == [(1, 0), (2, 0), (4, 0)]
+        assert sum(r["n"] for r in s["rungs"]) == 12 and s["rungs"][-1]["n"] >= 1
+    else:
+        assert "  bracket 0 budget     4: " in outs[1]
+
+
+def test_resnet_trial_through_the_cli_on_cpu(tmp_path, monkeypatch, capsys):
+    import tempfile
+
+    monkeypatch.setenv("MTPU_SLICE_CHIPS", "1")
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    led = str(tmp_path / "ledger")
+    rc, out = run_json(capsys, [
+        "hunt", "-n", "resnet", "--n-chips", "1", "--max-trials", "1", "--ledger", led,
+        "--config", str(REPO / "metaopt_tpu_torch" / "examples" / "asha.json"), RESNET,
+        "--lr~loguniform(1e-3, 1.0)", "--momentum~uniform(0.8, 0.99)",
+        "--weight-decay~loguniform(1e-6, 1e-2)", "--epochs~fidelity(1, 16, base=4)",
+        "--device=cpu", "--depth=18", "--width=8", "--hw=8", "--n-train=64", "--n-val=32",
+        "--batch-size=32"])
+    assert rc == 0 and out["total"] == {"completed": 1}
+    (t,) = FileLedger(led).fetch("resnet")
+    stats = {r.name: r.value for r in t.results if r.type == "statistic"}
+    assert 0.0 <= t.objective <= 1.0 and t.params["epochs"] == 1
+    assert stats["device"] == "cpu" and len(stats["epoch_losses"]) == 1
+    assert 0 < stats["first_device_op_s"] and 0 < stats["train_s"] and 0 < stats["eval_s"]
+    assert stats["train_ms_per_step"] == pytest.approx(stats["train_s"] / 2 * 1e3)
+    assert stats["setup_s"] + stats["train_s"] + stats["eval_s"] <= stats["train_and_eval_s"]
+    assert t.resources["chips"] == [0]
+
+
+def test_executor_n_chips_in_the_config_file_pins_trials(tmp_path, quad, capsys, monkeypatch):
+    import tempfile
+
+    monkeypatch.setenv("MTPU_SLICE_CHIPS", "1")
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    pinned = tmp_path / "pinned.json"
+    pinned.write_text(json.dumps({"executor": {"n_chips": 1}}))
+    plain = tmp_path / "plain.json"
+    plain.write_text(json.dumps({"algorithm": {"random": {"seed": 0}}}))
+    for name, cfg, want in (("pinned", pinned, [0]), ("plain", plain, None)):
+        led = str(tmp_path / name)
+        rc, out = run_json(capsys, ["hunt", "-n", name, "--max-trials", "2", "--ledger", led,
+                                    "--config", str(cfg), quad, "-x~uniform(-2, 2)"])
+        assert rc == 0 and out["total"] == {"completed": 2}
+        # the defaults' executor.n_chips (1) pins nothing; the file's does
+        assert all(t.resources.get("chips") == want for t in FileLedger(led).fetch(name))
