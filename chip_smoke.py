@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through eight phases and exits non-zero if any fails:
+``metaopt_tpu``) through nine phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -70,10 +70,30 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    fresh process equal to ASHA replayed over the ledger. (c) Config 3's
    trials per hour and each trial's split: process start → first CUDA op,
    setup, training, eval, the rest.
+9. evolution: BASELINE config 5. (a) PPO at full width (64 environments,
+   128 steps, hidden 64, 4 full-batch updates) on the card against the CPU
+   for two iterations from the same parameters and draws: every parameter
+   and the advantages within 1e-4 of the tensor's largest entry, the return
+   within 1e-4 relative. (b) ``train({"lr": 3e-4})`` for seeds 0 and 1 on
+   the card: the negated return above 50 after 2 iterations and below 5
+   after 32; ms per iteration; one traced iteration's CUDA kernels, device
+   busy share and device ms by kind; peak memory. (c) EvolutionES
+   (``evolution.json``: seed 0, population 10, pool 5) on
+   ``metaopt_tpu_torch/examples/ppo_atari.py`` through ``hunt --n-chips 1``,
+   20 trials (two generations; the example runs 60), each a fresh process
+   on the card — all completed and finite, their points equal to the
+   port's EvolutionES replayed on the CPU over the ledger's objectives, the
+   GPU registry empty after, ``status --json`` from a fresh process
+   agreeing; trials per hour and each trial's split: process start → first
+   CUDA op, setup, training, the rest. (d) Hyperband (seed 0, one
+   repetition; 14 trials) and BOHB (seed 0, two repetitions; 28 trials,
+   its TPEs on the card) in-process over PPO with ``epochs~fidelity(2, 8,
+   base=2)``: every rung of the bracket table filled and completed, and at
+   least one BOHB point suggested by EI on the card.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
-``{"hunt": {...}}`` line, an ``{"asha": {...}}`` line and, last, the
-``{"ok": true, "device": {...}}`` line.
+``{"hunt": {...}}`` line, an ``{"asha": {...}}`` line, an ``{"evolution":
+{...}}`` line and, last, the ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -136,6 +156,35 @@ RESNET_KINDS = (  # first match wins: cuDNN's batch-norm kernels before its conv
     ("optimizer (foreach SGD)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
     ("casts and copies", ("copy_kernel",)),
+)
+PPO_SPACE = {  # BASELINE config 5: examples/ppo_atari.py's docstring
+    "lr": "loguniform(1e-5, 1e-2)",
+    "clip-eps": "uniform(0.05, 0.4)",
+    "ent-coef": "loguniform(1e-4, 1e-1)",
+    "gae-lambda": "uniform(0.8, 1.0)",
+    "epochs": "fidelity(2, 32, base=2)",
+}
+# two full generations of evolution.json's population of 10: 10 trials at 2
+# iterations, then 10 mutants of the top 5 at 4 (the example runs 60)
+EVOLUTION_TRIALS, POPULATION = 20, 10
+# a config-5 trial's wall-clock timeout, and its share of the CLI's deadline
+PPO_TIMEOUT_S, PPO_TRIAL_S = 120, 30
+PPO_TOL = 1e-4          # card against CPU, relative to each tensor's largest entry
+PPO_ITERS = 32          # a full-fidelity trial
+HB_SPACE = {  # config 5's priors for the in-process Hyperband and BOHB runs
+    "lr": "loguniform(1e-5, 1e-2)",
+    "clip_eps": "uniform(0.05, 0.4)",
+    "ent_coef": "loguniform(1e-4, 1e-1)",
+    "epochs": "fidelity(2, 8, base=2)",
+}
+# Hyperband (seed 0, one repetition) over fidelity(2, 8, base=2):
+# (bracket, budget, capacity), every rung filled and completed
+HB_TABLE = [(0, 2, 4), (0, 4, 2), (0, 8, 1), (1, 4, 3), (1, 8, 1), (2, 8, 3)]
+PPO_KINDS = (
+    ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "splitK")),
+    ("optimizer (foreach Adam, clip)", ("multi_tensor_apply",)),
+    ("reductions", ("reduce_kernel",)),
+    ("casts, copies and concatenations", ("copy_kernel", "CatArrayBatched", "cat_")),
 )
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
@@ -1170,6 +1219,216 @@ def asha_phase(torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: BASELINE config 5, EvolutionES on PPO; Hyperband and BOHB
+
+
+def ppo_card_vs_cpu(torch, ppo):
+    """Two full-width iterations on the card and on the CPU from the same
+    initial parameters and the same draws (made on the CPU): the largest
+    |card - cpu| of every parameter and of the advantages, each over the
+    tensor's largest |cpu| entry, and the return's relative difference."""
+    draws = ppo.Draws(7, "cpu")
+    reset = draws.reset(64)
+    rollouts = [draws.rollout(128, 64) for _ in range(2)]
+    params = ppo.ActorCritic(64).init_like_flax(torch.Generator().manual_seed(3)).state_dict()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        rep = {}
+        ret = ppo.train({"lr": 3e-4}, iterations=2, device=dev, params=params,
+                        draws=ppo.GivenDraws(reset, rollouts, dev), report=rep)
+        runs[dev] = (ret, {k: v.detach().cpu() for k, v in
+                           rep["state"].model.state_dict().items()},
+                     rep["advantages"].cpu())
+    (ret_c, sd_c, adv_c), (ret_g, sd_g, adv_g) = runs["cpu"], runs["cuda"]
+    rel = {k: float((sd_g[k] - sd_c[k]).abs().max() / sd_c[k].abs().max()) for k in sd_c}
+    rel["advantages"] = float((adv_g - adv_c).abs().max() / adv_c.abs().max())
+    rel["return"] = abs(ret_g - ret_c) / abs(ret_c)
+    return {"return_cpu": ret_c, "return_card": ret_g, "rel": rel,
+            "finite": all(bool(torch.isfinite(v).all()) for v in sd_g.values())}
+
+
+def evolution_phase(torch, smi: str):
+    from metaopt_tpu_torch import build_experiment
+    from metaopt_tpu_torch.algo import make_algorithm
+    from metaopt_tpu_torch.ledger import Experiment, FileLedger
+    from metaopt_tpu_torch.models import ppo
+    from metaopt_tpu_torch.space import build_space
+
+    out = {"card": smi}
+    # -- (a) PPO on the card against the CPU --------------------------------
+    cmp = ppo_card_vs_cpu(torch, ppo)
+    worst = max(cmp["rel"], key=cmp["rel"].get)
+    log(f"[evolution] PPO at full width (64 envs, 128 steps, hidden 64, 4 updates), 2 "
+        f"iterations from the same parameters and draws: return card {cmp['return_card']:.6f}, "
+        f"cpu {cmp['return_cpu']:.6f}; largest |card - cpu| / max|cpu| {cmp['rel'][worst]:.3e} "
+        f"({worst}; advantages {cmp['rel']['advantages']:.3e}, return "
+        f"{cmp['rel']['return']:.3e}; bound {PPO_TOL:g})")
+    if not (cmp["finite"] and all(v <= PPO_TOL for v in cmp["rel"].values())):
+        raise AssertionError(f"[evolution] PPO on the card disagrees with the CPU: {cmp}")
+    out["card_vs_cpu"] = cmp
+
+    # -- (b) full-fidelity trials in-process ---------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    trials = {}
+    for seed in (0, 1):
+        early = ppo.train({"lr": 3e-4}, iterations=2, seed=seed, device="cuda")
+        rep = {}
+        late = ppo.train({"lr": 3e-4}, iterations=PPO_ITERS, seed=seed, device="cuda",
+                         report=rep)
+        trials[seed] = {"neg_return_2": early, f"neg_return_{PPO_ITERS}": late,
+                        "ms_per_iteration": rep["ms_per_iteration"], "setup_s": rep["setup_s"]}
+        log(f"[evolution] seed {seed}: negated return {early:.3f} after 2 iterations, {late:.4f} "
+            f"after {PPO_ITERS} ({rep['ms_per_iteration']:.2f} ms/iteration, host clock, "
+            f"synchronized; setup {rep['setup_s']:.3f} s)")
+        if not (early > 50 and late < 5):
+            raise AssertionError(f"[evolution] PPO did not learn (seed {seed}): {early}, {late}")
+    peak = torch.cuda.max_memory_allocated()
+    st = ppo.setup({"lr": 3e-4}, device="cuda")
+    for _ in range(2):
+        ppo.iteration(st)
+    prof = trace_steps(torch, lambda: ppo.iteration(st), 5, 2, PPO_KINDS)
+    if prof is not None:
+        rows = prof.pop("rows")
+        prof["kernels_per_iteration"] = sum(r[2] for r in rows)
+        log_breakdown("evolution", "PPO iteration", {**prof, "rows": rows})
+        log(f"[evolution] {prof['kernels_per_iteration']:.0f} CUDA kernels per iteration; "
+            f"peak memory {peak / 2**20:.1f} MiB; card {smi}")
+        prof["top"] = [[k[:90], ms, n] for k, ms, n in rows[:12]]
+    out["in_process"] = {"trials": trials, "profile": prof, "peak_mem_bytes": peak}
+
+    # -- (c) config 5 through the CLI ----------------------------------------
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_evolution_"))
+    # TMPDIR: the hunt's GPU registry file is this phase's own
+    env = dict(os.environ, TMPDIR=str(root))
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    ledger = f"file:{root / 'ledger'}"
+    try:
+        summary, wall = run_cli(
+            ["hunt", "-n", "ppo", "--n-chips", "1", "--max-trials", str(EVOLUTION_TRIALS),
+             "--timeout-s", str(PPO_TIMEOUT_S), "--ledger", ledger,
+             "--config", str(examples / "evolution.json"), str(examples / "ppo_atari.py")]
+            + [f"--{k}~{v}" for k, v in PPO_SPACE.items()],
+            root, env, EVOLUTION_TRIALS, 1, PPO_TRIAL_S)
+        status, status_wall = run_cli(["status", "-n", "ppo", "--json", "--ledger", ledger],
+                                      root, env)
+        led = FileLedger(str(root / "ledger"))
+        exp = Experiment("ppo", led).configure()
+        done = sorted((t for t in led.fetch("ppo") if t.status == "completed"),
+                      key=lambda t: t.start_time)
+        # the port's EvolutionES on the CPU, fed the ledger's objectives
+        replay = make_algorithm(exp.space, exp.algorithm)
+        issued = replay.suggest(POPULATION)
+        replay.observe([t for t in done if t.params["epochs"] == 2])
+        issued += replay.suggest(POPULATION)
+        name = torch.cuda.get_device_name(0)
+        stats = [statistics_of(t) for t in done]
+        registry = json.loads((root / "metaopt_tpu_torch-gpus-1.json").read_text())
+        space = build_space(PPO_SPACE)
+        problems = []
+        if len(done) != EVOLUTION_TRIALS or summary["total"] != {"completed": EVOLUTION_TRIALS}:
+            problems.append(f"{[(t.status, t.objective) for t in led.fetch('ppo')]}")
+        if not all(math.isfinite(t.objective) for t in done):
+            problems.append("a non-finite objective")
+        if not all(t.params in space for t in done):
+            problems.append("a point outside the space")
+        key = (lambda p: json.dumps(p, sort_keys=True))  # noqa: E731
+        if sorted(key(t.params) for t in done) != sorted(key(p) for p in issued):
+            problems.append("the ledger's points differ from EvolutionES replayed on the CPU")
+        if sorted(t.params["epochs"] for t in done) != [2] * POPULATION + [4] * POPULATION:
+            problems.append(f"budgets {sorted(t.params['epochs'] for t in done)}")
+        if not all(st.get("device") == name for st in stats):
+            problems.append(f"devices {sorted({str(st.get('device')) for st in stats})}")
+        if registry != {"claims": {}}:
+            problems.append(f"the GPU registry still holds {registry}")
+        if status[0]["by_status"] != summary["total"] or status[0]["best"] != summary["best"]:
+            problems.append(f"status disagrees: {status[0]} vs {summary}")
+        if problems:
+            raise AssertionError(f"[evolution] config 5: {problems}")
+        rows = []
+        for t, st in zip(done, stats):
+            trial_s = t.end_time - t.start_time
+            parts = {k: st[k] for k in ("first_device_op_s", "setup_s", "train_s")}
+            rows.append({"epochs": t.params["epochs"], "trial_s": trial_s, **parts,
+                         "rest_s": trial_s - sum(parts.values()),
+                         "ms_per_iteration": st["ms_per_iteration"],
+                         "neg_return": t.objective})
+        keys = ("trial_s", "first_device_op_s", "setup_s", "train_s", "rest_s")
+        total = {k: sum(r[k] for r in rows) for k in keys}
+        by_budget = {b: {k: median([r[k] for r in rows if r["epochs"] == b])
+                         for k in keys + ("ms_per_iteration",)} for b in (2, 4)}
+        out["config5"] = {
+            "trials": len(done), "hunt_wall_s": wall,
+            "trials_per_hour": len(done) / wall * 3600, "status_wall_s": status_wall,
+            "sum": total, "share": {k: total[k] / total["trial_s"] for k in keys[1:]},
+            "median_by_budget": by_budget, "per_trial": rows,
+            "best": summary["best"]["objective"], "device": name,
+            "producer_timings": summary["producer_timings"],
+        }
+        log(f"[evolution] config 5: {len(done)} trials completed on {name} (10 at 2 "
+            f"iterations, 10 at 4), finite, equal to EvolutionES (seed 0) replayed on the CPU "
+            f"over the ledger's objectives, registry empty, status --json from a fresh process "
+            f"agreeing ({status_wall:.2f} s); {wall:.2f} s = {len(done) / wall * 3600:.1f} "
+            f"trials/hour; best negated return {summary['best']['objective']:.4f}")
+        log(f"[evolution] config 5, summed over trials: ledger wall {total['trial_s']:.2f} s = "
+            + ", ".join(f"{k[:-2]} {total[k]:.2f} s ({100 * total[k] / total['trial_s']:.1f}%)"
+                        for k in keys[1:]))
+        for b, m in by_budget.items():
+            log(f"[evolution]   {b} iterations (median of {POPULATION}): trial "
+                f"{m['trial_s']:.2f} s = start -> first CUDA op {m['first_device_op_s']:.2f} + "
+                f"setup {m['setup_s']:.2f} + training {m['train_s']:.2f} "
+                f"({m['ms_per_iteration']:.2f} ms/iteration) + rest {m['rest_s']:.2f}; card {smi}")
+    except BaseException:
+        log_ledger(root / "ledger")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- (d) Hyperband and BOHB in-process -----------------------------------
+    for tag, algo_cfg, want_trials in (
+            ("hyperband", {"hyperband": {"seed": 0, "repetitions": 1}}, 14),
+            ("bohb", {"bohb": {"seed": 0, "repetitions": 2}}, 28)):
+        client = build_experiment(tag, space=HB_SPACE, algorithm=algo_cfg, max_trials=200,
+                                  ledger="memory")
+        algo = make_algorithm(client.space, algo_cfg)
+        t0 = time.perf_counter()
+        client.workon(ppo.make_objective(device="cuda"), algorithm=algo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = client.fetch_trials("completed")
+        table = [(r["bracket"], r["budget"], r["capacity"]) for r in algo.rung_table]
+        full = all(r["assigned"] == r["capacity"] == r["completed"] for r in algo.rung_table)
+        row = {"trials": len(done), "wall_s": wall, "rungs": algo.rung_table,
+               "best": min(t.objective for t in done) if done else None}
+        problems = []
+        if len(done) != want_trials or not algo.is_done:
+            problems.append(f"{len(done)} trials completed, is_done {algo.is_done}")
+        if not all(math.isfinite(t.objective) for t in done):
+            problems.append("a non-finite objective")
+        if table != HB_TABLE or not full:
+            problems.append(f"rung table {algo.rung_table}")
+        if tag == "bohb":
+            models = algo._models.values()
+            row["ei_launches"] = sum(m._launches for m in models)
+            row["ei_suggested"] = sum(m.suggest_ahead_telemetry()["prefetch_hits"]
+                                      + m.suggest_ahead_telemetry()["prefetch_misses"]
+                                      for m in models)
+            row["buffers"] = sorted({str(m._buf.Xdev.device) for m in models
+                                     if m._buf.Xdev is not None})
+            if row["ei_launches"] < 1 or row["ei_suggested"] < 1 or row["buffers"] != ["cuda:0"]:
+                problems.append(f"EI on the card: {row}")
+        if problems:
+            raise AssertionError(f"[evolution] {tag}: {problems}")
+        out[tag] = row
+        extra = (f"; {row['ei_suggested']} suggested by EI in {row['ei_launches']} launches "
+                 f"on {row['buffers'][0]}") if tag == "bohb" else ""
+        log(f"[evolution] {tag} in-process: {len(done)} PPO trials in {wall:.2f} s, every rung "
+            f"of {table} filled and completed; best negated return {row['best']:.4f}{extra}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1346,6 +1605,12 @@ def main() -> int:
     # -- 8. BASELINE config 3: ASHA on ResNet-50 through the CLI ----------------
     asha_stats = asha_phase(torch, smi)
 
+    # -- 9. BASELINE config 5: EvolutionES on PPO; Hyperband and BOHB ----------
+    t0 = time.perf_counter()
+    evolution_stats = evolution_phase(torch, smi)
+    evolution_stats["phase_s"] = time.perf_counter() - t0
+    log(f"[evolution] phase took {evolution_stats['phase_s']:.1f} s")
+
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         row = dict(timing_stats[name])
@@ -1366,6 +1631,7 @@ def main() -> int:
     print(json.dumps({"tpe": tpe_stats}), flush=True)
     print(json.dumps({"hunt": hunt_stats}), flush=True)
     print(json.dumps({"asha": asha_stats}), flush=True)
+    print(json.dumps({"evolution": evolution_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,10 +4,11 @@
 hooks, transfer priors (``observe_prior`` / ``n_prior``), the
 parallel-strategy ``set_pending``, ``is_done``, ``score``, the ``judge``
 early-stop hook, ``seed_rng``, ``configuration``, the
-``state_dict`` snapshots, the registry and :func:`make_algorithm`; and the
-suggest-ahead mixin (:class:`SuggestAhead`) with its atexit drain. Not
-ported yet: the fleet-fused hooks (``FuseSnapshot``, ``fuse_*``), which
-serve the coordinator, ``should_suspend`` and ``cohort_size``.
+``state_dict`` snapshots, the ``cohort_size`` hook, the registry and
+:func:`make_algorithm`; and the suggest-ahead mixin (:class:`SuggestAhead`)
+with its atexit drain. Not ported yet: the fleet-fused hooks
+(``FuseSnapshot``, ``fuse_*``), which serve the coordinator, and
+``should_suspend``.
 
 ``observe`` takes :class:`~metaopt_tpu_torch.ledger.trial.Trial` objects
 (they carry params, objective, fidelity, status, and lineage in one value
@@ -280,6 +281,14 @@ class BaseAlgorithm(ABC):
         return self.n_observed >= self.space.cardinality
 
     # -- optional hooks ----------------------------------------------------
+    @property
+    def cohort_size(self) -> Optional[int]:
+        """Natural same-fidelity evaluation-pool size, if the algorithm
+        has one (population algorithms: their generation). The reference's
+        batched hunt sizes its pools from this; the port's is not ported
+        yet."""
+        return None
+
     def score(self, point: Dict[str, Any]) -> float:
         """Rank candidate points (higher is better); default indifferent."""
         return 0.0

@@ -619,8 +619,13 @@ def _cmd_status(args, cfg: Dict[str, Any]) -> int:
                 print(f"  best objective {s['best']['objective']:.6g} "
                       f"at {s['best']['params']}")
             for r in s.get("rungs") or []:
-                print(f"  bracket {r['bracket']} budget {r['budget']:>5}: "
-                      f"{r['n']} completed, {r['promoted']} promoted")
+                line = (f"  bracket {r['bracket']} budget {r['budget']:>5}: "
+                        f"{r['n'] if 'n' in r else r['completed']} completed")
+                if "capacity" in r:  # Hyperband's synchronous rungs
+                    line += f", {r['assigned']}/{r['capacity']} assigned"
+                if "promoted" in r:
+                    line += f", {r['promoted']} promoted"
+                print(line)
             for w in s.get("workers") or []:
                 age = w["last_seen_age_s"]
                 seen = f"last seen {age:.0f}s ago" if age is not None \

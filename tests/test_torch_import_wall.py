@@ -3,9 +3,10 @@
 An AST scan covers every file of ``metaopt_tpu_torch/`` and
 ``chip_smoke.py``; a subprocess (this test process already imported jax in
 tests/conftest.py) then makes those imports fail with a ``sys.meta_path``
-hook, imports every module of the port, runs one CPU ``workon`` and one
-``hunt`` of the port's Rosenbrock example through ``cli.main`` (its trial
-processes start outside the wall).
+hook, imports every module of the port, runs one CPU ``workon`` of the
+Transformer and one of BOHB on PPO, and one ``hunt`` of the port's
+Rosenbrock example through ``cli.main`` (its trial processes start outside
+the wall).
 """
 
 import ast
@@ -49,7 +50,10 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/examples/mlp_mnist.py", "metaopt_tpu_torch/algo/asha.py",
                  "metaopt_tpu_torch/executor/topology.py", "metaopt_tpu_torch/executor/gpu.py",
                  "metaopt_tpu_torch/models/resnet.py",
-                 "metaopt_tpu_torch/examples/resnet_cifar.py", "chip_smoke.py"):
+                 "metaopt_tpu_torch/examples/resnet_cifar.py",
+                 "metaopt_tpu_torch/algo/evolution_es.py", "metaopt_tpu_torch/algo/hyperband.py",
+                 "metaopt_tpu_torch/algo/bohb.py", "metaopt_tpu_torch/models/ppo.py",
+                 "metaopt_tpu_torch/examples/ppo_atari.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -85,6 +89,13 @@ exp = build_experiment("walled", space={"lr": "loguniform(1e-4, 1e-2)"},
 stats = exp.workon(lambda p: train_and_eval({**p, **tiny}, n_train=8, batch_size=4,
                                             seq_len=8, steps=2, device="cpu"))
 assert stats.completed == 1, stats.events
+
+from metaopt_tpu_torch.models import ppo
+exp = build_experiment("walled-bohb", space={"lr": "loguniform(1e-4, 1e-2)",
+                                             "epochs": "fidelity(1, 2, base=2)"},
+                       algorithm={"bohb": {"seed": 0, "repetitions": 1, "device": "cpu"}})
+stats = exp.workon(ppo.make_objective(n_envs=4, rollout_len=4, ppo_epochs=1, device="cpu"))
+assert stats.completed == 5, stats.events
 
 import json, os, sys, tempfile
 from metaopt_tpu_torch.cli import main
