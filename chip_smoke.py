@@ -5,12 +5,12 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through nine phases and exits non-zero if any fails:
+``metaopt_tpu``) through ten phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
-   the bf16 K1 ``flash_fwd_kernel_mma`` is missing for a head dim), and
-   prints the card's name and power limit;
+   the bf16 K1 ``flash_fwd_kernel_mma`` is missing for a head dim, with or
+   without dropout), and prints the card's name and power limit;
 2. kernels: holds each kernel (K1 forward, K2 dK/dV, K3 dQ) against its
    plain PyTorch version on the same inputs, at the Transformer's shapes
    (B 32, S 64, H 8, D 64, bf16; padding, causal and cross masks), at
@@ -24,7 +24,9 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    and K3 take K1's own lse, against the same call on the CPU; then times
    the kernel, the plain version and ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it) at the slice's shape and at
-   the long shape, and prints (K2 + K3) / SDPA's backward for both;
+   the long shape, and prints (K2 + K3) / SDPA's backward for both; then
+   times the kernels with attention dropout 0.1 at both shapes against
+   rate 0 (SDPA with ``dropout_p`` 0.1 as the yardstick);
 3. model: the full-width Transformer-base loss on one small batch on the
    card against the same model on the CPU (plain attention);
 4. slice: ``build_experiment(...).workon(objective)`` with random search,
@@ -90,10 +92,38 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    its TPEs on the card) in-process over PPO with ``epochs~fidelity(2, 8,
    base=2)``: every rung of the bracket table filled and completed, and at
    least one BOHB point suggested by EI on the card.
+10. wmt: BASELINE config 4. (a) K1-K3 with attention dropout at rates 0.1
+   and 0.3 against their plain versions on the same Philox (seed, offset),
+   at the slice's shapes (bf16; padding, causal, cross masks), the ragged
+   shape (f32 and bf16, fully masked rows) and the long causal shape;
+   ``flash_attention`` forward and backward with dropout through autograd
+   against the CPU; the kernel's kept fraction (read from O with v = 1)
+   within 4 sigma of 1 - rate; a trace holding each kernel's dropout
+   instantiation. (b) The rate-0.1 times against rate 0 are phase 2's. (c) The
+   full-width Transformer-base in train mode at dropout 0.1, card against
+   CPU on the same weights, attention seeds and injected feed-forward
+   masks: the loss and every gradient norm within 3e-2. (d) 20 timed and 5
+   traced train steps at dropout 0.1. (e) BOHB (seed 0, two repetitions)
+   in-process over config 4's priors with ``epochs~fidelity(1, 9,
+   base=3)`` at 2 steps per epoch (cut from 50): every rung filled, at
+   least one point by EI on the card, K1-K3 launched 18 times per train
+   step, every launch with dropout. (f) Hyperband (``hyperband.json``) on
+   ``metaopt_tpu_torch/examples/transformer_wmt.py --tp 1`` at full width
+   through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 3, base=3)`` (cut
+   from 1-9: 6 trials instead of 22) — all completed and finite on the
+   card, the rung table equal to Hyperband replayed over the ledger and to
+   ``status --rungs --json`` from a fresh process, every trial's checkpoint
+   published and none half-written, no ``torch._dynamo`` in a trial
+   process, the GPU registry empty; trials per hour and each trial's
+   split: process start -> first CUDA op, setup, training, checkpoint, the
+   rest.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"hunt": {...}}`` line, an ``{"asha": {...}}`` line, an ``{"evolution":
-{...}}`` line and, last, the ``{"ok": true, "device": {...}}`` line.
+{...}}`` line, a ``{"wmt": {...}}`` line and, last, the ``{"ok": true,
+"device": {...}}`` line. The ``{"kernels": ...}`` line lists K1-K3 at rate 0
+(launches from the [slice] run) and at rate 0.1 (times from phase 2,
+launches from the [wmt] BOHB run).
 """
 
 from __future__ import annotations
@@ -186,6 +216,25 @@ PPO_KINDS = (
     ("reductions", ("reduce_kernel",)),
     ("casts, copies and concatenations", ("copy_kernel", "CatArrayBatched", "cat_")),
 )
+WMT_PRIORS = {  # BASELINE config 4: examples/transformer_wmt.py's docstring
+    "lr": "loguniform(1e-4, 5e-3)",
+    "dropout": "uniform(0.0, 0.3)",
+    "warmup": "uniform(100, 4000, discrete=True)",
+}
+# config 4 through the CLI, cut from fidelity(1, 9, base=3) (22 trials) to
+# fidelity(1, 3, base=3): bracket 0 runs 3 trials at 1 epoch and promotes 1
+# to 3, bracket 1 runs 2 at 3 epochs; (bracket, budget, capacity) below
+WMT_CLI_FIDELITY, WMT_CLI_TABLE = "fidelity(1, 3, base=3)", [(0, 1, 3), (0, 3, 1), (1, 3, 2)]
+WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 50
+# a config-4 trial's wall-clock timeout, and its share of the CLI's deadline
+WMT_TIMEOUT_S, WMT_TRIAL_S = 300, 60
+# BOHB in-process: the example's fidelity, two repetitions of 22 trials, cut
+# from 50 steps per epoch to 2
+WMT_BOHB_FIDELITY, WMT_BOHB_STEPS_PER_EPOCH = "fidelity(1, 9, base=3)", 2
+WMT_BOHB_TABLE = [(0, 1, 9), (0, 3, 3), (0, 9, 1), (1, 3, 5), (1, 9, 1), (2, 9, 3)]
+WMT_RATES = (0.1, 0.3)          # attention dropout checked on the card
+WMT_TIMED_RATE = 0.1            # the Transformer-base rate, timed against rate 0
+DROPOUT_SEED, DROPOUT_OFFSET = 0x9E3779B97F4A7C15, 12345
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
     "flash_bwd_dkv": "metaopt_tpu/ops/attention.py:181 (_flash_bwd_dkv_kernel)",
@@ -205,15 +254,16 @@ def nvidia_smi() -> str:
 
 
 def ptxas_summary(text: str):
-    """{"kernel<D>": registers and spill bytes} from ``nvcc -Xptxas=-v``
-    output: each "Compiling entry function" line names a kernel by its
-    mangled name, and the "spill" and "Used N registers" lines after it
-    belong to it."""
+    """{"kernel<D, dropout>": registers and spill bytes} from ``nvcc
+    -Xptxas=-v`` output: each "Compiling entry function" line names a kernel
+    by its mangled name, and the "spill" and "Used N registers" lines after
+    it belong to it."""
     out, cur = {}, None
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"'_Z\w*?\d+(flash_\w+?)I\w*?Li(\d+)E", line)
-            cur = f"{m.group(1)}<{m.group(2)}>" if m else None
+            m = re.search(r"'_Z\w*?\d+(flash_\w+?)I\w*?Li(\d+)ELb([01])E", line)
+            cur = (f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"
+                   if m else None)
             if cur:
                 out[cur] = {"registers": None, "spill_stores": None, "spill_loads": None}
             continue
@@ -266,26 +316,32 @@ def device_ms(torch, fn, n: int = 50, match: str = ""):
     ``n`` calls. With ``match``, ``fn`` launches one such kernel a call,
     and ``ms`` is the mean over the launches the trace recorded: the
     profiler can drop records, and a sum over n calls would then read
-    low. When the profiler yields no device time it is the CUDA-event
+    low; a window whose records were all dropped is traced again, twice at
+    most. When the profiler yields no device time it is the CUDA-event
     time, which also counts the host's gaps between launches."""
     from torch.profiler import ProfilerActivity, profile
 
     ev = events_ms(torch, fn, n)
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(ms, cnt) for key, ms, cnt in kernel_rows(prof, n) if match in key]
+    total = 0.0
+    for _ in range(3):
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [(ms, cnt) for key, ms, cnt in kernel_rows(prof, n) if match in key]
+        except Exception as err:  # the profiler is a measurement aid only
+            log(f"  (torch.profiler unavailable: {type(err).__name__}: {err})")
+            break
         total = sum(ms for ms, _ in rows)
         seen = round(sum(cnt for _, cnt in rows) * n)
         if match and seen:
             if seen != n:
                 log(f"  (the trace recorded {seen} of {n} launches of {match})")
             total *= n / seen
-    except Exception as err:  # the profiler is a measurement aid only
-        log(f"  (torch.profiler unavailable: {type(err).__name__}: {err})")
-        total = 0.0
+        if total > 0:
+            break
+        log("  (the trace recorded no device time; tracing again)")
     return (total, "profiler", ev) if total > 0 else (ev, "cuda_events", ev)
 
 
@@ -335,16 +391,19 @@ def close(a, b, tol):
     return float(diff.max()), bool((diff <= tol + tol * b.abs()).all())
 
 
-def check_case(torch, att, case):
+def check_case(torch, att, case, rate: float = 0.0):
+    """Each kernel against its plain version on the same inputs; with
+    ``rate`` > 0 both draw dropout from the same Philox (seed, offset)."""
     q, k, v, g, m = case["q"], case["k"], case["v"], case["g"], case["mask"]
     tol = TOL[case["dtype"]]
-    out_k, lse_k = att.flash_fwd(q, k, v, m)
-    out_p, lse_p = att.flash_fwd_plain(q, k, v, m)
+    drop = dict(dropout_rate=rate, seed=DROPOUT_SEED, offset=DROPOUT_OFFSET) if rate else {}
+    out_k, lse_k = att.flash_fwd(q, k, v, m, **drop)
+    out_p, lse_p = att.flash_fwd_plain(q, k, v, m, **drop)
     delta = att.attention_delta(g, out_p)
-    dk_k, dv_k = att.flash_bwd_dkv(q, k, v, g, lse_p, delta, m)
-    dk_p, dv_p = att.flash_bwd_dkv_plain(q, k, v, g, lse_p, delta, m)
-    dq_k = att.flash_bwd_dq(q, k, v, g, lse_p, delta, m)
-    dq_p = att.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, m)
+    dk_k, dv_k = att.flash_bwd_dkv(q, k, v, g, lse_p, delta, m, **drop)
+    dk_p, dv_p = att.flash_bwd_dkv_plain(q, k, v, g, lse_p, delta, m, **drop)
+    dq_k = att.flash_bwd_dq(q, k, v, g, lse_p, delta, m, **drop)
+    dq_p = att.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, m, **drop)
     torch.cuda.synchronize()
 
     inf_k, inf_p = torch.isinf(lse_k), torch.isinf(lse_p)
@@ -367,7 +426,8 @@ def check_case(torch, att, case):
         if not torch.isfinite(t).all():
             raise AssertionError(f"{case['name']}: non-finite kernel output")
     n_inf = int(inf_p.sum())
-    log(f"  {case['name']}: fwd {errs['flash_fwd']:.3e}  dkv {errs['flash_bwd_dkv']:.3e}"
+    log(f"  {case['name']}{f' dropout {rate}' if rate else ''}: fwd {errs['flash_fwd']:.3e}"
+        f"  dkv {errs['flash_bwd_dkv']:.3e}"
         f"  dq {errs['flash_bwd_dq']:.3e}  (tol fwd {tol['fwd']}, grad {tol['grad']};"
         f" {n_inf} lse=+inf rows)")
     bad = [k for k, ok in oks if not ok]
@@ -376,21 +436,24 @@ def check_case(torch, att, case):
     return errs, (lse_p, delta)
 
 
-def check_autograd(torch, att, case):
+def check_autograd(torch, att, case, rate: float = 0.0):
     """``flash_attention`` forward and backward through autograd on the card,
     so K2 and K3 consume K1's own lse (``check_case`` hands them the plain
-    one), against the same call on the CPU tensors. Returns max |card - cpu|
-    per output."""
+    one), against the same call on the CPU tensors; with ``rate`` > 0 both
+    draw their Philox seed from CPU generators seeded alike. Returns max
+    |card - cpu| per output."""
     tol = TOL[case["dtype"]]["grad"]
     res = {}
-    saved = dict(att.launches)
+    saved = dict(att.launches), dict(att.dropout_launches)
     for dev in ("cuda", "cpu"):
         q, k, v = (case[n].to(dev).detach().requires_grad_() for n in "qkv")
-        out = att.flash_attention(q, k, v, case["mask"].to(dev))
+        out = att.flash_attention(q, k, v, case["mask"].to(dev), dropout_rate=rate,
+                                  generator=torch.Generator().manual_seed(DROPOUT_SEED))
         out.backward(case["g"].to(dev))
         res[dev] = {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
     torch.cuda.synchronize()
-    att.launches.update(saved)  # comparison launches do not count
+    att.launches.update(saved[0])  # comparison launches do not count
+    att.dropout_launches.update(saved[1])
     errs, bad = {}, []
     for name, ref in res["cpu"].items():
         got = res["cuda"][name]
@@ -399,19 +462,23 @@ def check_autograd(torch, att, case):
         errs[name], ok = close(got.cpu(), ref, tol)
         if not ok:
             bad.append(name)
-    log(f"  autograd {case['name']}: " + "  ".join(f"{n} {e:.3e}" for n, e in errs.items())
+    log(f"  autograd {case['name']}{f' dropout {rate}' if rate else ''}: "
+        + "  ".join(f"{n} {e:.3e}" for n, e in errs.items())
         + f"  (card vs cpu, tol {tol})")
     if bad:
         raise AssertionError(f"autograd {case['name']}: {bad} outside tolerance or non-finite")
     return errs
 
 
-def time_case(torch, att, case, lse_delta):
-    """Per kernel: its time, its bound, the plain version's and SDPA's."""
+def time_case(torch, att, case, lse_delta, rate: float = 0.0):
+    """Per kernel: its time, its bound, the plain version's and SDPA's (with
+    ``dropout_p=rate``). The bound counts the matrix products' operations;
+    dropout's Philox rounds are integer work outside it."""
     import torch.nn.functional as F
 
     q, k, v, g, m = case["q"], case["k"], case["v"], case["g"], case["mask"]
     lse, delta = lse_delta
+    drop = dict(dropout_rate=rate, seed=DROPOUT_SEED, offset=DROPOUT_OFFSET) if rate else {}
     b, sq, h, d = q.shape
     sk = k.shape[1]
     esz = q.element_size()
@@ -421,18 +488,18 @@ def time_case(torch, att, case, lse_delta):
     row_f32 = b * h * sq * 4
     work = {
         "flash_fwd": (
-            lambda: att.flash_fwd(q, k, v, m),
-            lambda: att.flash_fwd_plain(q, k, v, m),
+            lambda: att.flash_fwd(q, k, v, m, **drop),
+            lambda: att.flash_fwd_plain(q, k, v, m, **drop),
             4 * q.numel() * esz + mask_b + row_f32,           # q k v o, mask, lse
             4.0 * b * h * sq * sk * d),
         "flash_bwd_dkv": (
-            lambda: att.flash_bwd_dkv(q, k, v, g, lse, delta, m),
-            lambda: att.flash_bwd_dkv_plain(q, k, v, g, lse, delta, m),
+            lambda: att.flash_bwd_dkv(q, k, v, g, lse, delta, m, **drop),
+            lambda: att.flash_bwd_dkv_plain(q, k, v, g, lse, delta, m, **drop),
             6 * q.numel() * esz + mask_b + 2 * row_f32,       # q k v dO dk dv
             8.0 * b * h * sq * sk * d),
         "flash_bwd_dq": (
-            lambda: att.flash_bwd_dq(q, k, v, g, lse, delta, m),
-            lambda: att.flash_bwd_dq_plain(q, k, v, g, lse, delta, m),
+            lambda: att.flash_bwd_dq(q, k, v, g, lse, delta, m, **drop),
+            lambda: att.flash_bwd_dq_plain(q, k, v, g, lse, delta, m, **drop),
             5 * q.numel() * esz + mask_b + 2 * row_f32,       # q k v dO dq
             6.0 * b * h * sq * sk * d),
     }
@@ -442,7 +509,8 @@ def time_case(torch, att, case, lse_delta):
     amask = (m != 0)[:, None]
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, scale=1.0)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, dropout_p=rate,
+                                              scale=1.0)
 
     out = sdpa()
     gt = g.transpose(1, 2)
@@ -451,7 +519,7 @@ def time_case(torch, att, case, lse_delta):
         out, (qt, kt, vt), gt, retain_graph=True))
     library = {"flash_fwd": lib_fwd, "flash_bwd_dkv": lib_bwd, "flash_bwd_dq": lib_bwd}
 
-    saved = dict(att.launches)
+    saved = dict(att.launches), dict(att.dropout_launches)
     stats = {}
     for name, (kern, plain, nbytes, flops) in work.items():
         ms, src, ev = device_ms(torch, kern, match=name + "_kernel")
@@ -464,10 +532,12 @@ def time_case(torch, att, case, lse_delta):
             "ms_source": src if src == plain_src == lib_src else "mixed",
             "events_ms": ev, "plain_events_ms": plain_ev, "library_events_ms": lib_ev,
         }
-        log(f"  {name}: {ms:.4f} ms, bound {bnd:.4f} ms by {by}, plain {plain_ms:.4f} ms,"
-            f" sdpa {'fwd' if name == 'flash_fwd' else 'bwd'} {lib_ms:.4f} ms ({src}); "
-            f"by CUDA events {ev:.4f} / {plain_ev:.4f} / {lib_ev:.4f} ms")
-    att.launches.update(saved)  # comparison and timing launches do not count
+        log(f"  {name}{f' dropout {rate}' if rate else ''}: {ms:.4f} ms, bound {bnd:.4f} ms "
+            f"by {by}, plain {plain_ms:.4f} ms, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'}"
+            f" {lib_ms:.4f} ms ({src}); by CUDA events {ev:.4f} / {plain_ev:.4f} / "
+            f"{lib_ev:.4f} ms")
+    att.launches.update(saved[0])  # comparison and timing launches do not count
+    att.dropout_launches.update(saved[1])
     return stats
 
 
@@ -1429,6 +1499,350 @@ def evolution_phase(torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: BASELINE config 4, Hyperband and BOHB on Transformer-base
+
+
+def kept_fraction(torch, att, dtype, rate: float):
+    """The kernel's kept fraction read from O: with q = 0 every score is 0,
+    so with v = 1 each row of O is (kept entries) · scale / Sk, and the
+    count is O · Sk · keep_prob rounded (bf16's rounding moves it by at most
+    64 · 2⁻⁹). Returns (kernel's fraction, whether every row's count equals
+    the plain version's, entries drawn)."""
+    b, s, h, d = 32, 64, 8, 64
+    q = torch.zeros(b, s, h, d, device="cuda", dtype=dtype)
+    ones = torch.ones(b, s, h, d, device="cuda", dtype=dtype)
+    drop = dict(dropout_rate=rate, seed=DROPOUT_SEED + 1, offset=DROPOUT_OFFSET)
+    kp = att.keep_prob(rate)
+    outs = (att.flash_fwd(q, ones, ones, None, **drop)[0],
+            att.flash_fwd_plain(q, ones, ones, None, **drop)[0])
+    counts = [torch.round(o[..., 0].float() * s * kp) for o in outs]
+    return float(counts[0].sum()) / (b * h * s * s), bool(torch.equal(*counts)), b * h * s * s
+
+
+def dropout_kernels_traced(torch, att, case, rate: float):
+    """Names of the dropout instantiations (``<64, true>``) that traced calls
+    of each wrapper ran. The profiler can drop a short window's records, so
+    up to three windows of ten calls of each wrapper are traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, g, m = case["q"], case["k"], case["v"], case["g"], case["mask"]
+    drop = dict(dropout_rate=rate, seed=DROPOUT_SEED, offset=DROPOUT_OFFSET)
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                out, lse = att.flash_fwd(q, k, v, m, **drop)
+                delta = att.attention_delta(g, out)
+                att.flash_bwd_dkv(q, k, v, g, lse, delta, m, **drop)
+                att.flash_bwd_dq(q, k, v, g, lse, delta, m, **drop)
+            torch.cuda.synchronize()
+        names |= {key for key, _, _ in kernel_rows(prof, 1) if ", true>" in key}
+        if len(names) >= 3:
+            break
+    return sorted(names)
+
+
+def wmt_model_card_vs_cpu(torch, tfm):
+    """Full-width Transformer-base in train mode at dropout 0.1 on one (2, 64)
+    batch, card against CPU: the same weights, the same attention Philox
+    seeds (CPU generators seeded alike) and the same feed-forward masks,
+    injected through ``GivenDraws``. Returns the losses and every
+    parameter's gradient norm on both."""
+    import numpy as np
+
+    model_cpu = tfm.make_model({"dropout": 0.1}).init_like_flax(
+        torch.Generator().manual_seed(3))
+    model_gpu = tfm.make_model({"dropout": 0.1})
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    model_gpu.cuda()
+    src, tgt = tfm.synthetic_seq2seq(2, 64, 1000, seed=5, device="cpu")
+    rng = np.random.default_rng(6)
+    masks = [rng.random((2, 64, 2048)) < 0.9 for _ in range(12)]  # 6 encoder + 6 decoder FFNs
+    res = {}
+    for dev, model in (("cpu", model_cpu), ("cuda", model_gpu)):
+        loss = tfm.loss_fn(model, (src.to(dev), tgt.to(dev)),
+                           tfm.GivenDraws(masks, attention_seed=8, device=dev))
+        loss.backward()
+        res[dev] = (float(loss), {n: float(p.grad.float().norm())
+                                  for n, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    return res
+
+
+def wmt_phase(torch, smi: str):
+    """BASELINE config 4. The kernels' dropout times against rate 0 are taken
+    in phase 2, where the profiler's device times are known to hold."""
+    from metaopt_tpu_torch import build_experiment
+    from metaopt_tpu_torch.algo import make_algorithm
+    from metaopt_tpu_torch.ledger import Experiment, FileLedger
+    from metaopt_tpu_torch.models import transformer as tfm
+    from metaopt_tpu_torch.models.checkpoint import has_state
+    from metaopt_tpu_torch.ops import attention as att
+    from metaopt_tpu_torch.space import build_space
+
+    out = {"card": smi}
+    part_s, last = {}, [time.perf_counter()]
+
+    def mark(part: str) -> None:  # seconds since the previous part ended
+        now = time.perf_counter()
+        part_s[part] = now - last[0]
+        last[0] = now
+
+    saved = dict(att.launches), dict(att.dropout_launches)
+    # -- (a) the kernels' dropout against their plain versions ---------------
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+    cases = [
+        make_case(torch, "slice-pad bf16 (32,64,8,64)", 32, 64, 64, 8, 64, bf16, "pad", gen),
+        make_case(torch, "slice-causal bf16 (32,64,8,64)", 32, 64, 64, 8, 64, bf16, "causal", gen),
+        make_case(torch, "slice-cross bf16 (32,64,8,64)", 32, 64, 64, 8, 64, bf16, "cross", gen),
+        make_case(torch, "ragged f32 (4,333,8,64)", 4, 333, 333, 8, 64, torch.float32,
+                  "causal+empty", gen),
+        make_case(torch, "ragged bf16 (4,333,8,64)", 4, 333, 333, 8, 64, bf16,
+                  "causal+empty", gen),
+        make_case(torch, "long-causal bf16 (8,512,8,64)", 8, 512, 512, 8, 64, bf16, "causal",
+                  gen),
+    ]
+    log("[wmt] max |kernel - plain| per case with attention dropout (the same Philox seed "
+        "and offset):")
+    max_err = {n: 0.0 for n in att.launches}
+    for rate in WMT_RATES:
+        for case in cases:
+            for n, e in check_case(torch, att, case, rate)[0].items():
+                max_err[n] = max(max_err[n], e)
+    out["max_abs_err"] = max_err
+    out["autograd_max_abs_err"] = check_autograd(torch, att, cases[1], WMT_TIMED_RATE)
+    att.launches.update(saved[0])  # comparison launches do not count
+    att.dropout_launches.update(saved[1])
+    kept = {}
+    for dtype in (torch.float32, bf16):
+        for rate in WMT_RATES:
+            frac, same, n = kept_fraction(torch, att, dtype, rate)
+            sigma = math.sqrt(rate * (1 - rate) / n)
+            kept[f"{dtype} {rate}"] = {"kernel": frac, "rows_equal_plain": same, "n": n,
+                                       "sigma": sigma}
+            log(f"[wmt] kept fraction, {str(dtype).split('.')[-1]}, rate {rate}: kernel "
+                f"{frac:.6f}, want {1 - rate} within 4 sigma = {4 * sigma:.2e} ({n} entries); "
+                f"every row's count equal to the plain version's: {same}")
+            if abs(frac - (1 - rate)) > 4 * sigma or not same:
+                raise AssertionError(f"[wmt] kept fraction {frac} (rows equal to plain: "
+                                     f"{same}) at rate {rate}, {dtype}")
+    out["kept_fraction"] = kept
+    traced = dropout_kernels_traced(torch, att, cases[0], WMT_TIMED_RATE)
+    log(f"[wmt] a traced dropout call of each wrapper ran {traced}")
+    for name in ("flash_fwd_kernel_mma<64, true>", "flash_bwd_dkv_kernel_mma<64, true>",
+                 "flash_bwd_dq_kernel_mma<64, true>"):
+        if not any(name in key for key in traced):
+            raise AssertionError(f"[wmt] the trace holds no {name}")
+
+    mark("kernel_checks")
+
+    # -- (c) the model, card against CPU -------------------------------------
+    res = wmt_model_card_vs_cpu(torch, tfm)
+    (loss_c, norms_c), (loss_g, norms_g) = res["cpu"], res["cuda"]
+    att.launches.update(saved[0])
+    att.dropout_launches.update(saved[1])
+    biggest = max(norms_c.values())
+    # the attention key biases' gradients are 0 in exact arithmetic (softmax
+    # is shift-invariant per row): compared only against the largest norm
+    rel = {n: abs(norms_g[n] - norms_c[n]) / max(norms_c[n], 1e-3 * biggest) for n in norms_c}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    log(f"[wmt] Transformer-base, train mode at dropout 0.1, (2, 64) batch, card against CPU "
+        f"on the same weights, attention seeds and FFN masks: loss {loss_g:.6f} / "
+        f"{loss_c:.6f} (rel {loss_rel:.2e}); gradient norms: worst rel diff {rel[worst]:.2e} "
+        f"({worst}); bound 3e-2")
+    if not (math.isfinite(loss_g) and loss_rel <= 3e-2 and rel[worst] <= 3e-2):
+        raise AssertionError(f"[wmt] the model at dropout 0.1 disagrees: {loss_g} {loss_c} "
+                             f"{worst} {rel[worst]}")
+    out["model_vs_cpu"] = {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel": loss_rel,
+                           "worst_grad_norm_rel": rel[worst], "worst_param": worst}
+    mark("model_vs_cpu")
+
+    # -- (d) the train step at dropout 0.1 -----------------------------------
+    model = tfm.make_model({"dropout": 0.1}).init_like_flax(
+        torch.Generator().manual_seed(0)).cuda()
+    opt = tfm.trial_setup({"lr": 1e-3, "warmup": 2, "dropout": 0.1}, model.parameters(), 100)
+    step_fn = tfm.make_train_step(model, opt)
+    src, tgt = tfm.synthetic_seq2seq(32, 64, 1000, seed=0, device="cuda")
+    counter = iter(range(10 ** 6))
+
+    def step():
+        step_fn((src, tgt), tfm.Draws(0, next(counter), "cuda"))
+
+    for _ in range(3):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    st = trace_steps(torch, step, STEPS, 5, KERNEL_KINDS)
+    peak = torch.cuda.max_memory_allocated()
+    if st is None:
+        raise AssertionError("[wmt] the profiler traced no train step")
+    rows = st.pop("rows")
+    log_breakdown("wmt", "Transformer-base train step at dropout 0.1 (B 32, S 64)",
+                  {**st, "rows": rows})
+    log(f"[wmt] train step at dropout 0.1: {st['wall_ms']:.3f} ms untraced, busy "
+        f"{100 * st['busy_share']:.1f}%, peak memory {peak / 2**30:.3f} GiB; card {smi}")
+    out["step"] = {**st, "peak_mem_bytes": peak,
+                   "flash": [[k[:90], ms, n] for k, ms, n in rows if "flash_" in k],
+                   "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]}
+    del model, opt, step_fn
+    torch.cuda.empty_cache()
+    att.launches.update(saved[0])
+    att.dropout_launches.update(saved[1])
+    mark("train_step")
+
+    # -- (e) BOHB in-process over config 4's objective ----------------------
+    algo_cfg = {"bohb": {"seed": 0, "repetitions": 2}}
+    client = build_experiment("wmt-bohb", space={**WMT_PRIORS, "epochs": WMT_BOHB_FIDELITY},
+                              algorithm=algo_cfg, max_trials=200, ledger="memory")
+    algo = make_algorithm(client.space, algo_cfg)
+    att.reset_launch_counts()
+    t0 = time.perf_counter()
+    client.workon(tfm.make_objective(steps_per_epoch=WMT_BOHB_STEPS_PER_EPOCH, device="cuda"),
+                  algorithm=algo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, drop_counts = dict(att.launches), dict(att.dropout_launches)
+    done = client.fetch_trials("completed")
+    steps = sum(int(t.params["epochs"]) * WMT_BOHB_STEPS_PER_EPOCH for t in done)
+    table = [(r["bracket"], r["budget"], r["capacity"]) for r in algo.rung_table]
+    models = algo._models.values()
+    row = {"trials": len(done), "wall_s": wall, "steps": steps, "rungs": algo.rung_table,
+           "best": min(t.objective for t in done) if done else None,
+           "launches": counts, "dropout_launches": drop_counts,
+           "ei_launches": sum(m._launches for m in models),
+           "ei_suggested": sum(m.suggest_ahead_telemetry()["prefetch_hits"]
+                               + m.suggest_ahead_telemetry()["prefetch_misses"]
+                               for m in models),
+           "buffers": sorted({str(m._buf.Xdev.device) for m in models
+                              if m._buf.Xdev is not None})}
+    problems = []
+    if len(done) != 2 * sum(c for _, _, c in WMT_BOHB_TABLE) or not algo.is_done:
+        problems.append(f"{len(done)} trials completed, is_done {algo.is_done}")
+    if not all(math.isfinite(t.objective) for t in done):
+        problems.append("a non-finite objective")
+    if table != WMT_BOHB_TABLE or not all(
+            r["assigned"] == r["capacity"] == r["completed"] for r in algo.rung_table):
+        problems.append(f"rung table {algo.rung_table}")
+    if row["ei_launches"] < 1 or row["ei_suggested"] < 1 or row["buffers"] != ["cuda:0"]:
+        problems.append(f"EI on the card: {row}")
+    want = ATTN_PER_STEP * steps
+    if any(c != want for c in list(counts.values()) + list(drop_counts.values())):
+        problems.append(f"launches {counts}, with dropout {drop_counts}, want {want} each")
+    if problems:
+        raise AssertionError(f"[wmt] BOHB: {problems}")
+    out["bohb"] = row
+    log(f"[wmt] BOHB in-process (seed 0, two repetitions, {WMT_BOHB_FIDELITY}, "
+        f"{WMT_BOHB_STEPS_PER_EPOCH} steps per epoch): {len(done)} full-width trials, {steps} "
+        f"train steps in {wall:.2f} s, every rung of {table} filled and completed; "
+        f"{row['ei_suggested']} suggested by EI in {row['ei_launches']} launches on "
+        f"{row['buffers'][0]}; launches {counts} = {ATTN_PER_STEP} per forward (K1) and per "
+        f"train step (K2, K3), all with dropout; best loss {row['best']:.4f}")
+    mark("bohb")
+
+    # -- (f) config 4 through the CLI ----------------------------------------
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_wmt_"))
+    # TMPDIR: the hunt's GPU registry file is this phase's own
+    env = dict(os.environ, TMPDIR=str(root))
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    ledger, ckpt = f"file:{root / 'ledger'}", root / "ckpt"
+    try:
+        summary, wall = run_cli(
+            ["hunt", "-n", "wmt", "--n-chips", "1", "--timeout-s", str(WMT_TIMEOUT_S),
+             "--ledger", ledger, "--ckpt-root", str(ckpt),
+             "--config", str(examples / "hyperband.json"), str(examples / "transformer_wmt.py"),
+             "--tp", "1", "--steps-per-epoch", str(WMT_STEPS_PER_EPOCH)]
+            + [f"--{k}~{v}" for k, v in {**WMT_PRIORS, "epochs": WMT_CLI_FIDELITY}.items()],
+            root, env, WMT_CLI_TRIALS, 1, WMT_TRIAL_S)
+        status, status_wall = run_cli(["status", "-n", "wmt", "--rungs", "--json",
+                                       "--ledger", ledger], root, env)
+        led = FileLedger(str(root / "ledger"))
+        exp = Experiment("wmt", led).configure()
+        replay = make_algorithm(exp.space, exp.algorithm)
+        replay.observe(exp.fetch_completed_trials())
+        trials = sorted(led.fetch("wmt"), key=lambda t: t.start_time or 0)
+        done = [t for t in trials if t.status == "completed"]
+        space = build_space({**WMT_PRIORS, "epochs": WMT_CLI_FIDELITY})
+        name = torch.cuda.get_device_name(0)
+        stats = [statistics_of(t) for t in done]
+        registry = json.loads((root / "metaopt_tpu_torch-gpus-1.json").read_text())
+        leftovers = sorted(str(p.relative_to(ckpt)) for p in ckpt.rglob("*")
+                           if p.is_file() and p.name != tfm.CKPT_FILE)
+        published = {t.id: has_state(str(ckpt / t.id / tfm.CKPT_FILE)) for t in done}
+        table = [(r["bracket"], r["budget"], r["capacity"]) for r in replay.rung_table]
+        problems = []
+        if len(done) != WMT_CLI_TRIALS or summary["total"] != {"completed": WMT_CLI_TRIALS}:
+            problems.append(f"{[(t.status, t.objective) for t in trials]}")
+        if not all(math.isfinite(t.objective) for t in done):
+            problems.append("a non-finite objective")
+        if not all(t.params in space for t in done):
+            problems.append("a point outside the space")
+        if table != WMT_CLI_TABLE or not all(
+                r["assigned"] == r["capacity"] == r["completed"] for r in replay.rung_table):
+            problems.append(f"rung table {replay.rung_table}")
+        if status[0].get("rungs") != replay.rung_table:
+            problems.append(f"status --rungs {status[0].get('rungs')} != {replay.rung_table}")
+        if not all(st.get("device") == name for st in stats):
+            problems.append(f"devices {sorted({str(st.get('device')) for st in stats})}")
+        if any(st.get("torch_dynamo_imported") is not False for st in stats):
+            problems.append("a trial process imported torch._dynamo")
+        if not all(published.values()) or leftovers:
+            problems.append(f"checkpoints: published {published}, left over {leftovers}")
+        if registry != {"claims": {}}:
+            problems.append(f"the GPU registry still holds {registry}")
+        if problems:
+            raise AssertionError(f"[wmt] config 4: {problems}")
+        ckpt_bytes = sum(p.stat().st_size for p in ckpt.rglob("*") if p.is_file())
+        rows = []
+        for t, st in zip(done, stats):
+            trial_s = t.end_time - t.start_time
+            parts = {k: st[k] for k in ("first_device_op_s", "setup_s", "train_s", "save_s")}
+            rows.append({"epochs": t.params["epochs"], "dropout": t.params["dropout"],
+                         "trial_s": trial_s, **parts, "rest_s": trial_s - sum(parts.values()),
+                         "ms_per_step": st["ms_per_step"], "first_loss": st["first_loss"],
+                         "loss": t.objective})
+        keys = ("trial_s", "first_device_op_s", "setup_s", "train_s", "save_s", "rest_s")
+        total = {k: sum(r[k] for r in rows) for k in keys}
+        by_budget = {b: {k: median([r[k] for r in rows if r["epochs"] == b])
+                         for k in keys + ("ms_per_step",)} | {
+                         "trials": sum(r["epochs"] == b for r in rows)} for b in (1, 3)}
+        out["config4"] = {
+            "trials": len(done), "hunt_wall_s": wall, "trials_per_hour": len(done) / wall * 3600,
+            "status_wall_s": status_wall, "rungs": status[0]["rungs"], "sum": total,
+            "share": {k: total[k] / total["trial_s"] for k in keys[1:]},
+            "median_by_budget": by_budget, "per_trial": rows, "checkpoint_bytes": ckpt_bytes,
+            "best": summary["best"]["objective"], "device": name,
+            "producer_timings": summary["producer_timings"],
+        }
+        log(f"[wmt] config 4: {len(done)} trials completed on {name} "
+            f"({by_budget[1]['trials']} at 1 epoch, {by_budget[3]['trials']} at 3), finite, "
+            f"rung table {table} equal to Hyperband replayed over the ledger and to status "
+            f"--rungs from a fresh process ({status_wall:.2f} s), every checkpoint published "
+            f"({ckpt_bytes / 2**30:.2f} GiB), none half-written, no torch._dynamo in a trial, "
+            f"registry empty; {wall:.2f} s = {len(done) / wall * 3600:.1f} trials/hour; best "
+            f"loss {summary['best']['objective']:.4f}")
+        log(f"[wmt] config 4, summed over trials: ledger wall {total['trial_s']:.2f} s = "
+            + ", ".join(f"{k[:-2]} {total[k]:.2f} s ({100 * total[k] / total['trial_s']:.1f}%)"
+                        for k in keys[1:]))
+        for b, m in by_budget.items():
+            log(f"[wmt]   {b} epoch(s) (median of {m['trials']}): trial {m['trial_s']:.2f} s = "
+                f"start -> first CUDA op {m['first_device_op_s']:.2f} + setup "
+                f"{m['setup_s']:.2f} + training {m['train_s']:.2f} ({m['ms_per_step']:.2f} "
+                f"ms/step) + checkpoint {m['save_s']:.2f} + rest {m['rest_s']:.2f}; card {smi}")
+    except BaseException:
+        log_ledger(root / "ledger")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mark("config4_cli")
+    out["part_s"] = part_s
+    log("[wmt] seconds per part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1452,6 +1866,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    phase_s, last = {}, [time.perf_counter()]
+
+    def mark(phase: str) -> None:  # seconds since the previous phase ended
+        now = time.perf_counter()
+        phase_s[phase] = now - last[0]
+        last[0] = now
+
     # -- 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
     att.build()
@@ -1467,12 +1888,13 @@ def main() -> int:
     for kern, st in sorted(ptxas.items()):
         log(f"[build] {kern}: {st['registers']} registers, spill stores/loads "
             f"{st['spill_stores']}/{st['spill_loads']} bytes")
-    missing = [f"flash_fwd_kernel_mma<{d}>" for d in att.SUPPORTED_HEAD_DIMS
-               if f"flash_fwd_kernel_mma<{d}>" not in ptxas]
+    missing = [f"flash_fwd_kernel_mma<{d}, {drop}>" for d in att.SUPPORTED_HEAD_DIMS
+               for drop in ("false", "true") if f"flash_fwd_kernel_mma<{d}, {drop}>" not in ptxas]
     if missing:
         raise AssertionError(f"ptxas compiled no {missing}")
     smi = nvidia_smi()
     log(smi)
+    mark("build")
 
     # -- 2. kernels -----------------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1518,6 +1940,22 @@ def main() -> int:
         bwd_ratio[label] = (k2 + k3) / st["flash_bwd_dkv"]["library_ms"]
         log(f"[kernels] {label}: (K2 + K3) / SDPA backward = ({k2:.4f} + {k3:.4f}) / "
             f"{st['flash_bwd_dkv']['library_ms']:.4f} ms = {bwd_ratio[label]:.2f}")
+    # config 4's attention dropout, timed here beside rate 0 (the [wmt] phase
+    # holds it against its plain version at more shapes and rates)
+    drop_stats = {}
+    for label, idx, zero in (("slice", 0, timing_stats),
+                             ("long", at["long-causal"], long_stats)):
+        case = cases[idx]
+        log(f"[kernels] times at the {label} shape with attention dropout {WMT_TIMED_RATE} "
+            f"(SDPA with dropout_p the same):")
+        ld = check_case(torch, att, case, WMT_TIMED_RATE)[1]
+        drop_stats[label] = time_case(torch, att, case, ld, WMT_TIMED_RATE)
+        for name in att.launches:
+            z, d = zero[name]["ms"], drop_stats[label][name]["ms"]
+            log(f"[kernels] {label} {name}: {d:.4f} ms at rate {WMT_TIMED_RATE} / {z:.4f} ms at "
+                f"rate 0 = {d / z:.2f}x ({drop_stats[label][name]['ms_source']}); card {smi}")
+
+    mark("kernels")
 
     # -- 3. full-width model against the CPU ---------------------------------
     hp = {"dropout": 0.0}
@@ -1537,6 +1975,8 @@ def main() -> int:
     if not (math.isfinite(loss_gpu) and rel <= 3e-2):
         raise AssertionError("full-width model on the card disagrees with the CPU")
     del model_gpu, model_cpu
+
+    mark("model")
 
     # -- 4. the slice: build_experiment(...).workon -------------------------
     reports = []
@@ -1590,40 +2030,63 @@ def main() -> int:
         f"(batch 32 x (64 src + 64 tgt) tokens); peak memory "
         f"{peak_mem / 2**30:.3f} GiB; card {smi}")
 
+    mark("slice")
+
     # -- 5. where a train step's time goes (after the counted run) ----------
     breakdown = profile_train_step(torch, tfm)
     if breakdown is not None and not any("flash_fwd_kernel_mma" in r[0]
                                          for r in breakdown["flash"]):
         raise AssertionError("the train step's trace shows no flash_fwd_kernel_mma")
 
+    mark("profile")
+
     # -- 6. TPE on the card ---------------------------------------------------
     tpe_stats = tpe_phase(torch, smi)
+    mark("tpe")
 
     # -- 7. the hunt CLI --------------------------------------------------------
     hunt_stats = hunt_phase(torch, smi)
+    mark("hunt")
 
     # -- 8. BASELINE config 3: ASHA on ResNet-50 through the CLI ----------------
     asha_stats = asha_phase(torch, smi)
+    mark("asha")
 
     # -- 9. BASELINE config 5: EvolutionES on PPO; Hyperband and BOHB ----------
     t0 = time.perf_counter()
     evolution_stats = evolution_phase(torch, smi)
     evolution_stats["phase_s"] = time.perf_counter() - t0
     log(f"[evolution] phase took {evolution_stats['phase_s']:.1f} s")
+    mark("evolution")
 
+    # -- 10. BASELINE config 4: Hyperband and BOHB on Transformer-base --------
+    t0 = time.perf_counter()
+    wmt_stats = wmt_phase(torch, smi)
+    wmt_stats["phase_s"] = time.perf_counter() - t0
+    log(f"[wmt] phase took {wmt_stats['phase_s']:.1f} s")
+    mark("wmt")
+    log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; total {sum(phase_s.values()):.1f}; card {smi}")
+
+    # rate 0: the [slice] run's launches; with dropout: the [wmt] BOHB run's
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        row = dict(timing_stats[name])
-        long_row = dict(long_stats[name])
-        for r in (row, long_row):
-            del r["bytes"], r["flops"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": max_err[name], **row, "long": long_row,
-            "max_abs_err_by_case": case_err[name],
-        })
+        for label, row, long_row, launches, err in (
+                (name, timing_stats[name], long_stats[name], counts[name], max_err[name]),
+                (f"{name} (dropout {WMT_TIMED_RATE})", drop_stats["slice"][name],
+                 drop_stats["long"][name], wmt_stats["bohb"]["dropout_launches"][name],
+                 wmt_stats["max_abs_err"][name])):
+            row, long_row = dict(row), dict(long_row)
+            for r in (row, long_row):
+                del r["bytes"], r["flops"]
+            kernels.append({
+                "name": label, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": err, **row, "long": long_row,
+            })
+        kernels[-2]["max_abs_err_by_case"] = case_err[name]
     print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,
+                      "phase_s": phase_s,
                       "autograd_max_abs_err": autograd_err, "slice": {
         "ms_per_step": ms_step, "tokens_per_s": warm["tokens_per_step"] / ms_step * 1e3,
         "peak_mem_bytes": peak_mem, "build_s": build_s, "card": smi,
@@ -1632,6 +2095,7 @@ def main() -> int:
     print(json.dumps({"hunt": hunt_stats}), flush=True)
     print(json.dumps({"asha": asha_stats}), flush=True)
     print(json.dumps({"evolution": evolution_stats}), flush=True)
+    print(json.dumps({"wmt": wmt_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

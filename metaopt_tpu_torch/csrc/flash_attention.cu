@@ -5,6 +5,9 @@
 //   flash_bwd_dkv_kernel_mma  <- _flash_bwd_dkv_kernel (pass 1 of _pallas_backward), bf16
 //   flash_bwd_dq_kernel_mma   <- _flash_bwd_dq_kernel  (pass 2 of _pallas_backward), bf16
 //   flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel: the same for f32
+// and, inside all six, the attention dropout that the reference runs in its
+// XLA chunked twin (_chunked_forward / _chunked_backward with _dropout_tile),
+// drawn in registers (see Dropout below).
 //
 // What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense). At the
 // demo Transformer's shape (B 32, S 64, H 8, D 64, bf16, padding mask) each
@@ -115,14 +118,85 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
+// Attention dropout, drawn in registers. The keep bit of element (b*h, row,
+// col) is word col % 4 of Philox4x32-10 (Random123) on the counter (col / 4,
+// row, b*h, offset) with the 64-bit seed as its key: the element is kept
+// when that word is below keep_prob * 2^32, and a kept probability is
+// scaled by 1 / keep_prob. K1, K2 and K3 draw the same bit for the same
+// element, so the backward replays the forward's mask and no mask is
+// stored; ops/attention.py::philox_keep draws the same bits on the host.
+// Each kernel takes the dropout as a template flag: without it (rate 0)
+// it compiles to the code it had before dropout existed. With it, Philox's
+// ten rounds (~75 integer instructions a call) are ALU work outside the
+// byte and tensor-core bounds: K1 and K3 make one call per two elements (a
+// thread's fragment holds column pairs), K2 one per element (its fragment
+// holds two key rows per query column, in different counter words), which
+// is why K2 pays the most; chip_smoke.py times each against rate 0.
+struct Dropout {
+    uint32_t k0, k1, offset;
+    unsigned long long thr;  // keep when the word is below this
+    float scale;             // 1 / keep_prob
+};
+
+Dropout make_dropout(float rate, unsigned long long seed, unsigned long long offset) {
+    const float keep = 1.f - rate;
+    Dropout dr;
+    dr.k0 = (uint32_t)seed;
+    dr.k1 = (uint32_t)(seed >> 32);
+    dr.offset = (uint32_t)offset;
+    dr.thr = (unsigned long long)((double)keep * 4294967296.0);
+    dr.scale = 1.f / keep;
+    return dr;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+        if (r > 0) {
+            k0 += 0x9E3779B9u;
+            k1 += 0xBB67AE85u;
+        }
+        const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+        const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+        c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    }
+    return c;
+}
+
+__device__ __forceinline__ uint4 philox_words(const Dropout& dr, int bh, int row, int col) {
+    return philox4x32_10(
+        make_uint4((uint32_t)col >> 2, (uint32_t)row, (uint32_t)bh, dr.offset), dr.k0, dr.k1);
+}
+
+__device__ __forceinline__ bool keep_bit(const Dropout& dr, int bh, int row, int col) {
+    const uint4 w = philox_words(dr, bh, row, col);
+    const int i = col & 3;
+    return (i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w) < dr.thr;
+}
+
+// The keep bits of (row, col) and (row, col + 1) for an even col: both
+// words come from one Philox call.
+__device__ __forceinline__ void keep_pair(const Dropout& dr, int bh, int row, int col, bool& a,
+                                          bool& b) {
+    const uint4 w = philox_words(dr, bh, row, col);
+    const bool hi = (col & 2) != 0;
+    a = (hi ? w.z : w.x) < dr.thr;
+    b = (hi ? w.w : w.y) < dr.thr;
+}
+
+__device__ __forceinline__ float dropped(bool keep, float x, const Dropout& dr) {
+    return keep ? x * dr.scale : 0.f;
+}
+
+// ---------------------------------------------------------------------------
 // K1: forward. One block per (b*h, 64-row Q tile); K/V tiles stream through.
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int8_t* __restrict__ mask,
                  float* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
-                 long long msb, long long msq, long long msk) {
+                 long long msb, long long msq, long long msk, Dropout dr) {
     constexpr int LD = D + 1, LP = kCols + 1, NC = D / kTpr, NS = kCols / kTpr;
     extern __shared__ float smem[];
     float* sQ = smem;
@@ -167,8 +241,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float psum = 0.f;
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
-            const float p = expf(s[j] - m_new);
-            psum += p;
+            float p = expf(s[j] - m_new);
+            psum += p;  // l sums the probabilities before dropout
+            if constexpr (kDrop) p = dropped(keep_bit(dr, bh, qi, k0 + sub + kTpr * j), p, dr);
             sP[r * LP + sub + kTpr * j] = p;
         }
         l = alpha * l + group_sum(psum);
@@ -197,14 +272,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // K2 for f32: dK and dV. One block per (b*h, 64-row K tile); Q/dO tiles
 // stream through.
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int8_t* __restrict__ mask,
                      float* __restrict__ dk, float* __restrict__ dv,
-                     int H, int Sq, int Sk, long long msb, long long msq, long long msk) {
+                     int H, int Sq, int Sk, long long msb, long long msq, long long msk,
+                     Dropout dr) {
     constexpr int LD = D + 1, LP = kCols + 1, NC = D / kTpr, NS = kCols / kTpr;
     extern __shared__ float smem[];
     float* sK = smem;
@@ -249,10 +325,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < NS; ++j) {
             const int c = sub + kTpr * j, qi = q0 + c;
             float s = dot_rows<D>(sQ + c * LD, sK + r * LD);
-            const float gp = dot_rows<D>(sG + c * LD, sV + r * LD);
+            float gp = dot_rows<D>(sG + c * LD, sV + r * LD);
             if (mcol != nullptr && qi < Sq && mcol[qi * msq] == 0) s = kNegBig;
             const float p = expf(s - sL[c]);
-            sP[r * LP + c] = p;
+            float pd = p;
+            if constexpr (kDrop) {  // dV takes the dropped P, dS the dropped dO.V^T
+                const bool kb = keep_bit(dr, bh, qi, kr);
+                pd = dropped(kb, p, dr);
+                gp = dropped(kb, gp, dr);
+            }
+            sP[r * LP + c] = pd;
             sS[r * LP + c] = p * (gp - sD[c]);
         }
         __syncwarp();
@@ -281,14 +363,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // K3 for f32: dQ. One block per (b*h, 64-row Q tile); K/V tiles stream through.
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ g,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int8_t* __restrict__ mask,
                     float* __restrict__ dq,
-                    int H, int Sq, int Sk, long long msb, long long msq, long long msk) {
+                    int H, int Sq, int Sk, long long msb, long long msq, long long msk,
+                    Dropout dr) {
     constexpr int LD = D + 1, LP = kCols + 1, NC = D / kTpr, NS = kCols / kTpr;
     extern __shared__ float smem[];
     float* sQ = smem;
@@ -327,10 +410,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < NS; ++j) {
             const int c = sub + kTpr * j, kc = k0 + c;
             float s = dot_rows<D>(sQ + r * LD, sK + c * LD);
-            const float gp = dot_rows<D>(sG + r * LD, sV + c * LD);
+            float gp = dot_rows<D>(sG + r * LD, sV + c * LD);
             const bool keep = kc < Sk && (mrow == nullptr || mrow[kc * msk] != 0);
             if (!keep) s = kNegBig;
             const float p = expf(s - lse_r);
+            if constexpr (kDrop) gp = dropped(keep_bit(dr, bh, qi, kc), gp, dr);
             sS[r * LP + c] = p * (gp - delta_r);
         }
         __syncwarp();
@@ -539,14 +623,14 @@ template <int D> __host__ __device__ constexpr int dkv_stage_bytes() {
     return 2 * tile_bytes<D>() + kTile * kKeepLd + 2 * kTile * (int)sizeof(float);
 }
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const int8_t* __restrict__ mask, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int H, int Sq, int Sk, long long msb,
-                         long long msq, long long msk) {
+                         long long msq, long long msk, Dropout dr) {
     extern __shared__ __align__(16) unsigned char smem_mma[];
     bf16* sK = reinterpret_cast<bf16*>(smem_mma);
     bf16* sV = reinterpret_cast<bf16*>(smem_mma + tile_bytes<D>());
@@ -626,7 +710,13 @@ flash_bwd_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const int qr = qc + 8 * n + 2 * ti + (i & 1), kr = kw + gi + 8 * (i >> 1);
                     const float sv = st.keep[qr * kKeepLd + kr] ? s[n][i] : kNegBig;
                     p[i] = expf(sv - st.lse[qr]);
-                    ds[i] = p[i] * (dp[n][i] - st.delta[qr]);
+                    if constexpr (kDrop) {  // dV takes the dropped P, dS the dropped dP
+                        const bool kb = keep_bit(dr, bh, it * kTile + qr, k0 + kr);
+                        ds[i] = p[i] * (dropped(kb, dp[n][i], dr) - st.delta[qr]);
+                        p[i] = dropped(kb, p[i], dr);
+                    } else {
+                        ds[i] = p[i] * (dp[n][i] - st.delta[qr]);
+                    }
                 }
                 pa[0][2 * n] = pack_bf16(p[0], p[1]);
                 pa[0][2 * n + 1] = pack_bf16(p[2], p[3]);
@@ -652,13 +742,13 @@ template <int D> __host__ __device__ constexpr int dq_stage_bytes() {
     return 2 * tile_bytes<D>() + kTile * kKeepLd;
 }
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ g,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const int8_t* __restrict__ mask, bf16* __restrict__ dq, int H, int Sq,
-                        int Sk, long long msb, long long msq, long long msk) {
+                        int Sk, long long msb, long long msq, long long msk, Dropout dr) {
     extern __shared__ __align__(16) unsigned char smem_mma[];
     bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
     bf16* sG = reinterpret_cast<bf16*>(smem_mma + tile_bytes<D>());
@@ -730,6 +820,15 @@ flash_bwd_dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             uint32_t da[2][4];
 #pragma unroll
             for (int n = 0; n < 2; ++n) {
+                if constexpr (kDrop) {  // dS takes the dropped dP
+                    // rows q0 + qw + gi (+ 8), keys it * kTile + kc + 8 n + 2 ti (+ 1)
+                    const int row = q0 + qw + gi, col = it * kTile + kc + 8 * n + 2 * ti;
+                    bool kb[4];
+                    keep_pair(dr, bh, row, col, kb[0], kb[1]);
+                    keep_pair(dr, bh, row + 8, col, kb[2], kb[3]);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) dp[n][i] = dropped(kb[i], dp[n][i], dr);
+                }
                 float ds[4];
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
@@ -763,12 +862,12 @@ template <int D> __host__ __device__ constexpr int fwd_stage_bytes() {
     return 2 * tile_bytes<D>() + kTile * kKeepLd;
 }
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int8_t* __restrict__ mask,
                      bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
-                     long long msb, long long msq, long long msk) {
+                     long long msb, long long msq, long long msk, Dropout dr) {
     extern __shared__ __align__(16) unsigned char smem_mma[];
     bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
     unsigned char* stages = smem_mma + tile_bytes<D>();
@@ -865,7 +964,16 @@ flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     p[i] = expf(s[kc][n][i] - m_new[i >> 1]);
-                    l[i >> 1] += p[i];
+                    l[i >> 1] += p[i];  // l sums the probabilities before dropout
+                }
+                if constexpr (kDrop) {
+                    // rows q0 + qw + gi (+ 8), keys it * kTile + 16 kc + 8 n + 2 ti (+ 1)
+                    const int row = q0 + qw + gi, col = it * kTile + kc * 16 + 8 * n + 2 * ti;
+                    bool kb[4];
+                    keep_pair(dr, bh, row, col, kb[0], kb[1]);
+                    keep_pair(dr, bh, row + 8, col, kb[2], kb[3]);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) p[i] = dropped(kb[i], p[i], dr);
                 }
                 pack_bf16_split(p[0], p[1], pa[0][2 * n], pa[1][2 * n]);
                 pack_bf16_split(p[2], p[3], pa[0][2 * n + 1], pa[1][2 * n + 1]);
@@ -903,38 +1011,49 @@ template <int D> constexpr int dq_smem() {
     return (int)sizeof(float) * (2 * kRows * (D + 1) + 2 * kCols * (D + 1) + kRows * (kCols + 1));
 }
 
-// Shared memory above 48 KB needs an opt-in per kernel instantiation.
+// Shared memory above 48 KB needs an opt-in per kernel instantiation: both
+// of a kernel's (with and without dropout) are opted in together.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t allow_smem(Kernel plain, Kernel drop, int bytes) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(plain, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(drop, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. The
 // tensor-core kernels take one stage of streamed tiles when there is only
-// one tile to stream, two otherwise (the opt-in covers two).
+// one tile to stream, two otherwise (the opt-in covers two). A rate above
+// 0 selects the instantiation that draws the dropout.
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                void* lse, int B, int H, int Sq, int Sk, long long msb, long long msq,
-               long long msk, cudaStream_t stream) {
+               long long msk, float rate, unsigned long long seed, unsigned long long offset,
+               cudaStream_t stream) {
+    const Dropout dr = make_dropout(rate, seed, offset);
     if constexpr (std::is_same_v<T, bf16>) {
         constexpr int fixed = tile_bytes<D>(), per_stage = fwd_stage_bytes<D>();
-        static const cudaError_t attr =
-            allow_smem(flash_fwd_kernel_mma<D>, fixed + 2 * per_stage);
+        static const cudaError_t attr = allow_smem(
+            flash_fwd_kernel_mma<D, false>, flash_fwd_kernel_mma<D, true>, fixed + 2 * per_stage);
         if (attr != cudaSuccess) return (int)attr;
         const int smem = fixed + (Sk > kTile ? 2 : 1) * per_stage;
         dim3 grid(B * H, (Sq + kTile - 1) / kTile);
-        flash_fwd_kernel_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+        auto kernel = rate > 0.f ? flash_fwd_kernel_mma<D, true> : flash_fwd_kernel_mma<D, false>;
+        kernel<<<grid, kMmaThreads, smem, stream>>>(
             (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int8_t*)mask, (bf16*)o,
-            (float*)lse, H, Sq, Sk, msb, msq, msk);
+            (float*)lse, H, Sq, Sk, msb, msq, msk, dr);
         return (int)cudaGetLastError();
     } else {
         constexpr int smem = fwd_smem<D>();
-        static const cudaError_t attr = allow_smem(flash_fwd_kernel<D>, smem);
+        static const cudaError_t attr =
+            allow_smem(flash_fwd_kernel<D, false>, flash_fwd_kernel<D, true>, smem);
         if (attr != cudaSuccess) return (int)attr;
         dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-        flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+        auto kernel = rate > 0.f ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+        kernel<<<grid, kThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (const int8_t*)mask, (T*)o, (float*)lse,
-            H, Sq, Sk, msb, msq, msk);
+            H, Sq, Sk, msb, msq, msk, dr);
         return (int)cudaGetLastError();
     }
 }
@@ -942,27 +1061,35 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask, vo
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                const void* delta, const void* mask, void* dk, void* dv, int B, int H, int Sq,
-               int Sk, long long msb, long long msq, long long msk, cudaStream_t stream) {
+               int Sk, long long msb, long long msq, long long msk, float rate,
+               unsigned long long seed, unsigned long long offset, cudaStream_t stream) {
+    const Dropout dr = make_dropout(rate, seed, offset);
     if constexpr (std::is_same_v<T, bf16>) {
         constexpr int fixed = 2 * tile_bytes<D>(), per_stage = dkv_stage_bytes<D>();
         static const cudaError_t attr =
-            allow_smem(flash_bwd_dkv_kernel_mma<D>, fixed + 2 * per_stage);
+            allow_smem(flash_bwd_dkv_kernel_mma<D, false>, flash_bwd_dkv_kernel_mma<D, true>,
+                       fixed + 2 * per_stage);
         if (attr != cudaSuccess) return (int)attr;
         const int smem = fixed + (Sq > kTile ? 2 : 1) * per_stage;
         dim3 grid(B * H, (Sk + kTile - 1) / kTile);
-        flash_bwd_dkv_kernel_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+        auto kernel = rate > 0.f ? flash_bwd_dkv_kernel_mma<D, true>
+                                 : flash_bwd_dkv_kernel_mma<D, false>;
+        kernel<<<grid, kMmaThreads, smem, stream>>>(
             (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)lse,
             (const float*)delta, (const int8_t*)mask, (bf16*)dk, (bf16*)dv, H, Sq, Sk, msb,
-            msq, msk);
+            msq, msk, dr);
         return (int)cudaGetLastError();
     } else {
         constexpr int smem = dkv_smem<D>();
-        static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+        static const cudaError_t attr =
+            allow_smem(flash_bwd_dkv_kernel<D, false>, flash_bwd_dkv_kernel<D, true>, smem);
         if (attr != cudaSuccess) return (int)attr;
         dim3 grid(B * H, (Sk + kRows - 1) / kRows);
-        flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+        auto kernel = rate > 0.f ? flash_bwd_dkv_kernel<D, true> : flash_bwd_dkv_kernel<D, false>;
+        kernel<<<grid, kThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
-            (const float*)delta, (const int8_t*)mask, (T*)dk, (T*)dv, H, Sq, Sk, msb, msq, msk);
+            (const float*)delta, (const int8_t*)mask, (T*)dk, (T*)dv, H, Sq, Sk, msb, msq, msk,
+            dr);
         return (int)cudaGetLastError();
     }
 }
@@ -970,26 +1097,33 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
               const void* delta, const void* mask, void* dq, int B, int H, int Sq, int Sk,
-              long long msb, long long msq, long long msk, cudaStream_t stream) {
+              long long msb, long long msq, long long msk, float rate, unsigned long long seed,
+              unsigned long long offset, cudaStream_t stream) {
+    const Dropout dr = make_dropout(rate, seed, offset);
     if constexpr (std::is_same_v<T, bf16>) {
         constexpr int fixed = 2 * tile_bytes<D>(), per_stage = dq_stage_bytes<D>();
         static const cudaError_t attr =
-            allow_smem(flash_bwd_dq_kernel_mma<D>, fixed + 2 * per_stage);
+            allow_smem(flash_bwd_dq_kernel_mma<D, false>, flash_bwd_dq_kernel_mma<D, true>,
+                       fixed + 2 * per_stage);
         if (attr != cudaSuccess) return (int)attr;
         const int smem = fixed + (Sk > kTile ? 2 : 1) * per_stage;
         dim3 grid(B * H, (Sq + kTile - 1) / kTile);
-        flash_bwd_dq_kernel_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+        auto kernel = rate > 0.f ? flash_bwd_dq_kernel_mma<D, true>
+                                 : flash_bwd_dq_kernel_mma<D, false>;
+        kernel<<<grid, kMmaThreads, smem, stream>>>(
             (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)lse,
-            (const float*)delta, (const int8_t*)mask, (bf16*)dq, H, Sq, Sk, msb, msq, msk);
+            (const float*)delta, (const int8_t*)mask, (bf16*)dq, H, Sq, Sk, msb, msq, msk, dr);
         return (int)cudaGetLastError();
     } else {
         constexpr int smem = dq_smem<D>();
-        static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<D>, smem);
+        static const cudaError_t attr =
+            allow_smem(flash_bwd_dq_kernel<D, false>, flash_bwd_dq_kernel<D, true>, smem);
         if (attr != cudaSuccess) return (int)attr;
         dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-        flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+        auto kernel = rate > 0.f ? flash_bwd_dq_kernel<D, true> : flash_bwd_dq_kernel<D, false>;
+        kernel<<<grid, kThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
-            (const float*)delta, (const int8_t*)mask, (T*)dq, H, Sq, Sk, msb, msq, msk);
+            (const float*)delta, (const int8_t*)mask, (T*)dq, H, Sq, Sk, msb, msq, msk, dr);
         return (int)cudaGetLastError();
     }
 }
@@ -998,7 +1132,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g, const 
 
 // Dispatch on (dtype, head dim). dtype: 0 = float32, 1 = bfloat16. An
 // unsupported pair returns cudaErrorInvalidValue; the Python wrapper checks
-// both before it calls.
+// both before it calls. rate is the attention dropout rate in [0, 1) (0:
+// none), seed and offset the Philox key and counter word it draws from.
 #define FLASH_DISPATCH(LAUNCH, ...)                                                    \
     switch (D * 2 + is_bf16) {                                                         \
         case 64: return LAUNCH<float, 32>(__VA_ARGS__);                                \
@@ -1014,25 +1149,27 @@ extern "C" {
 
 int flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
               void* lse, int B, int H, int Sq, int Sk, int D, int is_bf16, long long msb,
-              long long msq, long long msk, void* stream) {
-    FLASH_DISPATCH(launch_fwd, q, k, v, mask, o, lse, B, H, Sq, Sk, msb, msq, msk,
-                   (cudaStream_t)stream)
+              long long msq, long long msk, float rate, unsigned long long seed,
+              unsigned long long offset, void* stream) {
+    FLASH_DISPATCH(launch_fwd, q, k, v, mask, o, lse, B, H, Sq, Sk, msb, msq, msk, rate, seed,
+                   offset, (cudaStream_t)stream)
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                   const void* lse, const void* delta, const void* mask, void* dk, void* dv,
                   int B, int H, int Sq, int Sk, int D, int is_bf16, long long msb,
-                  long long msq, long long msk, void* stream) {
+                  long long msq, long long msk, float rate, unsigned long long seed,
+                  unsigned long long offset, void* stream) {
     FLASH_DISPATCH(launch_dkv, q, k, v, g, lse, delta, mask, dk, dv, B, H, Sq, Sk, msb, msq,
-                   msk, (cudaStream_t)stream)
+                   msk, rate, seed, offset, (cudaStream_t)stream)
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
                  const void* delta, const void* mask, void* dq, int B, int H, int Sq, int Sk,
-                 int D, int is_bf16, long long msb, long long msq, long long msk,
-                 void* stream) {
+                 int D, int is_bf16, long long msb, long long msq, long long msk, float rate,
+                 unsigned long long seed, unsigned long long offset, void* stream) {
     FLASH_DISPATCH(launch_dq, q, k, v, g, lse, delta, mask, dq, B, H, Sq, Sk, msb, msq, msk,
-                   (cudaStream_t)stream)
+                   rate, seed, offset, (cudaStream_t)stream)
 }
 
 }  // extern "C"

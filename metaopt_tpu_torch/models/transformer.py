@@ -24,29 +24,47 @@ The port matches the reference's numerics where the two frameworks differ:
   kernels, normal(1.0) for the embedding, normal(0.02) for the positions,
   zero biases.
 
+- dropout (rate ``dropout``, the reference's default 0.1) applies in
+  training only: attention dropout inside the kernels K1–K3 (a Philox
+  seed per call, drawn from a CPU generator), and the feed-forward's
+  ``nn.Dropout`` after the relu as plain PyTorch (``x / keep_prob`` or 0,
+  as in the reference it is plain XLA). Every draw of a train step goes
+  through one seam, :class:`Draws` (generators seeded from (seed, step),
+  as the reference folds the step into its key) or :class:`GivenDraws`
+  (the tests' and ``chip_smoke.py``'s injected masks);
+- the optimizer is ``optax.adamw`` over the reference's schedule, written
+  in ``torch._foreach`` ops (:class:`ScheduledAdamW`): ``torch.optim``'s
+  first optimizer imports ``torch._dynamo``, ~11 s per trial process.
+
 :func:`params_from_flax` converts the reference's parameter tree so both
-packages compute the same function in the tests. Not ported yet (queued in
-ROADMAP.md): attention dropout (the kernels carry none; ``dropout > 0``
-raises), the dp/tp/sp/ep meshes, MoE FFNs, ``remat``, the blocked xent and
-orbax checkpoints.
+packages compute the same function in the tests. Trial checkpoints
+(``train_and_eval(restore_dir=..., save_dir=...)``) are the port's own
+format (:mod:`metaopt_tpu_torch.models.checkpoint`), not orbax. Not ported
+yet (queued in ROADMAP.md): the dp/tp/sp/ep meshes, MoE FFNs, ``remat``
+and the blocked xent.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from metaopt_tpu_torch.models.checkpoint import has_state, restore_state, save_state
 from metaopt_tpu_torch.models.data import synthetic_seq2seq
 from metaopt_tpu_torch.ops.attention import flash_attention
 from metaopt_tpu_torch.utils.device import resolve_device
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
+# a trial checkpoint: one file in the trial's directory, trees "params" and
+# "opt_state", published in one rename (models/checkpoint.py)
+CKPT_FILE = "state"
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
@@ -65,6 +83,44 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x.bfloat16(), layer.weight.bfloat16()) + layer.bias.bfloat16()
 
 
+class Draws:
+    """Every random draw of one train step: the attention kernels' Philox
+    seeds from a CPU generator (a draw costs no device sync) and the
+    feed-forward dropout masks from a generator on the model's device, both
+    seeded from (``seed``, ``step``)."""
+
+    def __init__(self, seed: int, step: int, device):
+        # mixed into one key: a CPU generator seeds from its low 32 bits only
+        key = int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0])
+        self.attention = torch.Generator().manual_seed(key)
+        self.device = torch.device(device)
+        self._ffn = torch.Generator(device=self.device).manual_seed(key)
+
+    def ffn_keep(self, shape, keep: float) -> torch.Tensor:
+        return torch.rand(shape, generator=self._ffn, device=self.device) < keep
+
+
+class GivenDraws:
+    """Draws fixed in advance: ``ffn_masks``, one keep mask per feed-forward
+    layer in the order they run (encoder layers, then decoder layers), and
+    the attention seeds from a CPU generator seeded with ``attention_seed``."""
+
+    def __init__(self, ffn_masks: Sequence[Any], attention_seed: int, device):
+        dev = torch.device(device)
+        self._masks = [torch.as_tensor(np.asarray(m), dtype=torch.bool).to(dev)
+                       for m in ffn_masks]
+        self._next = 0
+        self.attention = torch.Generator().manual_seed(int(attention_seed))
+
+    def ffn_keep(self, shape, keep: float) -> torch.Tensor:
+        mask = self._masks[self._next]
+        self._next += 1
+        if tuple(mask.shape) != tuple(shape):
+            raise ValueError(f"given mask of shape {tuple(mask.shape)}, the layer needs "
+                             f"{tuple(shape)}")
+        return mask
+
+
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """flax ``LayerNorm(dtype=f32)``: f32 statistics with the one-pass
     variance E[x²] − E[x]² (flax's ``use_fast_variance``), epsilon 1e-6."""
@@ -75,18 +131,20 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class MHA(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by {n_heads} heads")
         self.n_heads = n_heads
         self.d_head = d_model // n_heads
+        self.dropout = dropout
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, q_in, kv_in, mask=None):
+    def forward(self, q_in, kv_in, mask=None, draws=None):
+        """``draws`` given: training, attention dropout at ``self.dropout``."""
         b, sq, sk = q_in.shape[0], q_in.shape[1], kv_in.shape[1]
         heads = lambda t, s: t.view(b, s, self.n_heads, self.d_head)  # noqa: E731
         q = heads(_dense(self.q, q_in), sq) / math.sqrt(self.d_head)
@@ -97,57 +155,70 @@ class MHA(nn.Module):
         m3 = None
         if mask is not None:
             m3 = mask[:, 0].to(torch.int8).expand(b, sq, sk)
-        out = flash_attention(q, k, v, m3)
+        rate = self.dropout if draws is not None else 0.0
+        out = flash_attention(q, k, v, m3, dropout_rate=rate,
+                              generator=draws.attention if rate > 0.0 else None)
         return _dense(self.out, out.reshape(b, sq, -1))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.wi = nn.Linear(d_model, d_ff)
         self.wo = nn.Linear(d_ff, d_model)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return _dense(self.wo, torch.relu(_dense(self.wi, x)))
+    def forward(self, x, draws=None):
+        """flax ``nn.Dropout`` after the relu when ``draws`` is given: kept
+        activations over keep_prob, the rest 0. flax divides the bf16
+        activations by its weak-typed keep_prob, which takes their dtype
+        first: keep_prob is rounded to bf16 before the division."""
+        h = torch.relu(_dense(self.wi, x))
+        if draws is not None and self.dropout > 0.0:
+            keep = 1.0 - self.dropout
+            divisor = float(torch.tensor(keep, dtype=h.dtype))
+            h = torch.where(draws.ffn_keep(h.shape, keep), h / divisor, torch.zeros_like(h))
+        return _dense(self.wo, h)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, d_ff: int):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model)
-        self.self_attn = MHA(d_model, n_heads)
+        self.self_attn = MHA(d_model, n_heads, dropout)
         self.ln2 = nn.LayerNorm(d_model)
-        self.mlp = FeedForward(d_model, d_ff)
+        self.mlp = FeedForward(d_model, d_ff, dropout)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, draws=None):
         y = _layer_norm(self.ln1, x)
-        x = x + self.self_attn(y, y, pad_mask)
-        return x + self.mlp(_layer_norm(self.ln2, x))
+        x = x + self.self_attn(y, y, pad_mask, draws)
+        return x + self.mlp(_layer_norm(self.ln2, x), draws)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, d_ff: int):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model)
-        self.self_attn = MHA(d_model, n_heads)
+        self.self_attn = MHA(d_model, n_heads, dropout)
         self.ln2 = nn.LayerNorm(d_model)
-        self.cross_attn = MHA(d_model, n_heads)
+        self.cross_attn = MHA(d_model, n_heads, dropout)
         self.ln3 = nn.LayerNorm(d_model)
-        self.mlp = FeedForward(d_model, d_ff)
+        self.mlp = FeedForward(d_model, d_ff, dropout)
 
-    def forward(self, x, enc, causal_mask, cross_mask):
+    def forward(self, x, enc, causal_mask, cross_mask, draws=None):
         y = _layer_norm(self.ln1, x)
-        x = x + self.self_attn(y, y, causal_mask)
+        x = x + self.self_attn(y, y, causal_mask, draws)
         y = _layer_norm(self.ln2, x)
-        x = x + self.cross_attn(y, enc, cross_mask)
-        return x + self.mlp(_layer_norm(self.ln3, x))
+        x = x + self.cross_attn(y, enc, cross_mask, draws)
+        return x + self.mlp(_layer_norm(self.ln3, x), draws)
 
 
 class Transformer(nn.Module):
     """Encoder-decoder; Transformer-base defaults."""
 
     def __init__(self, vocab: int = 1000, d_model: int = 512, n_heads: int = 8,
-                 n_layers: int = 6, d_ff: int = 2048, max_len: int = 512):
+                 n_layers: int = 6, d_ff: int = 2048, dropout: float = 0.1,
+                 max_len: int = 512):
         super().__init__()
         self.vocab = vocab
         self.max_len = max_len
@@ -155,10 +226,10 @@ class Transformer(nn.Module):
         # zeros until init_like_flax or a loaded state: never uninitialized memory
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
         self.enc = nn.ModuleList(
-            EncoderLayer(d_model, n_heads, d_ff) for _ in range(n_layers))
+            EncoderLayer(d_model, n_heads, d_ff, dropout) for _ in range(n_layers))
         self.enc_ln = nn.LayerNorm(d_model)
         self.dec = nn.ModuleList(
-            DecoderLayer(d_model, n_heads, d_ff) for _ in range(n_layers))
+            DecoderLayer(d_model, n_heads, d_ff, dropout) for _ in range(n_layers))
         self.dec_ln = nn.LayerNorm(d_model)
 
     @torch.no_grad()
@@ -174,7 +245,9 @@ class Transformer(nn.Module):
         nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
         return self
 
-    def forward(self, src, tgt_in):
+    def forward(self, src, tgt_in, draws=None):
+        """Logits (B, T, vocab) f32. ``draws`` given: training, with dropout
+        drawn from it (the reference's ``train=True``); else deterministic."""
         s_len, t_len = src.shape[1], tgt_in.shape[1]
         if max(s_len, t_len) > self.max_len:
             raise ValueError(
@@ -191,12 +264,12 @@ class Transformer(nn.Module):
         pos = self.pos_embed.bfloat16()
         x = emb[src] + pos[None, :s_len]
         for layer in self.enc:
-            x = layer(x, src_pad)
+            x = layer(x, src_pad, draws)
         enc = _layer_norm(self.enc_ln, x).bfloat16()
 
         y = emb[tgt_in] + pos[None, :t_len]
         for layer in self.dec:
-            y = layer(y, enc, causal_mask, src_pad)
+            y = layer(y, enc, causal_mask, src_pad, draws)
         y = _layer_norm(self.dec_ln, y)
         # weight-tied readout: bf16 features against the f32 table, in f32
         return y.bfloat16().float() @ self.embed.weight.t()
@@ -212,16 +285,13 @@ def make_model(hparams: Optional[Dict[str, Any]] = None, **overrides) -> Transfo
         raise NotImplementedError("MoE feed-forward layers are not ported yet")
     if bool(h.get("remat", False)):
         raise NotImplementedError("remat is not ported yet")
-    if float(h.get("dropout", 0.1)) > 0.0:
-        raise NotImplementedError(
-            "dropout > 0 is not ported yet: the flash kernels carry no "
-            "attention dropout (pass dropout=0.0)")
     return Transformer(
         vocab=int(h.get("vocab", 1000)),
         d_model=int(h.get("d_model", 512)),
         n_heads=int(h.get("n_heads", 8)),
         n_layers=int(h.get("n_layers", 6)),
         d_ff=int(h.get("d_ff", 2048)),
+        dropout=float(h.get("dropout", 0.1)),
         max_len=int(h.get("max_len", 512)),
     )
 
@@ -279,12 +349,13 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def loss_fn(model: Transformer, batch) -> torch.Tensor:
-    """Masked token-mean cross-entropy; ``tgt_in = [bos] ++ tgt[:, :-1]``."""
+def loss_fn(model: Transformer, batch, draws=None) -> torch.Tensor:
+    """Masked token-mean cross-entropy; ``tgt_in = [bos] ++ tgt[:, :-1]``.
+    ``draws`` given: in training mode, dropout drawn from it."""
     src, tgt = batch
     bos = torch.ones_like(tgt[:, :1])
     tgt_in = torch.cat([bos, tgt[:, :-1]], dim=1)
-    logits = model(src, tgt_in)
+    logits = model(src, tgt_in, draws)
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            tgt.reshape(-1), reduction="none").view_as(tgt)
     mask = (tgt != 0).float()
@@ -311,27 +382,64 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-class ScheduledAdamW(torch.optim.AdamW):
-    """AdamW whose learning rate follows ``schedule(updates so far)``.
+# optax.adamw's defaults
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
-    Like ``optax.adamw(schedule)``, the k-th update (from 0) uses
-    ``schedule(k)``, so a warmup from 0 makes the first update a no-op on
-    the parameters while the moments still absorb its gradient.
+
+class ScheduledAdamW:
+    """``optax.adamw(schedule, weight_decay=...)`` in ``torch._foreach`` ops.
+
+    The k-th update (from 0) uses ``schedule(k)``, as optax's
+    ``scale_by_learning_rate`` does, so a warmup from 0 makes the first
+    update a no-op on the parameters while the moments still absorb its
+    gradient. ``torch.optim``'s first optimizer imports ``torch._dynamo``
+    (~11 s in a fresh trial process); this class imports nothing.
     """
 
     def __init__(self, params, schedule, weight_decay: float = 0.0):
-        super().__init__(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
-                         weight_decay=weight_decay)
+        self.params = list(params)
         self.schedule = schedule
+        self.weight_decay = float(weight_decay)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
         self.updates = 0
 
-    def step(self, closure=None):
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
         lr = self.schedule(self.updates)
-        for group in self.param_groups:
-            group["lr"] = lr
-        out = super().step(closure)
         self.updates += 1
-        return out
+        grads = [p.grad for p in self.params]
+        torch._foreach_mul_(self.mu, _B1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - _B1)
+        torch._foreach_mul_(self.nu, _B2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - _B2)
+        # optax: mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p, times -lr
+        denom = torch._foreach_div(self.nu, 1.0 - _B2 ** self.updates)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, _EPS)
+        upd = torch._foreach_div(self.mu, 1.0 - _B1 ** self.updates)
+        torch._foreach_div_(upd, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, upd, alpha=-lr)
+
+    def state_leaves(self) -> List[torch.Tensor]:
+        """The optimizer state as a flat list: the update count, then the
+        first and the second moments in parameter order."""
+        return [torch.tensor(self.updates, dtype=torch.int64), *self.mu, *self.nu]
+
+    @torch.no_grad()
+    def load_state_leaves(self, leaves: Sequence[torch.Tensor]) -> None:
+        n = len(self.params)
+        if len(leaves) != 1 + 2 * n:
+            raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters")
+        self.updates = int(leaves[0])
+        for dst, src in zip(self.mu + self.nu, leaves[1:]):
+            dst.copy_(src)
 
 
 def trial_setup(hparams: Dict[str, Any], params, steps: int,
@@ -348,17 +456,36 @@ def trial_setup(hparams: Dict[str, Any], params, steps: int,
                           weight_decay=float(hparams.get("weight_decay", 0.0)))
 
 
-def make_train_step(model: Transformer, opt: torch.optim.Optimizer):
-    """One optimizer update on a batch; returns the pre-update loss."""
+def make_train_step(model: Transformer, opt: ScheduledAdamW):
+    """One optimizer update on a batch, dropout drawn from ``draws`` (none
+    without); returns the pre-update loss."""
 
-    def train_step(batch) -> torch.Tensor:
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
+    def train_step(batch, draws=None) -> torch.Tensor:
+        opt.zero_grad()
+        loss = loss_fn(model, batch, draws)
         loss.backward()
         opt.step()
         return loss.detach()
 
     return train_step
+
+
+def maybe_restore(restore_dir: Optional[str], model: Transformer,
+                  opt: ScheduledAdamW) -> bool:
+    """Load a trial checkpoint's parameters and optimizer state when
+    ``restore_dir`` holds a published one (``CKPT_FILE``, trees ``params``
+    and ``opt_state``); returns whether it did. How a PBT continuation inherits its parent's
+    training state and a re-run trial resumes its own."""
+    if not restore_dir or not has_state(os.path.join(restore_dir, CKPT_FILE)):
+        return False
+    params = list(model.parameters())
+    trees = restore_state(os.path.join(restore_dir, CKPT_FILE),
+                          {"params": params, "opt_state": opt.state_leaves()})
+    with torch.no_grad():
+        for dst, src in zip(params, trees["params"]):
+            dst.copy_(src)
+    opt.load_state_leaves(trees["opt_state"])
+    return True
 
 
 def train_and_eval(
@@ -372,23 +499,36 @@ def train_and_eval(
     seq_len: int = 64,
     steps: int = 100,
     seed: int = 0,
+    restore_dir: Optional[str] = None,
+    save_dir: Optional[str] = None,
     device=None,
     report: Optional[Dict[str, Any]] = None,
 ) -> float:
     """Train on the synthetic translation task; return the final loss.
 
-    ``report``, when given, receives ``losses`` (one per step), ``train_s``
-    (seconds of the step loop, device-synchronized), ``steps`` and
-    ``tokens_per_step`` (source + target tokens).
+    Step i's dropout comes from ``Draws(seed, i)``; a restored trial starts
+    its step count at 0 again, as the reference's does, while the
+    optimizer's update count (the schedule's position) is restored.
+    ``restore_dir``/``save_dir``: trial checkpoints (``<dir>/state``, the
+    trees ``params`` and ``opt_state`` published together), skipped where
+    ``restore_dir`` holds none. ``report``, when given, receives ``losses``
+    (one per step), ``setup_s`` (model, optimizer, restore and data before
+    the loop), ``train_s`` (the step loop, device-synchronized),
+    ``save_s``, ``restored``, ``steps`` and ``tokens_per_step`` (source +
+    target tokens).
     """
+    t_call = time.perf_counter()
     if n_train < batch_size:
         raise ValueError(
             f"n_train ({n_train}) must be >= batch_size ({batch_size})")
     device = resolve_device(device)
-    model = make_model(hparams)
-    model.init_like_flax(torch.Generator().manual_seed(seed))
-    model.to(device)
+    # built and initialized on the device it trains on: on the CPU, the init
+    # of Transformer-base's 45 M parameters takes seconds per trial
+    with device:
+        model = make_model(hparams)
+    model.init_like_flax(torch.Generator(device=device).manual_seed(seed))
     opt = trial_setup(hparams, model.parameters(), steps, tp, sp, ep)
+    restored = maybe_restore(restore_dir, model, opt)
     src, tgt = synthetic_seq2seq(n_train, seq_len, model.vocab, seed=seed,
                                  device=device)
     step_fn = make_train_step(model, opt)
@@ -399,12 +539,21 @@ def train_and_eval(
     losses = []
     for i in range(steps):
         lo = (i * batch_size) % (n_train - batch_size + 1)
-        losses.append(step_fn((src[lo:lo + batch_size], tgt[lo:lo + batch_size])))
+        losses.append(step_fn((src[lo:lo + batch_size], tgt[lo:lo + batch_size]),
+                              Draws(seed, i, device)))
     sync()
+    train_s = time.perf_counter() - t0
+    t_save = time.perf_counter()
+    if save_dir:
+        save_state(os.path.join(save_dir, CKPT_FILE),
+                   {"params": list(model.parameters()), "opt_state": opt.state_leaves()})
     if report is not None:
         report.update(
             losses=[float(x) for x in losses],
-            train_s=time.perf_counter() - t0,
+            setup_s=t0 - t_call,
+            train_s=train_s,
+            save_s=time.perf_counter() - t_save,
+            restored=restored,
             steps=steps,
             tokens_per_step=2 * batch_size * seq_len,
         )

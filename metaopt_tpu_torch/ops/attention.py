@@ -26,15 +26,28 @@ pre-scaled; the optional mask is (B, Sq, Sk), True/nonzero = attend,
 shared by the heads; lse is (B, H, Sq) f32 with +inf on fully masked rows,
 whose output is 0. Ragged lengths need no padding: the kernels and the
 plain versions treat rows and columns past Sq/Sk exactly as the
-reference's padded, masked tails. The Pallas route rejects attention
-dropout and so does this one (the chunked dropout twin is queued).
+reference's padded, masked tails.
+
+Attention dropout (the reference's chunked ``lax.scan`` twin,
+``_chunked_forward`` / ``_chunked_backward`` with ``_dropout_tile``) runs
+inside K1–K3: each kernel draws the keep bit of element (b·h, row, column)
+in registers with Philox4x32-10, keyed by a 64-bit seed, on the counter
+(column / 4, row, b·h, offset), word column % 4, and keeps it when that
+word is below (1 − rate)·2³². K1, K2, K3 and :func:`philox_keep` draw the
+same bit for the same element, so the backward replays the forward's mask
+and no mask is stored. The semantics are the twin's: the softmax
+denominator sums the probabilities before dropout, O takes the kept ones
+over keep_prob, delta stays rowsum(dO ⊙ O), dV takes the dropped P and
+dS = P ⊙ (where(keep, dO·Vᵀ / keep_prob, 0) − delta). The bits are not the
+reference's threefry bits: the tests feed the reference's own bits to the
+plain versions (``keep=``) and hold the kernels' bits by distribution.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -46,11 +59,92 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+#: of those, the launches with attention dropout (rate > 0)
+dropout_launches: Dict[str, int] = dict(launches)
 
 
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, dropout_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 keep bits (the kernels' dropout mask)
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of a·b for a constant a < 2³² and int64 b in
+    [0, 2³²). a·b can reach 2⁶⁴, past int64, so b is split in 16-bit halves:
+    each partial product stays below 2⁴⁸."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    t = ((p_hi & 0xFFFF) << 16) + p_lo
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(ctr: Sequence[torch.Tensor], key: Tuple[int, int]) -> Tuple[torch.Tensor, ...]:
+    """Random123's Philox4x32-10 on int64 tensors holding uint32 words:
+    counter words (c0, c1, c2, c3), key (k0, k1) → four output words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_prob(rate: float) -> float:
+    """1 − rate as the kernels compute it: in f32, from the rate rounded to f32."""
+    return float(1.0 - torch.tensor(rate, dtype=torch.float32))
+
+
+def keep_threshold(rate: float) -> int:
+    """A Philox word w keeps its element when w < this: keep_prob · 2³²."""
+    return int(keep_prob(rate) * 4294967296.0)
+
+
+_Index = Union[range, Sequence[int], torch.Tensor]
+
+
+def _index(x: _Index, device) -> torch.Tensor:
+    if isinstance(x, range):
+        return torch.arange(x.start, x.stop, x.step, dtype=torch.int64, device=device)
+    return torch.as_tensor(x, dtype=torch.int64, device=device).reshape(-1)
+
+
+def philox_keep(seed: int, offset: int, bh: _Index, rows: _Index, cols: _Index,
+                rate: float, device=None) -> torch.Tensor:
+    """The kernels' keep bits, (len(bh), len(rows), len(cols)) bool.
+
+    Element (b·h, row, column) is kept when word ``column % 4`` of
+    Philox4x32-10 on the counter (column // 4, row, b·h, offset) with the key
+    (seed mod 2³², seed // 2³²) is below :func:`keep_threshold` (rate)."""
+    _check_dropout(rate, seed, offset)
+    bh, rows, cols = (_index(x, device) for x in (bh, rows, cols))
+    ctr = ((cols >> 2)[None, None, :], rows[None, :, None], bh[:, None, None],
+           torch.tensor(offset, dtype=torch.int64, device=cols.device))
+    words = torch.stack(torch.broadcast_tensors(
+        *philox4x32_10(ctr, (seed & _MASK32, seed >> 32))), -1)
+    shape = words.shape[:-1]
+    word = words.gather(-1, (cols & 3)[None, None, :, None].expand(*shape, 1))[..., 0]
+    return word < keep_threshold(rate)
+
+
+def draw_seed(generator: torch.Generator) -> Tuple[int, int]:
+    """A (seed, offset) pair for the kernels from a CPU generator: no device sync."""
+    if generator.device.type != "cpu":
+        raise ValueError("attention dropout draws its Philox seed from a CPU "
+                         f"torch.Generator (got one on {generator.device})")
+    lo, hi, offset = torch.randint(0, 2 ** 32, (3,), generator=generator).tolist()
+    return lo | hi << 32, offset
 
 
 # ---------------------------------------------------------------------------
@@ -59,10 +153,13 @@ def reset_launch_counts() -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+_U = ctypes.c_ulonglong
+_DROPOUT = [_F, _U, _U]  # rate, seed, offset
 _SIGNATURES = {
-    "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _P],
-    "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_L] * 3 + [_P],
-    "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_L] * 3 + [_P],
+    "flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 3 + _DROPOUT + [_P],
+    "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_L] * 3 + _DROPOUT + [_P],
+    "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_L] * 3 + _DROPOUT + [_P],
 }
 
 
@@ -80,14 +177,38 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, dropout: Tuple[float, int, int],
+            *args) -> None:
     lib = build()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+        err = getattr(lib, name)(*args, *dropout, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1
+    if dropout[0] > 0.0:
+        dropout_launches[name] += 1
+
+
+def _check_dropout(rate: float, seed: int, offset: int) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} must be in [0, 1)")
+    if not 0 <= seed < 2 ** 64 or not 0 <= offset <= _MASK32:
+        raise ValueError(f"seed {seed} must fit 64 bits and offset {offset} 32 bits")
+
+
+def _keep_block(q: torch.Tensor, rate: float, seed: int, offset: int,
+                keep: Optional[torch.Tensor], rows: slice, cols: slice, sq: int, sk: int):
+    """The (B, H, rows, cols) keep bits of one block: the given ones, or
+    Philox's; None without dropout."""
+    if rate <= 0.0:
+        return None
+    if keep is not None:
+        return keep[:, :, rows, cols].to(q.device)
+    b, _, h, _ = q.shape
+    bits = philox_keep(seed, offset, range(b * h), range(sq)[rows], range(sk)[cols], rate,
+                       device=q.device)
+    return bits.view(b, h, *bits.shape[1:])
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -147,11 +268,18 @@ def _mask_bh(mask: Optional[torch.Tensor], rows: slice, cols: slice):
 # K1: forward
 
 
-def flash_fwd_plain(q, k, v, mask=None, block_k: int = 128):
-    """Plain PyTorch twin of K1: (out (B,Sq,H,D) in q's dtype, lse (B,H,Sq) f32)."""
-    sk = k.shape[1]
+def flash_fwd_plain(q, k, v, mask=None, block_k: int = 128, dropout_rate: float = 0.0,
+                    seed: int = 0, offset: int = 0, keep: Optional[torch.Tensor] = None):
+    """Plain PyTorch twin of K1: (out (B,Sq,H,D) in q's dtype, lse (B,H,Sq) f32).
+
+    With ``dropout_rate`` > 0 the kept probabilities over keep_prob feed O
+    and l sums them all; the keep bits are Philox's for (``seed``,
+    ``offset``), or ``keep`` (B, H, Sq, Sk) bool where given (the tests
+    inject the reference's own bits)."""
+    sq, sk = q.shape[1], k.shape[1]
     qf, kf, vf = _bh(q), _bh(k), _bh(v)
-    b, h, sq, d = qf.shape
+    b, h, _, d = qf.shape
+    kp = keep_prob(dropout_rate)
     m = torch.full((b, h, sq, 1), -float("inf"), device=q.device)
     l = torch.zeros((b, h, sq, 1), device=q.device)
     acc = torch.zeros((b, h, sq, d), device=q.device)
@@ -168,6 +296,9 @@ def flash_fwd_plain(q, k, v, mask=None, block_k: int = 128):
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
+        kb = _keep_block(q, dropout_rate, seed, offset, keep, slice(None), cols, sq, sk)
+        if kb is not None:
+            p = torch.where(kb, p / kp, 0.0)
         acc = alpha * acc + p @ vf[:, :, cols]
         m = m_new
     out = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype).permute(0, 2, 1, 3)
@@ -176,18 +307,21 @@ def flash_fwd_plain(q, k, v, mask=None, block_k: int = 128):
     return out, lse
 
 
-def flash_fwd(q, k, v, mask=None, block_k: int = 128):
+def flash_fwd(q, k, v, mask=None, block_k: int = 128, dropout_rate: float = 0.0,
+              seed: int = 0, offset: int = 0):
     """K1: (out, lse). Launches the kernel for CUDA tensors, plain on the CPU."""
     _check(q, k, v, mask)
+    _check_dropout(dropout_rate, seed, offset)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, mask, block_k)
+        return flash_fwd_plain(q, k, v, mask, block_k, dropout_rate, seed, offset)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_fwd: no kernel for device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    _launch("flash_fwd", q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+    _launch("flash_fwd", q.device, (dropout_rate, seed, offset),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
             _ptr(out), _ptr(lse), b, h, sq, k.shape[1], d,
             int(q.dtype == torch.bfloat16), *_mask_strides(mask))
     return out, lse
@@ -197,10 +331,21 @@ def flash_fwd(q, k, v, mask=None, block_k: int = 128):
 # K2, K3: backward
 
 
-def flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None, block_q: int = 128):
+def _dropped(p: torch.Tensor, gp: torch.Tensor, kb: Optional[torch.Tensor], kp: float):
+    """(P for dV, dO·Vᵀ for dS) under the keep bits ``kb``, as the twin's
+    backward drops both."""
+    if kb is None:
+        return p, gp
+    return torch.where(kb, p / kp, 0.0), torch.where(kb, gp / kp, 0.0)
+
+
+def flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None, block_q: int = 128,
+                        dropout_rate: float = 0.0, seed: int = 0, offset: int = 0,
+                        keep: Optional[torch.Tensor] = None):
     """Plain twin of K2: (dk, dv) in k's/v's dtype, looping over Q blocks."""
-    sq = q.shape[1]
+    sq, sk = q.shape[1], k.shape[1]
     qf, kf, vf, gf = _bh(q), _bh(k), _bh(v), _bh(g)
+    kp = keep_prob(dropout_rate)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
     for i0 in range(0, sq, block_q):
@@ -212,17 +357,22 @@ def flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None, block_q: int = 128):
             s = torch.where(mb, s, _NEG_BIG)
         # fully masked rows carry lse = +inf from the forward → p = 0
         p = torch.exp(s - lse[:, :, rows, None])
-        ds = p * (gb @ vf.transpose(-1, -2) - delta[:, :, rows, None])
-        dv = dv + p.transpose(-1, -2) @ gb
+        kb = _keep_block(q, dropout_rate, seed, offset, keep, rows, slice(None), sq, sk)
+        pd, gp = _dropped(p, gb @ vf.transpose(-1, -2), kb, kp)
+        ds = p * (gp - delta[:, :, rows, None])
+        dv = dv + pd.transpose(-1, -2) @ gb
         dk = dk + ds.transpose(-1, -2) @ qb
     return (dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
-def flash_bwd_dq_plain(q, k, v, g, lse, delta, mask=None, block_k: int = 128):
+def flash_bwd_dq_plain(q, k, v, g, lse, delta, mask=None, block_k: int = 128,
+                       dropout_rate: float = 0.0, seed: int = 0, offset: int = 0,
+                       keep: Optional[torch.Tensor] = None):
     """Plain twin of K3: dq in q's dtype, looping over K blocks."""
-    sk = k.shape[1]
+    sq, sk = q.shape[1], k.shape[1]
     qf, kf, vf, gf = _bh(q), _bh(k), _bh(v), _bh(g)
+    kp = keep_prob(dropout_rate)
     dq = torch.zeros_like(qf)
     for j0 in range(0, sk, block_k):
         cols = slice(j0, j0 + block_k)
@@ -232,7 +382,9 @@ def flash_bwd_dq_plain(q, k, v, g, lse, delta, mask=None, block_k: int = 128):
         if mb is not None:
             s = torch.where(mb, s, _NEG_BIG)
         p = torch.exp(s - lse[..., None])
-        ds = p * (gf @ vb.transpose(-1, -2) - delta[..., None])
+        keep_b = _keep_block(q, dropout_rate, seed, offset, keep, slice(None), cols, sq, sk)
+        _, gp = _dropped(p, gf @ vb.transpose(-1, -2), keep_b, kp)
+        ds = p * (gp - delta[..., None])
         dq = dq + ds @ kb
     return dq.permute(0, 2, 1, 3).to(q.dtype)
 
@@ -243,12 +395,15 @@ def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
 
 
-def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, block_q: int = 128):
+def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, block_q: int = 128,
+                  dropout_rate: float = 0.0, seed: int = 0, offset: int = 0):
     """K2: (dk, dv). Launches the kernel for CUDA tensors, plain on the CPU."""
     _check(q, k, v, mask)
     _check_bwd(q, g, lse, delta)
+    _check_dropout(dropout_rate, seed, offset)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask, block_q)
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask, block_q,
+                                   dropout_rate, seed, offset)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_bwd_dkv: no kernel for device {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
@@ -256,26 +411,31 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, block_q: int = 128):
     b, sq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(g),
+    _launch("flash_bwd_dkv", q.device, (dropout_rate, seed, offset),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(g),
             _ptr(lse), _ptr(delta), _ptr(mask), _ptr(dk), _ptr(dv),
             b, h, sq, k.shape[1], d, int(q.dtype == torch.bfloat16),
             *_mask_strides(mask))
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, block_k: int = 128):
+def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, block_k: int = 128,
+                 dropout_rate: float = 0.0, seed: int = 0, offset: int = 0):
     """K3: dq. Launches the kernel for CUDA tensors, plain on the CPU."""
     _check(q, k, v, mask)
     _check_bwd(q, g, lse, delta)
+    _check_dropout(dropout_rate, seed, offset)
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, g, lse, delta, mask, block_k)
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, mask, block_k,
+                                  dropout_rate, seed, offset)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_bwd_dq: no kernel for device {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(g),
+    _launch("flash_bwd_dq", q.device, (dropout_rate, seed, offset),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(g),
             _ptr(lse), _ptr(delta), _ptr(mask), _ptr(dq),
             b, h, sq, k.shape[1], d, int(q.dtype == torch.bfloat16),
             *_mask_strides(mask))
@@ -288,10 +448,12 @@ def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, block_k: int = 128):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, block_q, block_k):
-        out, lse = flash_fwd(q, k, v, mask, block_k)
+    def forward(ctx, q, k, v, mask, block_q, block_k, dropout_rate, seed, offset):
+        dropout = (dropout_rate, seed, offset)
+        out, lse = flash_fwd(q, k, v, mask, block_k, *dropout)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.blocks = (block_q, block_k)
+        ctx.dropout = dropout  # the backward replays the forward's keep bits
         return out
 
     @staticmethod
@@ -299,9 +461,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, mask, out, lse = ctx.saved_tensors
         block_q, block_k = ctx.blocks
         delta = attention_delta(g, out)
-        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, mask, block_q)
-        dq = flash_bwd_dq(q, k, v, g, lse, delta, mask, block_k)
-        return dq, dk, dv, None, None, None
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, mask, block_q, *ctx.dropout)
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, mask, block_k, *ctx.dropout)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -311,6 +473,7 @@ def flash_attention(
     mask: Optional[torch.Tensor] = None,
     *,
     dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
@@ -319,19 +482,22 @@ def flash_attention(
     q: (B, Sq, H, D), pre-scaled by 1/sqrt(D); k, v: (B, Sk, H, D); mask:
     optional (B, Sq, Sk), True/nonzero = attend, shared by the heads (a
     broadcast view is read through its strides, not copied). Returns (B, Sq,
-    H, D) in q's dtype. ``block_q``/``block_k`` set the plain versions'
-    blocking (and so their summation order); the CUDA kernels tile with
-    their own fixed 64-row tiles.
+    H, D) in q's dtype. ``dropout_rate`` > 0 drops attention probabilities
+    inside the kernels with a Philox (seed, offset) drawn from
+    ``generator``, a CPU ``torch.Generator`` (the draw needs no device
+    sync); the backward replays the same bits. ``block_q``/``block_k`` set
+    the plain versions' blocking (and so their summation order); the CUDA
+    kernels tile with their own fixed 64-row tiles.
     """
+    seed = offset = 0
     if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout runs in the reference's chunked lax.scan twin, "
-            "not in the flash kernels; its port is queued in ROADMAP.md "
-            "(Queue 1, 'the chunked dropout twin')"
-        )
+        if generator is None:
+            raise ValueError("dropout_rate > 0 needs a generator")
+        seed, offset = draw_seed(generator)
     if mask is not None and mask.dtype != torch.int8:
         mask = mask.to(torch.int8)
-    return _FlashAttention.apply(q, k, v, mask, block_q, block_k)
+    return _FlashAttention.apply(q, k, v, mask, block_q, block_k, float(dropout_rate),
+                                 seed, offset)
 
 
 def reference_attention(q, k, v, mask=None):

@@ -27,6 +27,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS: List[str] = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    # optimize and assemble the kernels in parallel on every core: the
+    # build counts against chip_smoke.py's time limit (its [build] line);
+    # ptxas still reports each kernel's lines together
+    "--split-compile=0",
 ]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

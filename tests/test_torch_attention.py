@@ -317,12 +317,6 @@ def test_plain_backward_passes_match_autograd_of_reference():
         np.testing.assert_allclose(mine.numpy(), ref.numpy(), atol=1e-4, rtol=1e-4)
 
 
-def test_dropout_raises_not_implemented():
-    q, k, v, _ = to_torch(*make_inputs(8, 1, 8, 8, 1, 32, None))
-    with pytest.raises(NotImplementedError, match="chunked dropout twin"):
-        att.flash_attention(q, k, v, dropout_rate=0.1)
-
-
 @pytest.mark.parametrize("d", [8, 16, 48, 256])
 def test_unsupported_head_dim_raises(d):
     q, k, v, _ = to_torch(*make_inputs(9, 1, 8, 8, 1, d, None))
@@ -368,7 +362,8 @@ def test_cpu_wrappers_do_not_count_kernel_launches():
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-            "int": ctypes.c_int, "long long": ctypes.c_longlong}
+            "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float, "unsigned long long": ctypes.c_ulonglong}
 
 
 def _kernel_source() -> str:

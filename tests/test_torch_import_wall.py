@@ -53,7 +53,9 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/examples/resnet_cifar.py",
                  "metaopt_tpu_torch/algo/evolution_es.py", "metaopt_tpu_torch/algo/hyperband.py",
                  "metaopt_tpu_torch/algo/bohb.py", "metaopt_tpu_torch/models/ppo.py",
-                 "metaopt_tpu_torch/examples/ppo_atari.py", "chip_smoke.py"):
+                 "metaopt_tpu_torch/examples/ppo_atari.py", "chip_smoke.py",
+                 "metaopt_tpu_torch/models/checkpoint.py",
+                 "metaopt_tpu_torch/examples/transformer_wmt.py"):
         assert must in names
 
 

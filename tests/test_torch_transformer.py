@@ -111,8 +111,10 @@ def test_schedule_matches_optax(lr, warmup, steps):
         assert abs(mine(k) - float(ref(k))) <= 1e-7, k
 
 
-def test_three_adamw_steps_match_optax(setup):
-    hparams = {"lr": 3e-3, "warmup": 2, "weight_decay": 0.01}
+@pytest.mark.parametrize("weight_decay", [0.01, 0.0])
+def test_three_adamw_steps_match_optax(setup, weight_decay):
+    """The foreach AdamW against optax.adamw(warmup_cosine_decay_schedule)."""
+    hparams = {"lr": 3e-3, "warmup": 2, "weight_decay": weight_decay}
     steps = 10
     params = setup["params"]
     rng = np.random.default_rng(4)
@@ -167,8 +169,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tt.make_model(dict(HP, n_experts=4))
     with pytest.raises(NotImplementedError):
-        tt.make_model(dict(HP, dropout=0.1))
-    with pytest.raises(NotImplementedError):
         tt.trial_setup({}, tt.make_model(HP).parameters(), 10, tp=2)
 
 
@@ -199,3 +199,110 @@ def test_make_objective_maps_epochs_like_reference(monkeypatch, fixed, params):
                             lambda hp, **kw: calls.append((dict(hp), kw)) or 1.0)
         assert mod.make_objective(**fixed)(params) == 1.0
     assert calls[0] == calls[1]
+
+
+def test_make_model_takes_the_reference_dropout_default():
+    model = tt.make_model({"d_model": 64, "n_heads": 1, "n_layers": 1, "d_ff": 64})
+    rates = {m.dropout for m in model.modules() if isinstance(m, (tt.MHA, tt.FeedForward))}
+    assert rates == {0.1}
+    assert jt.make_model({}).dropout == 0.1
+
+
+def test_feed_forward_dropout_matches_flax_on_its_mask(monkeypatch):
+    """The feed-forward's dropout against flax ``nn.Dropout`` in train mode,
+    flax's own mask (recorded from its ``bernoulli`` draw) injected through
+    ``GivenDraws``: the outputs are equal."""
+    rate, d_model, d_ff = 0.3, 32, 64
+    masks = []
+    bernoulli = jax.random.bernoulli
+
+    def recording(key, p=0.5, shape=None):
+        m = bernoulli(key, p, shape)
+        masks.append(np.asarray(m))
+        return m
+
+    monkeypatch.setattr(jax.random, "bernoulli", recording)
+    ff = jt.FeedForward(d_model, d_ff, rate, partitioned=False)
+    x = np.random.default_rng(2).standard_normal((2, 5, d_model)).astype(np.float32)
+    params = ff.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)["params"]
+    want = np.asarray(ff.apply({"params": params}, jnp.asarray(x), train=True,
+                               rngs={"dropout": jax.random.PRNGKey(4)}), np.float32)
+    assert len(masks) == 1 and masks[0].shape == (2, 5, d_ff) and not masks[0].all()
+
+    mine = tt.FeedForward(d_model, d_ff, rate)
+    p = jax.tree.map(np.asarray, params)
+    with torch.no_grad():
+        for name in ("wi", "wo"):
+            getattr(mine, name).weight.copy_(torch.from_numpy(p[name]["kernel"].T.copy()))
+            getattr(mine, name).bias.copy_(torch.from_numpy(p[name]["bias"]))
+    got = mine(torch.from_numpy(x), tt.GivenDraws(masks, attention_seed=0, device="cpu"))
+    np.testing.assert_array_equal(got.float().detach().numpy(), want)
+    # without draws (evaluation) nothing is dropped
+    clean = mine(torch.from_numpy(x)).float().detach().numpy()
+    ref = np.asarray(ff.apply({"params": params}, jnp.asarray(x), train=False), np.float32)
+    np.testing.assert_array_equal(clean, ref)
+
+
+def test_given_draws_reject_a_mask_of_the_wrong_shape():
+    mine = tt.FeedForward(8, 16, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        mine(torch.zeros(2, 3, 8), tt.GivenDraws([np.ones((2, 3, 8), bool)], 0, "cpu"))
+
+
+def test_a_train_step_imports_no_torch_dynamo():
+    """A trial process pays no ``torch._dynamo`` import: the foreach AdamW
+    replaced ``torch.optim.AdamW`` (~11 s per fresh process on the card's
+    host)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys\n"
+        "from metaopt_tpu_torch.models import transformer as tt\n"
+        "tt.train_and_eval({'lr': 1e-3, 'dropout': 0.1, 'd_model': 64, 'n_heads': 1,\n"
+        "                   'n_layers': 1, 'd_ff': 64, 'vocab': 64}, steps=2, n_train=8,\n"
+        "                  batch_size=4, seq_len=8, device='cpu')\n"
+        "print('torch._dynamo' in sys.modules)\n")
+    repo = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=repo, env={**__import__("os").environ,
+                                                     "PYTHONPATH": repo,
+                                                     "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "False"
+
+
+SMALL = dict(vocab=64, d_model=64, n_heads=1, n_layers=1, d_ff=64)
+
+
+def test_train_and_eval_with_dropout_is_finite_reproducible_and_learns():
+    kw = dict(steps=30, n_train=64, batch_size=16, seq_len=12, device="cpu")
+    hp = {"lr": 3e-3, "warmup": 2, "dropout": 0.1, **SMALL}
+    reps = [{}, {}]
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        losses = [tt.train_and_eval(hp, report=r, **kw) for r in reps]
+        other = tt.train_and_eval(hp, seed=1, **kw)
+    finally:
+        torch.set_num_threads(n_threads)
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    assert reps[0]["losses"] == reps[1]["losses"]
+    assert other != losses[0]
+    first, last = reps[0]["losses"][:5], reps[0]["losses"][-5:]
+    assert np.mean(last) < 0.8 * np.mean(first)
+    assert reps[0]["restored"] is False and reps[0]["save_s"] >= 0.0
+
+
+def test_dropout_draws_depend_on_seed_and_step():
+    """Each step's draws come from (seed, step), as the reference folds the
+    step into its key: the same pair repeats them, another pair does not."""
+    def draw(seed, step):
+        d = tt.Draws(seed, step, "cpu")
+        return d.ffn_keep((64,), 0.5), torch.randint(0, 2 ** 31, (1,), generator=d.attention)
+
+    a, b = draw(0, 3), draw(0, 3)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for other in (draw(0, 4), draw(1, 3)):
+        assert not torch.equal(a[0], other[0]) and not torch.equal(a[1], other[1])
