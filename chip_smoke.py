@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through ten phases and exits non-zero if any fails:
+``metaopt_tpu``) through thirteen phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -47,7 +47,19 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    ms and CUDA kernels per ``tpe_suggest_fused`` and of its scorer alone,
    at n 10-16 and 4096, H2D bytes per suggest, prefetch hits and misses,
    ms per MLP train step and per trial;
-7. hunt: the port's CLI, ``python -m metaopt_tpu_torch hunt`` in fresh
+7. gp: GP-BO (``examples/gp.yaml``: seed 0, 8 initial points, 60 Adam
+   steps per fit) on BASELINE config 2's space and full MLP trial,
+   in-process: 16 trials, 8 of them by EI on the card, its buffer, factor
+   and hyperparameters on the card. On that run's padded buffer and fitted
+   hyperparameters, card against CPU: ``_neg_mll`` (1e-5) and its gradient
+   (1e-4, both relative to the largest entry), ``gp_fit_mll`` after 60 steps
+   (1e-4), ``gp_chol_full`` (1e-5), a chain of ``gp_chol_append`` against the
+   full factor, and EI's winners over a fixed candidate set (identical);
+   the same stages with TF32 switched on, against off. Then host ms, device
+   ms, CUDA kernels and device syncs per EI launch, cold
+   (``incremental=False``) and incremental, and host ms per fit of 15 and
+   60 steps;
+8. hunt: the port's CLI, ``python -m metaopt_tpu_torch hunt`` in fresh
    processes with subprocess trials on a ``file:`` ledger in a temp dir:
    (a) BASELINE config 1, random search (seed 0) on
    ``metaopt_tpu_torch/examples/rosenbrock.py`` with 4 workers and 100
@@ -58,7 +70,7 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    process on the card — finite, at least 6 suggested by EI, in the space,
    each on CUDA — split into process start → first CUDA op, training, and
    the rest of the trial's ledger wall; (c) ``cuda_backend_reachable()``;
-8. asha: BASELINE config 3. (a) The full-width ResNet-50 on the card
+9. asha: BASELINE config 3. (a) The full-width ResNet-50 on the card
    against the same weights on the CPU (batch 8, eval and train mode, bf16
    bound); a 3-epoch in-process ``train_and_eval`` at the reference's
    defaults whose mean training loss must fall; 20 timed and 5 traced
@@ -72,7 +84,7 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    fresh process equal to ASHA replayed over the ledger. (c) Config 3's
    trials per hour and each trial's split: process start → first CUDA op,
    setup, training, eval, the rest.
-9. evolution: BASELINE config 5. (a) PPO at full width (64 environments,
+10. evolution: BASELINE config 5. (a) PPO at full width (64 environments,
    128 steps, hidden 64, 4 full-batch updates) on the card against the CPU
    for two iterations from the same parameters and draws: every parameter
    and the advantages within 1e-4 of the tensor's largest entry, the return
@@ -88,11 +100,12 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    GPU registry empty after, ``status --json`` from a fresh process
    agreeing; trials per hour and each trial's split: process start → first
    CUDA op, setup, training, the rest. (d) Hyperband (seed 0, one
-   repetition; 14 trials) and BOHB (seed 0, two repetitions; 28 trials,
-   its TPEs on the card) in-process over PPO with ``epochs~fidelity(2, 8,
-   base=2)``: every rung of the bracket table filled and completed, and at
-   least one BOHB point suggested by EI on the card.
-10. wmt: BASELINE config 4. (a) K1-K3 with attention dropout at rates 0.1
+   repetition; 5 trials) and BOHB (seed 0, three repetitions; 15 trials,
+   its TPEs on the card) in-process over PPO with ``epochs~fidelity(2, 4,
+   base=2)`` (cut from fidelity(2, 8, base=2), 14 and 28 trials): every
+   rung of the bracket table filled and completed, and at least one BOHB
+   point suggested by EI on the card.
+11. wmt: BASELINE config 4. (a) K1-K3 with attention dropout at rates 0.1
    and 0.3 against their plain versions on the same Philox (seed, offset),
    at the slice's shapes (bf16; padding, causal, cross masks), the ragged
    shape (f32 and bf16, fully masked rows) and the long causal shape;
@@ -117,11 +130,31 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    process, the GPU registry empty; trials per hour and each trial's
    split: process start -> first CUDA op, setup, training, checkpoint, the
    rest.
+12. pbt: PBT (``examples/pbt.yaml``: population 6, seed 0, min cohort 3,
+   exploit quantile 0.25, pool 2) on ``metaopt_tpu_torch/examples/
+   transformer_wmt.py --tp 1`` at full width through ``hunt --n-chips 1
+   --ckpt-root``, config 4's priors with ``epochs~fidelity(1, 4, base=2)``
+   at 10 steps per epoch (cut from 50), stopped at ``PBT_TRIALS`` — all
+   completed and finite on the card, every checkpoint published; every
+   continuation restored its parent's published state (its AdamW count
+   starts at the count in the parent's checkpoint and ends its own steps
+   later, as its own checkpoint holds); at least one exploit took another
+   member's weights; the ledger's trials and parents equal to the port's
+   PBT replayed on the CPU over the ledger's objectives; the GPU registry
+   empty; trials per hour and each trial's split;
+13. algos: in-process, CMA-ES (``cmaes.yaml``) and grid search (4 x 4) on
+   Rosenbrock, DEHB (``dehb.yaml``) on Rosenbrock with a fidelity, gradient
+   descent on a gradient-reporting quadratic, MOTPE (``motpe.yaml``: 12
+   initial points, 24 trials) on ZDT1 with its EI on the card: finite
+   objectives, the trial counts, two CMA-ES generations, a DEHB promotion,
+   the lattice exhausted, gradient descent at the bowl, 12 MOTPE points by
+   EI.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
-``{"hunt": {...}}`` line, an ``{"asha": {...}}`` line, an ``{"evolution":
-{...}}`` line, a ``{"wmt": {...}}`` line and, last, the ``{"ok": true,
-"device": {...}}`` line. The ``{"kernels": ...}`` line lists K1-K3 at rate 0
+``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
+line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
+``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line and, last, the
+``{"ok": true, "device": {...}}`` line. The ``{"kernels": ...}`` line lists K1-K3 at rate 0
 (launches from the [slice] run) and at rate 0.1 (times from phase 2,
 launches from the [wmt] BOHB run).
 """
@@ -205,11 +238,14 @@ HB_SPACE = {  # config 5's priors for the in-process Hyperband and BOHB runs
     "lr": "loguniform(1e-5, 1e-2)",
     "clip_eps": "uniform(0.05, 0.4)",
     "ent_coef": "loguniform(1e-4, 1e-1)",
-    "epochs": "fidelity(2, 8, base=2)",
+    "epochs": "fidelity(2, 4, base=2)",
 }
-# Hyperband (seed 0, one repetition) over fidelity(2, 8, base=2):
-# (bracket, budget, capacity), every rung filled and completed
-HB_TABLE = [(0, 2, 4), (0, 4, 2), (0, 8, 1), (1, 4, 3), (1, 8, 1), (2, 8, 3)]
+# Hyperband (seed 0) over fidelity(2, 4, base=2), cut from fidelity(2, 8,
+# base=2) (14 trials, 68 iterations per repetition) to make room for phases
+# 12 and 13: (bracket, budget, capacity), every rung filled and completed;
+# one repetition is 5 trials, BOHB runs three (15 trials, 4 of them by EI)
+HB_TABLE = [(0, 2, 2), (0, 4, 1), (1, 4, 2)]
+HB_TRIALS, BOHB_REPETITIONS = 5, 3
 PPO_KINDS = (
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "splitK")),
     ("optimizer (foreach Adam, clip)", ("multi_tensor_apply",)),
@@ -235,6 +271,28 @@ WMT_BOHB_TABLE = [(0, 1, 9), (0, 3, 3), (0, 9, 1), (1, 3, 5), (1, 9, 1), (2, 9, 
 WMT_RATES = (0.1, 0.3)          # attention dropout checked on the card
 WMT_TIMED_RATE = 0.1            # the Transformer-base rate, timed against rate 0
 DROPOUT_SEED, DROPOUT_OFFSET = 0x9E3779B97F4A7C15, 12345
+GP_YAML = {"seed": 0, "n_initial_points": 8, "fit_iters": 60}  # examples/gp.yaml
+GP_FIT_LR, GP_REFIT_ITERS, GP_N_CAND = 0.05, 15, 512  # GPBO's defaults
+GP_TRIALS = 16          # 8 random, 8 by EI
+# GP-BO's stages, card against CPU: f32 forward, the MLL's gradient (relative
+# to its largest entry) and the fitted hyperparameters after 60 Adam steps
+GP_TOL = {"fwd": 1e-5, "grad": 1e-4, "fit": 1e-4}
+# PBT (examples/pbt.yaml: population 6, seed 0, min_cohort 3, exploit quantile
+# 0.25, pool 2) on Transformer-base through the CLI over config 4's priors,
+# with the fidelity the smoke runs (1, 2 and 4 epochs) and 10 steps per epoch
+# (cut from 50)
+PBT_PRIORS = {**WMT_PRIORS, "epochs": "fidelity(1, 4, base=2)"}
+PBT_STEPS_PER_EPOCH = 10
+# the fewest trials that hold an exploit continuation: 12, found by the port's
+# PBT replayed on the CPU over the card's losses of a full 18-trial run (6
+# members x 3 rungs; the exploit is the 12th trial). It depends on the
+# losses: over random objectives the first exploit falls anywhere from the
+# 9th trial to never (8% of 300 streams); the card's losses are fixed by
+# the seeds (init, data, dropout) and far apart.
+PBT_TRIALS = 12
+PBT_TRIAL_S = 60        # a trial's share of the CLI's deadline
+MOTPE_YAML = {"seed": 0, "n_objectives": 2, "n_initial_points": 12, "gamma": 0.3}
+MOTPE_TRIALS = 24
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
     "flash_bwd_dkv": "metaopt_tpu/ops/attention.py:181 (_flash_bwd_dkv_kernel)",
@@ -871,7 +929,205 @@ def tpe_phase(torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the hunt CLI with subprocess trials
+# phase 7: GP-BO on the card
+
+
+def gp_stages(torch, G, X, y, n: int, mu: float, sd: float, params, draws):
+    """GP-BO's deterministic stages on ``X``'s device: the MLL and its
+    gradient at ``params``, ``gp_fit_mll``'s 60 steps from the defaults, the
+    full factor, a chain of row extensions from an anchor at n // 2, and EI's
+    winners over the given candidate pools."""
+    live = (torch.arange(X.shape[0], device=X.device) < n) & torch.isfinite(y)
+    mask = live.to(torch.float32)
+    ys = torch.where(live, (y - mu) / sd, 0.0)
+    theta = G._pack(params).requires_grad_(True)
+    mll = G._neg_mll(G._unpack(theta), X, ys, mask)
+    (grad,) = torch.autograd.grad(mll, theta)
+    fit, drift = G.gp_fit_mll(X, y, n, mu, sd, G._default_params(X.shape[1], X.device),
+                              GP_FIT_LR, fit_iters=GP_YAML["fit_iters"])
+    full = G.gp_chol_full(X, y, n, params)
+    chain = G.gp_chol_full(X, y, n // 2, params)
+    for i in range(n // 2, n):
+        chain = G.gp_chol_append(chain, X, y, i, params)
+    win = G.gp_acquire_fused(X, y, full, n, mu, sd, 0, 0, params, n_cand=GP_N_CAND, n_out=4,
+                             n_pools=len(draws), draws=draws)
+    return {"mll": mll.detach().reshape(1), "grad": grad, "fit": G._pack(fit),
+            "drift": drift.reshape(1), "chol_full": full, "chol_chain": chain, "winners": win}
+
+
+def gp_phase(torch, smi: str):
+    import numpy as np
+
+    from metaopt_tpu_torch import build_experiment
+    from metaopt_tpu_torch.algo import gp_bo as G
+    from metaopt_tpu_torch.algo import make_algorithm
+    from metaopt_tpu_torch.models import mlp
+
+    out = {"card": smi}
+    part_s, last = {}, [time.perf_counter()]
+
+    def mark(part: str) -> None:  # seconds since the previous part ended
+        now = time.perf_counter()
+        part_s[part] = now - last[0]
+        last[0] = now
+
+    # -- (a) config 2's space and full MLP trial under GP-BO -------------------
+    exp = build_experiment("gp-mlp", space=TPE_SPACE, max_trials=GP_TRIALS,
+                           algorithm={"gp": dict(GP_YAML)})
+    algo = make_algorithm(exp.space, exp.experiment.algorithm)
+    launch = []
+    ei_launch = algo._launch_ei
+
+    def timed_launch(num):
+        t0 = time.perf_counter()
+        pts = ei_launch(num)
+        launch.append(((time.perf_counter() - t0) * 1e3, len(algo._y)))
+        return pts
+
+    algo._launch_ei = timed_launch
+    t0 = time.perf_counter()
+    stats = exp.workon(mlp.make_objective(), algorithm=algo)
+    algo.drain_suggest_ahead()
+    torch.cuda.synchronize()
+    hunt_s = time.perf_counter() - t0
+    done = exp.fetch_trials("completed")
+    tel = algo.telemetry()
+    ei_suggests = tel["prefetch_hits"] + tel["prefetch_misses"]
+    log(f"[gp] hunt: {len(done)} completed in {hunt_s:.2f} s; telemetry {tel}; "
+        f"producer {stats.producer_timings}")
+    for t in done:
+        log(f"  {t.params}: val error {t.objective:.4f}")
+    n_ei = GP_TRIALS - GP_YAML["n_initial_points"]
+    problems = []
+    if len(done) != GP_TRIALS or not all(math.isfinite(t.objective) for t in done):
+        problems.append(f"{[(t.status, t.objective) for t in exp.fetch_trials()]}")
+    if tel["kernel_launches"] < 1 or ei_suggests < n_ei:
+        problems.append(f"the EI path ran too little: {tel}")
+    if not all(t.params in exp.space for t in done):
+        problems.append("a trial's point lies outside the space")
+    on = {str(x.device) for x in (algo._buf.Xdev, algo._factor.L, *algo._params.values())}
+    if on != {"cuda:0"}:
+        problems.append(f"GP-BO's tensors lie on {on}")
+    if problems:
+        raise AssertionError(f"[gp] {problems}")
+    out["hunt"] = {"trials": len(done), "wall_s": hunt_s, "telemetry": tel,
+                   "ei_suggests": ei_suggests, "launch_host_ms": [ms for ms, _ in launch],
+                   "launch_n_obs": [n for _, n in launch],
+                   "producer_timings": stats.producer_timings,
+                   "best": min(t.objective for t in done)}
+    log(f"[gp] {len(done)} trials, {ei_suggests} suggested by EI in {tel['kernel_launches']} "
+        f"launches on the card (host ms {[round(ms, 2) for ms, _ in launch]} at n "
+        f"{[n for _, n in launch]}); factor: {algo._factor.telemetry()}; best val error "
+        f"{out['hunt']['best']:.4f}")
+    mark("hunt")
+
+    # -- (b) the deterministic stages, card against CPU -----------------------
+    n = len(algo._y)
+    X, y = algo._buf.Xdev, algo._buf.ydev
+    fin = [v for v in algo._y if math.isfinite(v)]
+    mu, sd = float(np.mean(fin)), float(np.std(fin) + 1e-8)
+    params = {k: v.clone() for k, v in algo._params.items()}
+    rng = np.random.default_rng(0)
+    d = X.shape[1]
+    draws = [(rng.random((GP_N_CAND // 2, d)).astype(np.float32),
+              rng.standard_normal((GP_N_CAND - GP_N_CAND // 2, d)).astype(np.float32))
+             for _ in range(2)]
+
+    def on_dev(dev):
+        return gp_stages(torch, G, X.to(dev), y.to(dev), n, mu, sd,
+                         {k: v.to(dev) for k, v in params.items()},
+                         [tuple(torch.from_numpy(a).to(dev) for a in pool) for pool in draws])
+
+    card = on_dev("cuda")
+    host = on_dev("cpu")
+    bounds = {"mll": GP_TOL["fwd"], "grad": GP_TOL["grad"], "fit": GP_TOL["fit"],
+              "drift": GP_TOL["fit"], "chol_full": GP_TOL["fwd"], "chol_chain": GP_TOL["fwd"],
+              "winners": 0.0}
+    errs = {}
+    for k, bound in bounds.items():
+        a, b = card[k].cpu(), host[k]
+        scale = max(1.0, float(b.abs().max())) if k in ("mll", "grad") else 1.0
+        errs[k] = float((a - b).abs().max()) / scale
+        if not (torch.isfinite(a).all() and errs[k] <= bound):
+            raise AssertionError(f"[gp] {k}: card against CPU {errs[k]:.3e} > {bound:g}")
+    chain_vs_full = float((card["chol_chain"] - card["chol_full"]).abs().max())
+    if chain_vs_full > GP_TOL["fwd"]:
+        raise AssertionError(f"[gp] a chain of gp_chol_append is {chain_vs_full:.3e} off the "
+                             "full refactorization on the card")
+    # the process-wide TF32 switches must not reach the gram or the solves
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = on_dev("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_err = {k: float((tf32[k] - card[k]).abs().max()) for k in card}
+    same_tf32 = {k: bool(torch.equal(tf32[k], card[k])) for k in card}
+    if max(tf32_err.values()) > GP_TOL["fwd"] or not torch.equal(tf32["winners"],
+                                                               card["winners"]):
+        raise AssertionError(f"[gp] TF32 on moves the stages: {tf32_err}")
+    out["card_vs_cpu"] = {"max_abs_err": errs, "chain_vs_full_on_card": chain_vs_full,
+                          "tf32_on_vs_off_max_abs": tf32_err, "tf32_bitwise_equal": same_tf32,
+                          "n": n, "cap": int(X.shape[0])}
+    log(f"[gp] card vs cpu on the hunt's buffer (n {n}, cap {X.shape[0]}): max |diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (mll and grad relative to their largest entry; bounds {GP_TOL}, winners "
+        f"identical); chain of gp_chol_append vs full factor {chain_vs_full:.3e}; TF32 on vs "
+        f"off: max {max(tf32_err.values()):.3e}, bitwise equal {same_tf32}")
+    mark("card_vs_cpu")
+
+    # -- (c) cost per EI launch, cold and incremental -------------------------
+    trials = exp.fetch_trials("completed")
+    timing = {}
+    for label, extra in (("cold", {"incremental": False}), ("incremental", {})):
+        gp = make_algorithm(exp.space, {"gp": {**GP_YAML, **extra}})
+        gp._suggest_ahead_async = lambda: None         # launches only when timed
+        gp.observe(trials[:-1])
+        gp._launch_ei(4)                               # anchors the factor
+        gp.observe(trials[-1:])
+        calls = {}
+        if label == "incremental":
+            # one new row: the O(n²) extension, then the acquisition
+            t0 = time.perf_counter()
+            gp._launch_ei(4)
+            calls["append_launch_host_ms"] = (time.perf_counter() - t0) * 1e3
+        # a cold launch is ~10k kernels: one traced call (the profiler's
+        # post-processing, not the launch, is what costs seconds)
+        calls["launch"] = profile_calls(torch, lambda: gp._launch_ei(4),
+                                        n=1 if label == "cold" else 10)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                gp._launch_ei(4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        host_ms, dev_ms, kernels = calls.pop("launch")
+        timing[label] = {"host_ms": host_ms, "device_ms": dev_ms, "cuda_kernels": kernels,
+                         "syncs_per_launch": syncs, **calls, "factor": gp._factor.telemetry()}
+        log(f"[gp] {label} EI launch at n {len(gp._y)}: host {host_ms:.3f} ms, device "
+            f"{dev_ms} ms in {kernels} CUDA kernels, {syncs} device sync(s)"
+            + (f"; with one new row {calls['append_launch_host_ms']:.3f} ms"
+               if "append_launch_host_ms" in calls else "") + f"; card {smi}")
+    # the pieces of a re-anchor, on the host clock: the warm refit's 15
+    # steps with its drift read, the full fit's 60
+    Xg, yg = gp._buf.Xdev, gp._buf.ydev
+    for label, iters in (("warm_refit", GP_REFIT_ITERS), ("full_fit", GP_YAML["fit_iters"])):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            float(G.gp_fit_mll(Xg, yg, n, mu, sd, gp._params, GP_FIT_LR, fit_iters=iters)[1])
+        host_ms = (time.perf_counter() - t0) * 1e3 / 3
+        timing[label] = {"host_ms": host_ms, "iters": iters}
+        log(f"[gp] gp_fit_mll, {iters} Adam steps and the drift read: host {host_ms:.3f} ms")
+    out["launch"] = timing
+    mark("timing")
+    out["part_s"] = part_s
+    log("[gp] seconds per part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the hunt CLI with subprocess trials
 
 
 def run_cli(args, root: Path, env, trials: int = 0, workers: int = 1, trial_s: float = 0.0):
@@ -1070,7 +1326,7 @@ def log_ledger(path: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: BASELINE config 3, ASHA on ResNet-50 through the CLI
+# phase 9: BASELINE config 3, ASHA on ResNet-50 through the CLI
 
 
 def resnet_train_flops(model, hw: int, batch: int) -> float:
@@ -1289,7 +1545,7 @@ def asha_phase(torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: BASELINE config 5, EvolutionES on PPO; Hyperband and BOHB
+# phase 10: BASELINE config 5, EvolutionES on PPO; Hyperband and BOHB
 
 
 def ppo_card_vs_cpu(torch, ppo):
@@ -1457,8 +1713,9 @@ def evolution_phase(torch, smi: str):
 
     # -- (d) Hyperband and BOHB in-process -----------------------------------
     for tag, algo_cfg, want_trials in (
-            ("hyperband", {"hyperband": {"seed": 0, "repetitions": 1}}, 14),
-            ("bohb", {"bohb": {"seed": 0, "repetitions": 2}}, 28)):
+            ("hyperband", {"hyperband": {"seed": 0, "repetitions": 1}}, HB_TRIALS),
+            ("bohb", {"bohb": {"seed": 0, "repetitions": BOHB_REPETITIONS}},
+             HB_TRIALS * BOHB_REPETITIONS)):
         client = build_experiment(tag, space=HB_SPACE, algorithm=algo_cfg, max_trials=200,
                                   ledger="memory")
         algo = make_algorithm(client.space, algo_cfg)
@@ -1499,7 +1756,7 @@ def evolution_phase(torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: BASELINE config 4, Hyperband and BOHB on Transformer-base
+# phase 11: BASELINE config 4, Hyperband and BOHB on Transformer-base
 
 
 def kept_fraction(torch, att, dtype, rate: float):
@@ -1843,6 +2100,255 @@ def wmt_phase(torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: PBT on Transformer-base through the CLI, with checkpoint handoff
+
+
+def ckpt_updates(torch, path: Path) -> int:
+    """The AdamW update count a published trial checkpoint holds (its
+    ``opt_state`` tree's first leaf), read through a memory map."""
+    payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    return int(payload["opt_state/00000"])
+
+
+def pbt_replay(exp, led_trials):
+    """The port's PBT on the CPU, run through ``workon`` as the hunt ran it
+    (one worker, the config's pool), each trial's objective read from the
+    card's ledger by its point: the ledger's trials it registers."""
+    from metaopt_tpu_torch.executor import InProcessExecutor
+    from metaopt_tpu_torch.ledger import Experiment, MemoryLedger
+    from metaopt_tpu_torch.worker import workon
+
+    key = (lambda p: json.dumps(p, sort_keys=True))  # noqa: E731
+    objective = {key(t.params): t.objective for t in led_trials}
+    replay = Experiment("pbt", MemoryLedger(), space=exp.space, max_trials=exp.max_trials,
+                        pool_size=exp.pool_size, algorithm=exp.algorithm).configure()
+    workon(replay, InProcessExecutor(lambda p: objective[key(p)]), "replay")
+    return replay.fetch_trials()
+
+
+def pbt_phase(torch, smi: str):
+    from metaopt_tpu_torch.ledger import Experiment, FileLedger
+    from metaopt_tpu_torch.models import transformer as tfm
+    from metaopt_tpu_torch.models.checkpoint import has_state
+    from metaopt_tpu_torch.space import build_space
+
+    out = {"card": smi}
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pbt_"))
+    # TMPDIR: the hunt's GPU registry file is this phase's own
+    env = dict(os.environ, TMPDIR=str(root))
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    ledger, ckpt = f"file:{root / 'ledger'}", root / "ckpt"
+    try:
+        summary, wall = run_cli(
+            ["hunt", "-n", "pbt", "--n-chips", "1", "--max-trials", str(PBT_TRIALS),
+             "--timeout-s", str(WMT_TIMEOUT_S), "--ledger", ledger, "--ckpt-root", str(ckpt),
+             "--config", str(examples / "pbt.json"), str(examples / "transformer_wmt.py"),
+             "--tp", "1", "--steps-per-epoch", str(PBT_STEPS_PER_EPOCH)]
+            + [f"--{k}~{v}" for k, v in PBT_PRIORS.items()],
+            root, env, PBT_TRIALS, 1, PBT_TRIAL_S)
+        led = FileLedger(str(root / "ledger"))
+        exp = Experiment("pbt", led).configure()
+        trials = sorted(led.fetch("pbt"), key=lambda t: t.submit_time or 0)
+        done = [t for t in trials if t.status == "completed"]
+        by_id = {t.id: t for t in done}
+        name = torch.cuda.get_device_name(0)
+        stats = {t.id: statistics_of(t) for t in done}
+        space = build_space(PBT_PRIORS)
+        registry = json.loads((root / "metaopt_tpu_torch-gpus-1.json").read_text())
+        published = {t.id: has_state(str(ckpt / t.id / tfm.CKPT_FILE)) for t in done}
+        problems = []
+        if len(done) != PBT_TRIALS or summary["total"] != {"completed": PBT_TRIALS}:
+            problems.append(f"{[(t.status, t.objective) for t in trials]}")
+        if not all(math.isfinite(t.objective) for t in done):
+            problems.append("a non-finite objective")
+        if not all(t.params in space for t in done):
+            problems.append("a point outside the space")
+        if not all(st.get("device") == name for st in stats.values()):
+            problems.append(f"devices {sorted({str(st.get('device')) for st in stats.values()})}")
+        if not all(published.values()):
+            problems.append(f"checkpoints published: {published}")
+        if registry != {"claims": {}}:
+            problems.append(f"the GPU registry still holds {registry}")
+        # every continuation restored its parent's published state: its AdamW
+        # count starts at the parent's and ends its own steps later
+        handoffs = []
+        for t in done:
+            st = stats[t.id]
+            steps = t.params["epochs"] * PBT_STEPS_PER_EPOCH
+            own = ckpt_updates(torch, ckpt / t.id / tfm.CKPT_FILE) if published[t.id] else None
+            row = {"id": t.id, "epochs": t.params["epochs"], "parent": t.parent,
+                   "restored": st.get("restored"), "restored_updates": st.get("restored_updates"),
+                   "updates": st.get("updates"), "checkpoint_updates": own,
+                   "exploit": bool(t.parent and t.parent in by_id
+                                   and by_id[t.parent].lineage != t.lineage)}
+            if t.parent is None:
+                ok = st.get("restored") is False and st.get("updates") == steps == own
+            else:
+                parent = by_id.get(t.parent)
+                parent_updates = (ckpt_updates(torch, ckpt / t.parent / tfm.CKPT_FILE)
+                                  if parent is not None else None)
+                row["parent_updates"] = parent_updates
+                ok = (st.get("restored") is True
+                      and st.get("restored_updates") == parent_updates
+                      and st.get("updates") == parent_updates + steps == own)
+            row["ok"] = bool(ok)
+            handoffs.append(row)
+        if not all(r["ok"] for r in handoffs):
+            problems.append(f"handoffs {[r for r in handoffs if not r['ok']]}")
+        exploits = [r for r in handoffs if r["exploit"]]
+        if not exploits:
+            problems.append("no continuation took another member's weights")
+        # PBT's suggestions against the port's PBT replayed on the CPU
+        key = (lambda t: (t.id, json.dumps(t.params, sort_keys=True), t.parent))  # noqa: E731
+        replayed = pbt_replay(exp, done)
+        if sorted(map(key, replayed)) != sorted(map(key, trials)):
+            problems.append("the ledger's trials differ from PBT replayed on the CPU")
+        if problems:
+            raise AssertionError(f"[pbt] {problems}")
+        rows = []
+        for t in done:
+            st = stats[t.id]
+            trial_s = t.end_time - t.start_time
+            parts = {k: st[k] for k in ("first_device_op_s", "setup_s", "train_s", "save_s")}
+            rows.append({"epochs": t.params["epochs"], "restored": st["restored"],
+                         "trial_s": trial_s, **parts, "rest_s": trial_s - sum(parts.values()),
+                         "ms_per_step": st["ms_per_step"], "loss": t.objective})
+        keys = ("trial_s", "first_device_op_s", "setup_s", "train_s", "save_s", "rest_s")
+        total = {k: sum(r[k] for r in rows) for k in keys}
+        by_budget = {b: {k: median([r[k] for r in rows if r["epochs"] == b])
+                         for k in keys + ("ms_per_step",)} | {
+                         "trials": sum(r["epochs"] == b for r in rows)}
+                     for b in sorted({r["epochs"] for r in rows})}
+        ckpt_bytes = sum(p.stat().st_size for p in ckpt.rglob("*") if p.is_file())
+        out.update({
+            "trials": len(done), "hunt_wall_s": wall, "trials_per_hour": len(done) / wall * 3600,
+            "continuations": sum(1 for t in done if t.parent), "exploits": len(exploits),
+            "handoffs": handoffs, "sum": total,
+            "share": {k: total[k] / total["trial_s"] for k in keys[1:]},
+            "median_by_budget": by_budget, "per_trial": rows, "checkpoint_bytes": ckpt_bytes,
+            "best": summary["best"]["objective"], "device": name,
+            "producer_timings": summary["producer_timings"],
+        })
+        log(f"[pbt] {len(done)} Transformer-base trials completed on {name} (budgets "
+            f"{[t.params['epochs'] for t in done]}), finite; {out['continuations']} "
+            f"continuations, each restoring its parent's published state (AdamW counts "
+            f"{[(r['restored_updates'], r['updates']) for r in handoffs if r['parent']]}), "
+            f"{len(exploits)} exploit(s) taking another member's weights; equal to PBT replayed "
+            f"on the CPU; registry empty; {wall:.2f} s = {len(done) / wall * 3600:.1f} "
+            f"trials/hour; best loss {summary['best']['objective']:.4f}")
+        log(f"[pbt] summed over trials: ledger wall {total['trial_s']:.2f} s = "
+            + ", ".join(f"{k[:-2]} {total[k]:.2f} s ({100 * total[k] / total['trial_s']:.1f}%)"
+                        for k in keys[1:]))
+        for b, m in by_budget.items():
+            log(f"[pbt]   {b} epoch(s) (median of {m['trials']}): trial {m['trial_s']:.2f} s = "
+                f"start -> first CUDA op {m['first_device_op_s']:.2f} + setup "
+                f"{m['setup_s']:.2f} + training {m['train_s']:.2f} ({m['ms_per_step']:.2f} "
+                f"ms/step) + checkpoint {m['save_s']:.2f} + rest {m['rest_s']:.2f}; card {smi}")
+        for t in done:
+            log(f"  {t.id[:8]} epochs {t.params['epochs']} parent "
+                f"{(t.parent or '-')[:8]} lineage {t.lineage[:8]} loss {t.objective:.6f}")
+    except BaseException:
+        log_ledger(root / "ledger")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: CMA-ES, DEHB, grid search, gradient descent and MOTPE in-process
+
+
+def zdt1(p):
+    g = 1.0 + 9.0 * p["y"]
+    return [{"name": "f1", "type": "objective", "value": p["x"]},
+            {"name": "f2", "type": "objective",
+             "value": g * (1.0 - math.sqrt(max(p["x"], 0.0) / g))}]
+
+
+def algos_phase(torch, smi: str):
+    from metaopt_tpu_torch import build_experiment
+    from metaopt_tpu_torch.algo import make_algorithm
+    from metaopt_tpu_torch.models.objectives import rosenbrock
+
+    def rosen_budget(p):  # Rosenbrock, noisier at a lower budget
+        return rosenbrock(p) * (1.0 + 1.0 / p["epochs"])
+
+    def quadratic(p):  # a gradient-reporting bowl at (1, -0.5)
+        gx, gy = 2 * (p["x"] - 1.0), 2 * (p["y"] + 0.5)
+        return [{"name": "f", "type": "objective",
+                 "value": (p["x"] - 1.0) ** 2 + (p["y"] + 0.5) ** 2},
+                {"name": "df", "type": "gradient", "value": [gx, gy]}]
+
+    runs = (
+        ("cmaes", {"cmaes": {"seed": 0, "population_size": 8}}, ROSEN_SPACE, rosenbrock, 16),
+        ("dehb", {"dehb": {"population_size": 10, "seed": 0, "mutation_factor": 0.5,
+                           "crossover_prob": 0.5}},
+         {**ROSEN_SPACE, "epochs": "fidelity(1, 9, base=3)"}, rosen_budget, 20),
+        ("grid_search", {"grid_search": {"n_values": 4}}, ROSEN_SPACE, rosenbrock, 16),
+        ("gradient_descent", {"gradient_descent": {"seed": 4, "learning_rate": 0.2}},
+         {"x": "uniform(-5, 5)", "y": "uniform(-5, 5)"}, quadratic, 12),
+        ("motpe", {"motpe": dict(MOTPE_YAML)}, {"x": "uniform(0, 1)", "y": "uniform(0, 1)"},
+         zdt1, MOTPE_TRIALS),
+    )
+    out = {"card": smi}
+    for tag, cfg, space, fn, want in runs:
+        client = build_experiment(f"algos-{tag}", space=space, algorithm=cfg, max_trials=want,
+                                  ledger="memory")
+        algo = make_algorithm(client.space, cfg)
+        t0 = time.perf_counter()
+        client.workon(fn, algorithm=algo)
+        if hasattr(algo, "drain_suggest_ahead"):
+            algo.drain_suggest_ahead()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = client.fetch_trials("completed")
+        row = {"trials": len(done), "wall_s": wall,
+               "best": min(t.objective for t in done) if done else None}
+        problems = []
+        if len(done) != want:
+            problems.append(f"{len(done)} trials completed, want {want}")
+        if not all(math.isfinite(v) for t in done for v in t.objectives):
+            problems.append("a non-finite objective")
+        if not all(t.params in client.space for t in done):
+            problems.append("a point outside the space")
+        if tag == "cmaes":
+            row["generation"] = algo.generation
+            if algo.generation < 2:
+                problems.append(f"generation {algo.generation}")
+        elif tag == "dehb":
+            row["rungs"] = algo.rung_table
+            if algo.rung_table[1]["n"] < 1:
+                problems.append(f"nothing promoted: {algo.rung_table}")
+        elif tag == "grid_search":
+            if not algo.is_done:
+                problems.append("the 4 x 4 lattice is not exhausted")
+        elif tag == "gradient_descent":
+            if row["best"] > 0.05:
+                problems.append(f"gradient descent ended at {row['best']}")
+        else:
+            tel = algo.telemetry()
+            row["telemetry"] = tel
+            row["ei_suggests"] = tel["prefetch_hits"] + tel["prefetch_misses"]
+            row["pareto_front"] = len(algo.pareto_front())
+            row["buffer"] = str(algo._buf.Xdev.device) if algo._buf.Xdev is not None else None
+            if (row["ei_suggests"] < want - MOTPE_YAML["n_initial_points"]
+                    or tel["kernel_launches"] < 1 or row["buffer"] != "cuda:0"):
+                problems.append(f"EI on the card: {row}")
+            if not all(len(t.objectives) == 2 for t in done):
+                problems.append("a trial without its two objectives")
+        if problems:
+            raise AssertionError(f"[algos] {tag}: {problems}")
+        out[tag] = row
+        log(f"[algos] {tag}: {len(done)} trials in {wall:.2f} s, finite, in the space; best "
+            f"{row['best']:.6g}" + "".join(f"; {k} {row[k]}" for k in (
+                "generation", "ei_suggests", "pareto_front", "buffer") if k in row))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2044,27 +2550,39 @@ def main() -> int:
     tpe_stats = tpe_phase(torch, smi)
     mark("tpe")
 
-    # -- 7. the hunt CLI --------------------------------------------------------
+    # -- 7. GP-BO on the card ---------------------------------------------------
+    gp_stats = gp_phase(torch, smi)
+    mark("gp")
+
+    # -- 8. the hunt CLI --------------------------------------------------------
     hunt_stats = hunt_phase(torch, smi)
     mark("hunt")
 
-    # -- 8. BASELINE config 3: ASHA on ResNet-50 through the CLI ----------------
+    # -- 9. BASELINE config 3: ASHA on ResNet-50 through the CLI ----------------
     asha_stats = asha_phase(torch, smi)
     mark("asha")
 
-    # -- 9. BASELINE config 5: EvolutionES on PPO; Hyperband and BOHB ----------
+    # -- 10. BASELINE config 5: EvolutionES on PPO; Hyperband and BOHB ---------
     t0 = time.perf_counter()
     evolution_stats = evolution_phase(torch, smi)
     evolution_stats["phase_s"] = time.perf_counter() - t0
     log(f"[evolution] phase took {evolution_stats['phase_s']:.1f} s")
     mark("evolution")
 
-    # -- 10. BASELINE config 4: Hyperband and BOHB on Transformer-base --------
+    # -- 11. BASELINE config 4: Hyperband and BOHB on Transformer-base --------
     t0 = time.perf_counter()
     wmt_stats = wmt_phase(torch, smi)
     wmt_stats["phase_s"] = time.perf_counter() - t0
     log(f"[wmt] phase took {wmt_stats['phase_s']:.1f} s")
     mark("wmt")
+
+    # -- 12. PBT on Transformer-base through the CLI ---------------------------
+    pbt_stats = pbt_phase(torch, smi)
+    mark("pbt")
+
+    # -- 13. CMA-ES, DEHB, grid search, gradient descent, MOTPE ----------------
+    algos_stats = algos_phase(torch, smi)
+    mark("algos")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -2092,10 +2610,13 @@ def main() -> int:
         "peak_mem_bytes": peak_mem, "build_s": build_s, "card": smi,
         "profile": breakdown}}), flush=True)
     print(json.dumps({"tpe": tpe_stats}), flush=True)
+    print(json.dumps({"gp": gp_stats}), flush=True)
     print(json.dumps({"hunt": hunt_stats}), flush=True)
     print(json.dumps({"asha": asha_stats}), flush=True)
     print(json.dumps({"evolution": evolution_stats}), flush=True)
     print(json.dumps({"wmt": wmt_stats}), flush=True)
+    print(json.dumps({"pbt": pbt_stats}), flush=True)
+    print(json.dumps({"algos": algos_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

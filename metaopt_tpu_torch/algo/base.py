@@ -4,11 +4,11 @@
 hooks, transfer priors (``observe_prior`` / ``n_prior``), the
 parallel-strategy ``set_pending``, ``is_done``, ``score``, the ``judge``
 early-stop hook, ``seed_rng``, ``configuration``, the
-``state_dict`` snapshots, the ``cohort_size`` hook, the registry and
-:func:`make_algorithm`; and the suggest-ahead mixin (:class:`SuggestAhead`)
-with its atexit drain. Not ported yet: the fleet-fused hooks
-(``FuseSnapshot``, ``fuse_*``), which serve the coordinator, and
-``should_suspend``.
+``state_dict`` snapshots, the ``cohort_size`` hook, ``should_suspend``, the
+registry and :func:`make_algorithm`; and the suggest-ahead mixin
+(:class:`SuggestAhead`) with its atexit drain. Not ported yet: the
+fleet-fused hooks (``FuseSnapshot``, ``fuse_*``), which serve the
+coordinator.
 
 ``observe`` takes :class:`~metaopt_tpu_torch.ledger.trial.Trial` objects
 (they carry params, objective, fidelity, status, and lineage in one value
@@ -299,6 +299,11 @@ class BaseAlgorithm(ABC):
         True}`` to prune the running trial, or None to let it run."""
         return None
 
+    def should_suspend(self, trial: Trial) -> bool:
+        """Park a freshly reserved trial as ``suspended`` instead of
+        running it (``resume`` flips it back to ``new``)."""
+        return False
+
     # -- reproducibility / persistence ------------------------------------
     def seed_rng(self, seed: Optional[int]) -> None:
         self.rng = np.random.default_rng(seed)
@@ -341,11 +346,39 @@ def _load_plugin(name: str) -> bool:
     return False
 
 
+#: registered name → the module of this package that registers it. The
+#: modules load when an algorithm is built (or its class is imported from
+#: ``metaopt_tpu_torch.algo``), so a process that builds a numpy algorithm
+#: (random search, ASHA, ...) or none (``status``) never imports torch.
+BUILTIN_MODULES = {
+    "random": "random_search", "grid_search": "grid_search",
+    "gradient_descent": "gradient_descent", "gradientdescent": "gradient_descent",
+    "tpe": "tpe", "motpe": "motpe", "gp": "gp_bo", "cmaes": "cmaes", "cma": "cmaes",
+    "hyperband": "hyperband", "asha": "asha", "bohb": "bohb",
+    "evolution_es": "evolution_es", "evolutiones": "evolution_es",
+    "pbt": "pbt", "dehb": "dehb",
+}
+
+
+def _load_builtin(name: str) -> None:
+    """Import the module of this package that registers ``name``; for an
+    unknown name, all of them (so the error lists every algorithm)."""
+    import importlib
+
+    key = name.lower()
+    mods = ([BUILTIN_MODULES[key]] if key in BUILTIN_MODULES
+            else sorted(set(BUILTIN_MODULES.values())))
+    for mod in mods:
+        importlib.import_module(f"metaopt_tpu_torch.algo.{mod}")
+
+
 def make_algorithm(space: Space, config: Dict[str, Any]) -> BaseAlgorithm:
     """Build from ``{"asha": {...}}``-style config (single key = algo name)."""
     if len(config) != 1:
         raise ValueError(f"algorithm config must have exactly one key, got {config}")
     (name, kwargs), = config.items()
+    if name not in algo_registry:
+        _load_builtin(name)
     try:
         cls = algo_registry.get(name)
     except KeyError:

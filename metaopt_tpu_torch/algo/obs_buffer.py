@@ -17,13 +17,18 @@ Capacity is EXACTLY ``pad_pow2(n + 1)`` after every sync, and rows past
 function of the observation list: bit-identical to a full host rebuild.
 
 The buffer meters its host→device payload (``h2d_bytes``), row appends,
-bulk uploads and reallocations, as the reference does. Not ported yet:
-``CholeskyFactor`` (GP-BO).
+bulk uploads and reallocations, as the reference does.
+
+GP-BO keeps a :class:`CholeskyFactor` of its masked gram beside the buffer
+(ports of ``_chol_grow`` and ``CholeskyFactor``): anchored by a full
+factorization, extended one row per observation, grown by an identity
+corner, with the op trace that lets a restored instance replay it bit for
+bit.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -129,3 +134,103 @@ class ObservationBuffer:
         ya[self.n:ntot] = torch.from_numpy(lies).to(self.device)
         self.h2d_bytes += pend.nbytes + lies.nbytes
         return Xa, ya, ntot
+
+
+def _chol_grow(L: torch.Tensor, newcap: int) -> torch.Tensor:
+    """Identity-extend a lower-triangular factor to a larger padding.
+
+    The masked gram makes every row ≥ n an exact unit row ``e_i``, so the
+    factor of the grown matrix is the old factor with an identity corner —
+    no recomputation, a device→device copy only. Returns a new tensor: the
+    pending-lie overlay grows a COPY of the live factor, which must survive.
+    """
+    out = torch.eye(newcap, dtype=L.dtype, device=L.device)
+    out[: L.shape[0], : L.shape[1]] = L
+    return out
+
+
+class CholeskyFactor:
+    """Device-resident Cholesky factor riding alongside the buffer.
+
+    Owns the factor tensor's lifecycle (anchor / grow / per-row extend) and
+    the replay trace; the GP owns the kernel math that produces each new
+    ``L`` (the gram row depends on hyperparameters this module must not
+    know about). Between full factorizations ("anchors") the factor is
+    extended one observation row at a time at O(n²) instead of the O(n³)
+    refactorization — the masked gram guarantees the appended row of a
+    dead/padding observation is exactly ``e_i``, so extensions and pow2
+    growth agree with a from-scratch factorization of the same gram.
+
+    The trace (one anchor + the grow/append ops since, reset at every
+    anchor) lets a restored instance REPLAY the exact op sequence at the
+    exact historical shapes and recover a bit-identical factor, which keeps
+    the suggestion stream exactly resumable across ``state_dict`` round
+    trips despite floating-point non-associativity.
+    """
+
+    def __init__(self):
+        self.L = None
+        self.cap = 0
+        self.rows = 0        # observation rows folded into the factor
+        self.anchor_n = -1   # observation count at the last full refactor
+        self.anchor_cap = 0
+        self.ops: List[Tuple[str, int]] = []  # ("g", newcap) | ("a", row)
+        # telemetry
+        self.anchors = 0
+        self.extends = 0
+        self.grows = 0
+        self.drift_refits = 0
+
+    def reset(self) -> None:
+        self.L = None
+        self.cap = 0
+        self.rows = 0
+        self.anchor_n = -1
+        self.anchor_cap = 0
+        self.ops = []
+
+    def anchor(self, L, n: int, cap: int) -> None:
+        """Install a fresh full factorization; restarts the replay trace."""
+        self.L = L
+        self.cap = cap
+        self.rows = n
+        self.anchor_n = n
+        self.anchor_cap = cap
+        self.ops = []
+        self.anchors += 1
+
+    def grow(self, newcap: int) -> None:
+        self.L = _chol_grow(self.L, newcap=newcap)
+        self.cap = newcap
+        self.ops.append(("g", newcap))
+        self.grows += 1
+
+    def current(self, n: int, cap: int) -> bool:
+        """True when the factor already covers observation count ``n`` at
+        buffer capacity ``cap``: an acquisition launch can consume ``L``
+        as it is, with no factor maintenance."""
+        return (self.L is not None and self.rows == n
+                and self.cap == cap and self.anchor_n >= 0)
+
+    def append_row(self, L, i: int) -> None:
+        """Commit the factor extended through observation row ``i``."""
+        self.L = L
+        self.rows = i + 1
+        self.ops.append(("a", i))
+        self.extends += 1
+
+    def trace(self) -> Dict[str, Any]:
+        """Serializable replay recipe (ints only, no device data)."""
+        return {
+            "anchor_n": self.anchor_n,
+            "anchor_cap": self.anchor_cap,
+            "ops": [list(op) for op in self.ops],
+        }
+
+    def telemetry(self) -> Dict[str, int]:
+        return {
+            "chol_anchors": self.anchors,
+            "chol_extends": self.extends,
+            "chol_grows": self.grows,
+            "chol_drift_refits": self.drift_refits,
+        }

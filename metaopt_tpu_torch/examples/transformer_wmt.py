@@ -23,7 +23,8 @@ reports statistics: the device's name, the seconds from this process's
 start to its first finished device op (interpreter, ``import torch``, the
 CUDA context), the seconds before the training loop (model, optimizer,
 restore, data), of the loop, of saving the checkpoint, ms per step, the
-first and last losses, whether it restored, whether ``torch._dynamo`` was
+first and last losses, whether it restored, the AdamW update count after
+the restore and at the end, whether ``torch._dynamo`` was
 imported, and the seconds of the whole ``train_and_eval`` call.
 """
 
@@ -101,6 +102,8 @@ def main():
          "value": rep["train_s"] / rep["steps"] * 1e3},
         {"name": "first_loss", "type": "statistic", "value": rep["losses"][0]},
         {"name": "restored", "type": "statistic", "value": rep["restored"]},
+        {"name": "restored_updates", "type": "statistic", "value": rep["restored_updates"]},
+        {"name": "updates", "type": "statistic", "value": rep["updates"]},
         {"name": "torch_dynamo_imported", "type": "statistic",
          "value": "torch._dynamo" in sys.modules},
         {"name": "train_and_eval_s", "type": "statistic", "value": call_s},

@@ -148,6 +148,30 @@ class Trial:
                 return float(r.value)
         return None
 
+    @property
+    def objectives(self) -> List[float]:
+        """All objective-typed result values, in report order.
+
+        Single-objective algorithms read ``objective`` (the first);
+        multi-objective ones (``motpe``) consume this full vector.
+        """
+        return [float(r.value) for r in self.results if r.type == "objective"]
+
+    @property
+    def constraints(self) -> List[Result]:
+        return [r for r in self.results if r.type == "constraint"]
+
+    @property
+    def gradient(self) -> Optional[Result]:
+        for r in self.results:
+            if r.type == "gradient":
+                return r
+        return None
+
+    @property
+    def statistics(self) -> List[Result]:
+        return [r for r in self.results if r.type == "statistic"]
+
     def attach_results(self, results: List[Mapping[str, Any]]) -> None:
         for r in results:
             self.results.append(r if isinstance(r, Result) else Result(**r))

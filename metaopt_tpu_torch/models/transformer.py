@@ -514,8 +514,9 @@ def train_and_eval(
     ``restore_dir`` holds none. ``report``, when given, receives ``losses``
     (one per step), ``setup_s`` (model, optimizer, restore and data before
     the loop), ``train_s`` (the step loop, device-synchronized),
-    ``save_s``, ``restored``, ``steps`` and ``tokens_per_step`` (source +
-    target tokens).
+    ``save_s``, ``restored``, ``restored_updates`` and ``updates`` (the
+    optimizer's update count after the restore and at the end), ``steps``
+    and ``tokens_per_step`` (source + target tokens).
     """
     t_call = time.perf_counter()
     if n_train < batch_size:
@@ -529,6 +530,7 @@ def train_and_eval(
     model.init_like_flax(torch.Generator(device=device).manual_seed(seed))
     opt = trial_setup(hparams, model.parameters(), steps, tp, sp, ep)
     restored = maybe_restore(restore_dir, model, opt)
+    restored_updates = opt.updates
     src, tgt = synthetic_seq2seq(n_train, seq_len, model.vocab, seed=seed,
                                  device=device)
     step_fn = make_train_step(model, opt)
@@ -554,6 +556,8 @@ def train_and_eval(
             train_s=train_s,
             save_s=time.perf_counter() - t_save,
             restored=restored,
+            restored_updates=restored_updates,
+            updates=opt.updates,
             steps=steps,
             tokens_per_step=2 * batch_size * seq_len,
         )

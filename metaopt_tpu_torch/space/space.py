@@ -79,6 +79,11 @@ class Space:
             self._fidelity_cache = fids[0] if fids else None
         return self._fidelity_cache
 
+    @property
+    def searchable(self) -> List[Dimension]:
+        """Dimensions the optimizer actually searches (everything non-fidelity)."""
+        return [d for d in self._dims.values() if not isinstance(d, Fidelity)]
+
     # -- sampling / geometry ----------------------------------------------
     def sample(self, n: int = 1, seed=None) -> List[Dict[str, Any]]:
         """Joint sample of ``n`` points as dicts (fidelity set to max budget)."""

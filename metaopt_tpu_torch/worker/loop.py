@@ -7,8 +7,10 @@ stale-reservation release (every ``stale_sweep_interval_s``, and always on
 the first cycle), per-worker trial caps (``worker_trials``), the
 ``max_broken`` guard, idle backoff, the judge wiring into the executor, and
 infrastructure requeues (``ExecutionResult.requeue``, bounded per trial).
-Not ported yet: the coordinator-hosted producer and its fused cycle, the
-batched hunt (``batch_size > 1``) and suspension.
+Suspension as in the reference: a reserved trial for which the
+algorithm's ``should_suspend`` says so is parked as ``suspended``, never
+executed. Not ported yet: the coordinator-hosted producer and its fused
+cycle, and the batched hunt (``batch_size > 1``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ class WorkerStats:
     broken: int = 0
     interrupted: int = 0
     pruned: int = 0
+    suspended: int = 0
     #: trials bounced back to 'new' after an infrastructure failure
     #: (executor set ExecutionResult.requeue) — retried, not lost
     requeued: int = 0
@@ -130,6 +133,16 @@ def workon(
 
         stats.idle_cycles = 0
         stats.reserved += 1
+        if producer.should_suspend(trial):
+            # the algorithm wants this trial parked (e.g. a bracket wants
+            # its budget elsewhere first): suspended, not executed;
+            # ``resume`` flips suspended trials back to new
+            trial.transition("suspended")
+            experiment.ledger.update_trial(
+                trial, expected_status="reserved", expected_worker=worker_id
+            )
+            stats.suspended += 1
+            continue
         log.debug("%s running trial %s %s", worker_id, trial.id[:8], trial.params)
         t0 = time.time()
         try:

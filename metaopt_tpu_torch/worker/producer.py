@@ -88,3 +88,6 @@ class Producer:
 
     def judge(self, trial, partial):
         return self.algorithm.judge(trial, partial)
+
+    def should_suspend(self, trial) -> bool:
+        return self.algorithm.should_suspend(trial)

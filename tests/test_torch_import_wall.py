@@ -4,9 +4,9 @@ An AST scan covers every file of ``metaopt_tpu_torch/`` and
 ``chip_smoke.py``; a subprocess (this test process already imported jax in
 tests/conftest.py) then makes those imports fail with a ``sys.meta_path``
 hook, imports every module of the port, runs one CPU ``workon`` of the
-Transformer and one of BOHB on PPO, and one ``hunt`` of the port's
-Rosenbrock example through ``cli.main`` (its trial processes start outside
-the wall).
+Transformer, one of BOHB on PPO, one each of GP-BO and CMA-ES, and one
+``hunt`` of the port's Rosenbrock example through ``cli.main`` (its trial
+processes start outside the wall).
 """
 
 import ast
@@ -55,7 +55,13 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/algo/bohb.py", "metaopt_tpu_torch/models/ppo.py",
                  "metaopt_tpu_torch/examples/ppo_atari.py", "chip_smoke.py",
                  "metaopt_tpu_torch/models/checkpoint.py",
-                 "metaopt_tpu_torch/examples/transformer_wmt.py"):
+                 "metaopt_tpu_torch/examples/transformer_wmt.py",
+                 "metaopt_tpu_torch/algo/gp_bo.py", "metaopt_tpu_torch/algo/cmaes.py",
+                 "metaopt_tpu_torch/algo/dehb.py", "metaopt_tpu_torch/algo/pbt.py",
+                 "metaopt_tpu_torch/algo/motpe.py", "metaopt_tpu_torch/algo/grid_search.py",
+                 "metaopt_tpu_torch/algo/gradient_descent.py",
+                 "metaopt_tpu_torch/examples/multiobj.py",
+                 "metaopt_tpu_torch/examples/pbt_sgd.py"):
         assert must in names
 
 
@@ -98,6 +104,13 @@ exp = build_experiment("walled-bohb", space={"lr": "loguniform(1e-4, 1e-2)",
                        algorithm={"bohb": {"seed": 0, "repetitions": 1, "device": "cpu"}})
 stats = exp.workon(ppo.make_objective(n_envs=4, rollout_len=4, ppo_epochs=1, device="cpu"))
 assert stats.completed == 5, stats.events
+
+for algo, cfg in (("gp", {"seed": 0, "n_initial_points": 3, "fit_iters": 5, "device": "cpu"}),
+                  ("cmaes", {"seed": 0, "population_size": 4})):
+    exp = build_experiment("walled-" + algo, space={"x": "uniform(-5, 5)", "y": "uniform(-5, 5)"},
+                           algorithm={algo: cfg}, max_trials=5)
+    stats = exp.workon(lambda p: (p["x"] - 1) ** 2 + p["y"] ** 2)
+    assert stats.completed == 5, stats.events
 
 import json, os, sys, tempfile
 from metaopt_tpu_torch.cli import main
@@ -148,3 +161,56 @@ def test_the_trial_handshake_loads_no_torch():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO-TORCH" in proc.stdout
+
+
+TORCH_FREE_CLI = r'''
+import json, os, sys, tempfile
+from metaopt_tpu_torch.cli import main
+root = tempfile.mkdtemp()
+sgd = os.path.join(os.path.dirname(sys.modules["metaopt_tpu_torch"].__file__), "examples",
+                   "pbt_sgd.py")
+led = "file:" + os.path.join(root, "ledger")
+assert main(["hunt", "-n", "sgd", "--ledger", led, "--max-trials", "3", "--ckpt-root",
+             os.path.join(root, "ckpt"), "--config",
+             os.path.join(os.path.dirname(sgd), "asha.json"), sgd,
+             "--lr~loguniform(1e-3, 1.0)", "--steps~fidelity(4, 16, base=2)"]) == 0
+assert main(["status", "-n", "sgd", "--ledger", led, "--rungs", "--json"]) == 0
+loaded = sorted(n for n in sys.modules if n.split(".")[0] == "torch")
+assert not loaded, loaded
+print("NO-TORCH")
+'''
+
+
+def test_numpy_algorithms_and_status_load_no_torch():
+    """A hunt of a numpy algorithm (ASHA) and ``status --rungs`` run without
+    ``import torch`` in the CLI process: the algorithm modules load by name
+    (``algo.base.BUILTIN_MODULES``), and only TPE, MOTPE, BOHB and GP-BO
+    import torch."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-c", TORCH_FREE_CLI], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO-TORCH" in proc.stdout
+
+
+def test_builtin_modules_name_every_registered_algorithm():
+    """``BUILTIN_MODULES`` (how ``make_algorithm`` finds a module by name)
+    and the modules' ``@algo_registry.register`` names agree, and every
+    class ``metaopt_tpu_torch.algo`` exports lazily resolves."""
+    import importlib
+
+    import metaopt_tpu_torch.algo as algo
+    from metaopt_tpu_torch.algo.base import BUILTIN_MODULES, algo_registry
+
+    for mod in sorted(set(BUILTIN_MODULES.values())):
+        importlib.import_module(f"metaopt_tpu_torch.algo.{mod}")
+    for name in BUILTIN_MODULES:
+        cls = algo_registry.get(name)
+        assert cls.__module__ == f"metaopt_tpu_torch.algo.{BUILTIN_MODULES[name]}", name
+    builtin = {n for n in algo_registry
+               if algo_registry.get(n).__module__.startswith("metaopt_tpu_torch.algo.")}
+    assert builtin == set(BUILTIN_MODULES)
+    for name in algo.__all__:
+        assert getattr(algo, name) is not None
