@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through thirteen phases and exits non-zero if any fails:
+``metaopt_tpu``) through fourteen phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -66,8 +66,9 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    trials — all completed, none broken, none run twice, a finite best, and
    ``status --json`` from another fresh process agreeing; (b) BASELINE
    config 2, TPE (``examples/tpe.yaml``'s settings, passed as JSON) on
-   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 16 trials each a fresh
-   process on the card — finite, at least 6 suggested by EI, in the space,
+   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 11 trials (cut from 16 to
+   make room for phase 14), each a fresh process on the card — finite, at
+   least 1 suggested by EI, in the space,
    each on CUDA — split into process start → first CUDA op, training, and
    the rest of the trial's ledger wall; (c) ``cuda_backend_reachable()``;
 9. asha: BASELINE config 3. (a) The full-width ResNet-50 on the card
@@ -77,8 +78,10 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    train steps (batch 128): ms per step, images per second, device busy
    share, device ms by kind of kernel, peak memory. (b) ASHA (``asha.json``,
    seed 0, pool 1) on ``metaopt_tpu_torch/examples/resnet_cifar.py`` at
-   full size through ``hunt --n-chips 1``, 21 trials, each a fresh process
-   pinned to the card — all completed and finite, budgets 1, 4 and 16
+   full width through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 9,
+   base=3)`` on 1024 training images (cut from ``fidelity(1, 16, base=4)``
+   and 4096 to fit phase 14), 13 trials, each a fresh process pinned to
+   the card — all completed and finite, budgets 1, 3 and 9
    reached, promotions on their parents' lineage, every trial on the
    card, the GPU registry empty after, ``status --rungs --json`` from a
    fresh process equal to ASHA replayed over the ledger. (c) Config 3's
@@ -88,8 +91,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    128 steps, hidden 64, 4 full-batch updates) on the card against the CPU
    for two iterations from the same parameters and draws: every parameter
    and the advantages within 1e-4 of the tensor's largest entry, the return
-   within 1e-4 relative. (b) ``train({"lr": 3e-4})`` for seeds 0 and 1 on
-   the card: the negated return above 50 after 2 iterations and below 5
+   within 1e-4 relative. (b) ``train({"lr": 3e-4})`` for seed 0 on the
+   card (seed 1 dropped to fit phase 14): the negated return above 50 after 2 iterations and below 5
    after 32; ms per iteration; one traced iteration's CUDA kernels, device
    busy share and device ms by kind; peak memory. (c) EvolutionES
    (``evolution.json``: seed 0, population 10, pool 5) on
@@ -116,14 +119,16 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    full-width Transformer-base in train mode at dropout 0.1, card against
    CPU on the same weights, attention seeds and injected feed-forward
    masks: the loss and every gradient norm within 3e-2. (d) 20 timed and 5
-   traced train steps at dropout 0.1. (e) BOHB (seed 0, two repetitions)
-   in-process over config 4's priors with ``epochs~fidelity(1, 9,
-   base=3)`` at 2 steps per epoch (cut from 50): every rung filled, at
+   traced train steps at dropout 0.1. (e) BOHB (seed 0, one repetition,
+   cut from two to fit phase 14) in-process over config 4's priors with
+   ``epochs~fidelity(1, 9, base=3)`` at 2 steps per epoch (cut from 50):
+   every rung filled, at
    least one point by EI on the card, K1-K3 launched 18 times per train
    step, every launch with dropout. (f) Hyperband (``hyperband.json``) on
    ``metaopt_tpu_torch/examples/transformer_wmt.py --tp 1`` at full width
    through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 3, base=3)`` (cut
-   from 1-9: 6 trials instead of 22) — all completed and finite on the
+   from 1-9: 6 trials instead of 22) at 10 steps per epoch (cut from 50 to
+   fit phase 14) — all completed and finite on the
    card, the rung table equal to Hyperband replayed over the ledger and to
    ``status --rungs --json`` from a fresh process, every trial's checkpoint
    published and none half-written, no ``torch._dynamo`` in a trial
@@ -149,14 +154,43 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    objectives, the trial counts, two CMA-ES generations, a DEHB promotion,
    the lattice exhausted, gradient descent at the bowl, 12 MOTPE points by
    EI.
+14. lm: the decoder-only LM at full width (``make_lm``'s defaults: d_model
+   512, 8 heads, 6 layers, d_ff 2048, vocab 1000) at seq 512. (a) Card
+   against CPU at full width, batch 2, 2 layers (depth cut from 6 to fit
+   the time limit), on the same weights, attention seeds and
+   feed-forward masks: dense, and MoE with 8 experts at k = 1 and 2
+   (capacity 1.25), each at dropout 0 and 0.1: eval-mode logits within 3e-2
+   of their scale, the loss within 3e-2 relative, every gradient's norm
+   within 3e-2 of its own (the routers' within 5e-2; the key biases', 0 in
+   exact arithmetic, within 3e-2 of 1% of the largest norm), and in the
+   dense cases every gradient element within 1e-1 of its tensor's largest
+   entry. (b) The train step at batch 32 (16,384 tokens), dropout
+   0.1, plain and under remat: K1, K2 and K3 launched 6 times each per step
+   (K1 12 times under remat), every launch with dropout; 10 timed and 5
+   traced steps: ms per step, device busy share, device ms by kind, K1-K3's
+   device ms per step, peak memory; remat on against off on one step's loss
+   (bit-equal) and gradients (3e-2 of their scale). (c) The MoE LM (k = 1
+   and 2) for 5 timed steps: ms per step, dropped fraction and balance loss
+   per layer; one in-process ``train_and_eval`` of Transformer-base with 8
+   experts. (d) The blocked xent against the materialized one at N 32,768 x
+   V 32,768 x D 512 (bf16 in, 4 GiB of f32 logits): values within 1e-3,
+   both gradients within 3e-2 of their scale, each path's time and added
+   peak memory, TF32 on against off; one LM step at vocab 32,768, batch 64 x
+   512, which must take the blocked route. (e) TPE (``tpe.json``) on
+   ``metaopt_tpu_torch/examples/lm_causal.py`` at d_model 512, d_ff 2048,
+   seq 512 with the example's priors through ``hunt --n-chips 1``, 4
+   trials (all random draws: 10 initial points) — finite, on the card,
+   checkpoints published, the GPU registry empty; trials per hour and each
+   trial's split.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
 line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
-``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line and, last, the
-``{"ok": true, "device": {...}}`` line. The ``{"kernels": ...}`` line lists K1-K3 at rate 0
-(launches from the [slice] run) and at rate 0.1 (times from phase 2,
-launches from the [wmt] BOHB run).
+``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
+line and, last, the ``{"ok": true, "device": {...}}`` line. The
+``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
+run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
+run; under ``"lm"`` the launches and device ms on the LM's path).
 """
 
 from __future__ import annotations
@@ -188,6 +222,10 @@ TPE_SPACE = {  # BASELINE config 2: examples/mlp_mnist.py's docstring
     "dropout": "uniform(0.0, 0.5)",
 }
 TPE_TRIALS, TPE_INITIAL = 16, 10
+# config 2 through the CLI: cut from 16 trials (10 random, 6 by EI) to 11
+# (10 random, 1 by EI) to make room for the [lm] phase; the in-process hunt of
+# [tpe] keeps its 16
+HUNT_TPE_TRIALS = 11
 ROSEN_TRIALS, ROSEN_WORKERS = 100, 4    # BASELINE config 1
 ROSEN_SPACE = {"x": "uniform(-5, 10)", "y": "uniform(-5, 10)"}
 # a CLI process's deadline: its own start (import torch, ~10 s on the card's
@@ -203,11 +241,15 @@ RESNET_SPACE = {  # BASELINE config 3: examples/resnet_cifar.py's docstring
     "weight-decay": "loguniform(1e-6, 1e-2)",
     "epochs": "fidelity(1, 16, base=4)",
 }
-# the fewest trials with which ASHA (one worker, pool 1) reaches budget 16
-# whatever the objectives: 16 at 1 epoch, 4 at 4, 1 at 16 (the example runs
-# 64; at asha.json's pool of 4 one worker never reaches 16, see
+# config 3 through the CLI, cut to make room for the [lm] phase: epochs
+# fidelity(1, 9, base=3) instead of the example's (1, 16, base=4), and 1024
+# training images (8 steps per epoch) instead of 4096 (32)
+ASHA_FIDELITY, ASHA_BUDGETS, ASHA_N_TRAIN = "fidelity(1, 9, base=3)", (1, 3, 9), 1024
+# the fewest trials with which ASHA (one worker, pool 1) reaches budget 9
+# whatever the objectives: 9 at 1 epoch, 3 at 3, 1 at 9 (the example runs
+# 64; at asha.json's pool of 4 one worker never reaches the top, see
 # examples/resnet_cifar.py)
-ASHA_TRIALS = 21
+ASHA_TRIALS = 13
 RESNET_BATCH, RESNET_TIMED_STEPS, RESNET_TRACED_STEPS = 128, 20, 5
 # a config-3 trial's wall-clock timeout, and its share of the CLI's deadline
 RESNET_TIMEOUT_S, RESNET_TRIAL_S = 300, 40
@@ -261,12 +303,14 @@ WMT_PRIORS = {  # BASELINE config 4: examples/transformer_wmt.py's docstring
 # fidelity(1, 3, base=3): bracket 0 runs 3 trials at 1 epoch and promotes 1
 # to 3, bracket 1 runs 2 at 3 epochs; (bracket, budget, capacity) below
 WMT_CLI_FIDELITY, WMT_CLI_TABLE = "fidelity(1, 3, base=3)", [(0, 1, 3), (0, 3, 1), (1, 3, 2)]
-WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 50
+# ... and from 50 steps per epoch to 10, to fit the [lm] phase
+WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 10
 # a config-4 trial's wall-clock timeout, and its share of the CLI's deadline
 WMT_TIMEOUT_S, WMT_TRIAL_S = 300, 60
-# BOHB in-process: the example's fidelity, two repetitions of 22 trials, cut
-# from 50 steps per epoch to 2
+# BOHB in-process: the example's fidelity, one repetition of 22 trials (cut
+# from two to fit the [lm] phase), cut from 50 steps per epoch to 2
 WMT_BOHB_FIDELITY, WMT_BOHB_STEPS_PER_EPOCH = "fidelity(1, 9, base=3)", 2
+WMT_BOHB_REPETITIONS = 1
 WMT_BOHB_TABLE = [(0, 1, 9), (0, 3, 3), (0, 9, 1), (1, 3, 5), (1, 9, 1), (2, 9, 3)]
 WMT_RATES = (0.1, 0.3)          # attention dropout checked on the card
 WMT_TIMED_RATE = 0.1            # the Transformer-base rate, timed against rate 0
@@ -293,6 +337,34 @@ PBT_TRIALS = 12
 PBT_TRIAL_S = 60        # a trial's share of the CLI's deadline
 MOTPE_YAML = {"seed": 0, "n_objectives": 2, "n_initial_points": 12, "gamma": 0.3}
 MOTPE_TRIALS = 24
+LM_BATCH, LM_SEQ = 32, 512      # train_lm's batch at the phase's sequence: 16,384 tokens
+# card against CPU (the CPU runs the plain attention): full width, batch 2,
+# depth cut from 6 to 2 layers to fit the script's time limit
+LM_CMP_BATCH, LM_CMP_LAYERS = 2, 2
+# the routers' gradient norms, card against CPU: each token's router-logit
+# gradient sums to 0 over the experts, so these are sums whose terms cancel,
+# and the bf16 attention kernels' differences from the CPU's f32 plain
+# versions reach them through an f32 residual (measured worst 2.99e-2, the
+# k = 2 router bias at dropout 0.1; NVIDIA H100 80GB HBM3, 700 W)
+LM_ROUTER_TOL = 5e-2
+# the dense LM's gradients elementwise, card against CPU, relative to each
+# tensor's largest entry: the card's K2/K3 multiply bf16-rounded
+# probabilities where the CPU's plain versions keep f32, and the first
+# layer's feed-forward weights sum that over 1024 tokens (measured worst
+# 5.20e-2 and 5.36e-2 at dropout 0 and 0.1, h.0.mlp.wi.weight; NVIDIA H100
+# 80GB HBM3, 700 W). With MoE a token near a routing tie goes to another
+# expert, so elementwise errors reach ~0.35 there and only the norms are held
+LM_DENSE_ELEM_TOL = 1e-1
+LM_MOE = [{"n_experts": 8, "router_top_k": 1}, {"n_experts": 8, "router_top_k": 2}]
+LM_STEPS, LM_TRACED, LM_MOE_STEPS = 10, 5, 5
+LM_XENT = (32768, 32768, 512)   # N tokens x V x D: 4 GiB of f32 logits, the blocked route
+LM_BIG_VOCAB = (64, 512, 32768)  # batch x seq x vocab of the LM step on the blocked route
+LM_PRIORS = {  # examples/lm_causal.py's docstring
+    "lr": "loguniform(1e-4, 1e-1)",
+    "dropout": "uniform(0.0, 0.3)",
+    "n-layers": "uniform(1, 4, discrete=True)",
+}
+LM_CLI_TRIALS, LM_TRIAL_S = 4, 60  # with 10 initial points, all four are TPE's random draws
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
     "flash_bwd_dkv": "metaopt_tpu/ops/attention.py:181 (_flash_bwd_dkv_kernel)",
@@ -505,8 +577,9 @@ def check_autograd(torch, att, case, rate: float = 0.0):
     saved = dict(att.launches), dict(att.dropout_launches)
     for dev in ("cuda", "cpu"):
         q, k, v = (case[n].to(dev).detach().requires_grad_() for n in "qkv")
-        out = att.flash_attention(q, k, v, case["mask"].to(dev), dropout_rate=rate,
-                                  generator=torch.Generator().manual_seed(DROPOUT_SEED))
+        out = att.flash_attention(
+            q, k, v, case["mask"].to(dev), dropout_rate=rate,
+            philox=att.draw_seed(torch.Generator().manual_seed(DROPOUT_SEED)))
         out.backward(case["g"].to(dev))
         res[dev] = {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
     torch.cuda.synchronize()
@@ -1233,9 +1306,9 @@ def hunt_phase(torch, smi: str):
         cfg.write_text(json.dumps({"algorithm": {"tpe": {"seed": 0,
                                                          "n_initial_points": TPE_INITIAL}}}))
         summary, wall = run_cli(
-            ["hunt", "-n", "mlp", "--ledger", ledger, "--max-trials", str(TPE_TRIALS),
+            ["hunt", "-n", "mlp", "--ledger", ledger, "--max-trials", str(HUNT_TPE_TRIALS),
              "--config", str(cfg), str(examples / "mlp_mnist.py")]
-            + [f"--{k}~{v}" for k, v in TPE_SPACE.items()], root, env, TPE_TRIALS, 1,
+            + [f"--{k}~{v}" for k, v in TPE_SPACE.items()], root, env, HUNT_TPE_TRIALS, 1,
             MLP_TRIAL_S)
         trials = FileLedger(str(root / "ledger")).fetch("mlp")
         done = sorted((t for t in trials if t.status == "completed"), key=lambda t: t.start_time)
@@ -1246,9 +1319,9 @@ def hunt_phase(torch, smi: str):
         name = torch.cuda.get_device_name(0)
         stats = [statistics_of(t) for t in done]
         problems = []
-        if len(done) != TPE_TRIALS or not all(math.isfinite(t.objective) for t in done):
+        if len(done) != HUNT_TPE_TRIALS or not all(math.isfinite(t.objective) for t in done):
             problems.append(f"{[(t.status, t.objective) for t in trials]}")
-        if len(by_ei) < TPE_TRIALS - TPE_INITIAL:
+        if len(by_ei) < HUNT_TPE_TRIALS - TPE_INITIAL:
             problems.append(f"{len(by_ei)} trials suggested by EI")
         if not all(t.params in space for t in done):
             problems.append("a point outside the space")
@@ -1462,8 +1535,9 @@ def asha_phase(torch, smi: str):
         summary, wall = run_cli(
             ["hunt", "-n", "resnet", "--n-chips", "1", "--max-trials", str(ASHA_TRIALS),
              "--pool-size", "1", "--timeout-s", str(RESNET_TIMEOUT_S), "--ledger", ledger,
-             "--config", str(examples / "asha.json"), str(examples / "resnet_cifar.py")]
-            + [f"--{k}~{v}" for k, v in RESNET_SPACE.items()],
+             "--config", str(examples / "asha.json"), str(examples / "resnet_cifar.py"),
+             "--n-train", str(ASHA_N_TRAIN)]
+            + [f"--{k}~{v}" for k, v in {**RESNET_SPACE, "epochs": ASHA_FIDELITY}.items()],
             root, env, ASHA_TRIALS, 1, RESNET_TRIAL_S)
         status, status_wall = run_cli(["status", "-n", "resnet", "--rungs", "--json",
                                        "--ledger", ledger], root, env)
@@ -1473,7 +1547,7 @@ def asha_phase(torch, smi: str):
         replay.observe(exp.fetch_completed_trials())
         trials = sorted(led.fetch("resnet"), key=lambda t: t.start_time or 0)
         done = [t for t in trials if t.status == "completed"]
-        space = build_space(RESNET_SPACE)
+        space = build_space({**RESNET_SPACE, "epochs": ASHA_FIDELITY})
         name = torch.cuda.get_device_name(0)
         stats = [statistics_of(t) for t in done]
         registry = json.loads((root / "metaopt_tpu_torch-gpus-1.json").read_text())
@@ -1484,10 +1558,10 @@ def asha_phase(torch, smi: str):
             problems.append(f"{[(t.status, t.objective) for t in trials]}")
         if not all(math.isfinite(t.objective) for t in done):
             problems.append("a non-finite objective")
-        if budgets != {1, 4, 16}:
+        if budgets != set(ASHA_BUDGETS):
             problems.append(f"budgets reached {sorted(budgets)}")
         if not all(t.lineage == space.hash_point(t.params) and (
-                t.params["epochs"] == 1 or (t.lineage, t.params["epochs"] // 4) in lineages)
+                t.params["epochs"] == 1 or (t.lineage, t.params["epochs"] // 3) in lineages)
                 for t in done):
             problems.append("a promotion without its parent's lineage")
         if not all(st.get("device") == name for st in stats):
@@ -1512,7 +1586,7 @@ def asha_phase(torch, smi: str):
         total = {k: sum(r[k] for r in rows) for k in keys}
         by_budget = {b: {k: median([r[k] for r in rows if r["epochs"] == b])
                          for k in keys + ("train_ms_per_step",)} | {
-                         "trials": sum(r["epochs"] == b for r in rows)} for b in (1, 4, 16)}
+                         "trials": sum(r["epochs"] == b for r in rows)} for b in ASHA_BUDGETS}
         out["config3"] = {
             "trials": len(done), "hunt_wall_s": wall, "trials_per_hour": len(done) / wall * 3600,
             "status_wall_s": status_wall, "rungs": status[0]["rungs"], "sum": total,
@@ -1522,7 +1596,7 @@ def asha_phase(torch, smi: str):
             "producer_timings": summary["producer_timings"],
         }
         log(f"[asha] config 3: {len(done)} trials completed on {name} ({by_budget[1]['trials']} "
-            f"at 1 epoch, {by_budget[4]['trials']} at 4, {by_budget[16]['trials']} at 16), "
+            f"at 1 epoch, {by_budget[3]['trials']} at 3, {by_budget[9]['trials']} at 9), "
             f"none broken, promotions on their parents' lineage, registry empty, status "
             f"--rungs from a fresh process equal to the replay ({status_wall:.2f} s); "
             f"{wall:.2f} s = {len(done) / wall * 3600:.1f} trials/hour; best val error "
@@ -1596,7 +1670,7 @@ def evolution_phase(torch, smi: str):
     # -- (b) full-fidelity trials in-process ---------------------------------
     torch.cuda.reset_peak_memory_stats()
     trials = {}
-    for seed in (0, 1):
+    for seed in (0,):  # seed 1 cut to fit the [lm] phase
         early = ppo.train({"lr": 3e-4}, iterations=2, seed=seed, device="cuda")
         rep = {}
         late = ppo.train({"lr": 3e-4}, iterations=PPO_ITERS, seed=seed, device="cuda",
@@ -1949,7 +2023,7 @@ def wmt_phase(torch, smi: str):
     mark("train_step")
 
     # -- (e) BOHB in-process over config 4's objective ----------------------
-    algo_cfg = {"bohb": {"seed": 0, "repetitions": 2}}
+    algo_cfg = {"bohb": {"seed": 0, "repetitions": WMT_BOHB_REPETITIONS}}
     client = build_experiment("wmt-bohb", space={**WMT_PRIORS, "epochs": WMT_BOHB_FIDELITY},
                               algorithm=algo_cfg, max_trials=200, ledger="memory")
     algo = make_algorithm(client.space, algo_cfg)
@@ -1974,7 +2048,8 @@ def wmt_phase(torch, smi: str):
            "buffers": sorted({str(m._buf.Xdev.device) for m in models
                               if m._buf.Xdev is not None})}
     problems = []
-    if len(done) != 2 * sum(c for _, _, c in WMT_BOHB_TABLE) or not algo.is_done:
+    if len(done) != WMT_BOHB_REPETITIONS * sum(c for _, _, c in WMT_BOHB_TABLE) \
+            or not algo.is_done:
         problems.append(f"{len(done)} trials completed, is_done {algo.is_done}")
     if not all(math.isfinite(t.objective) for t in done):
         problems.append("a non-finite objective")
@@ -1989,7 +2064,8 @@ def wmt_phase(torch, smi: str):
     if problems:
         raise AssertionError(f"[wmt] BOHB: {problems}")
     out["bohb"] = row
-    log(f"[wmt] BOHB in-process (seed 0, two repetitions, {WMT_BOHB_FIDELITY}, "
+    log(f"[wmt] BOHB in-process (seed 0, {WMT_BOHB_REPETITIONS} repetition(s), "
+        f"{WMT_BOHB_FIDELITY}, "
         f"{WMT_BOHB_STEPS_PER_EPOCH} steps per epoch): {len(done)} full-width trials, {steps} "
         f"train steps in {wall:.2f} s, every rung of {table} filled and completed; "
         f"{row['ei_suggested']} suggested by EI in {row['ei_launches']} launches on "
@@ -2351,6 +2427,450 @@ def algos_phase(torch, smi: str):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the decoder-only LM, MoE feed-forwards, the blocked xent, remat
+
+
+def rel_to_scale(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def lm_card_vs_cpu(torch, lm, tfm, extra, rate: float):
+    """The full-width LM at batch ``LM_CMP_BATCH``, seq ``LM_SEQ`` and
+    ``LM_CMP_LAYERS`` layers, card against CPU on the same weights and draws
+    (the same attention Philox seeds from CPU generators seeded alike, the
+    same feed-forward masks through ``GivenDraws``): eval-mode logits, then
+    the train-mode loss and every parameter's gradient. The CPU runs the
+    plain attention."""
+    import numpy as np
+
+    hp = {"dropout": rate, "n_layers": LM_CMP_LAYERS, **extra}
+    model_cpu = lm.make_lm(hp).init_like_flax(torch.Generator().manual_seed(3))
+    model_gpu = lm.make_lm(hp)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    model_gpu.cuda()
+    toks = lm.synthetic_lm(LM_CMP_BATCH, LM_SEQ + 1, 1000, seed=5, device="cpu")
+    rng = np.random.default_rng(6)
+    masks = [rng.random(shape) < 1.0 - rate for layer in model_cpu.h
+             for shape in layer.mlp.mask_shapes(LM_CMP_BATCH, LM_SEQ)]
+    res = {}
+    for dev, model in (("cpu", model_cpu), ("cuda", model_gpu)):
+        with torch.no_grad():
+            logits = model(toks[:, :-1].to(dev)).cpu()
+        stats = {}
+        loss = lm.lm_loss_fn(model, toks.to(dev),
+                             tfm.GivenDraws(masks, attention_seed=8, device=dev), stats=stats)
+        loss.backward()
+        res[dev] = {"logits": logits, "loss": float(loss),
+                    "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+                    "dropped": [float(x) for x in stats.get("moe_stats", [])]}
+    torch.cuda.synchronize()
+    c, g = res["cpu"], res["cuda"]
+    norms_c = {n: float(t.norm()) for n, t in c["grads"].items()}
+    biggest = max(norms_c.values())
+    diff = {n: abs(float(g["grads"][n].norm()) - norms_c[n]) for n in norms_c}
+    # each gradient's norm against its own; the key biases' gradients are 0
+    # in exact arithmetic (softmax is shift-invariant per row), so theirs is
+    # held against 1% of the largest norm instead
+    norm_rel = {n: diff[n] / (1e-2 * biggest if n.endswith("k.bias") else norms_c[n])
+                for n in norms_c}
+    routers = {n for n in norms_c if ".router." in n}
+    worst = max((n for n in norms_c if n not in routers), key=norm_rel.get)
+    worst_router = max(routers, key=norm_rel.get) if routers else None
+    elem = {n: rel_to_scale(g["grads"][n], c["grads"][n]) for n in norms_c
+            if not n.endswith("k.bias")}
+    worst_elem = max(elem, key=elem.get)
+    return {"logits_rel_to_scale": rel_to_scale(g["logits"], c["logits"]),
+            "loss_card": g["loss"], "loss_cpu": c["loss"],
+            "loss_rel": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+            "worst_grad_norm_rel": norm_rel[worst], "worst_grad_norm_param": worst,
+            "worst_router_norm_rel": norm_rel[worst_router] if routers else 0.0,
+            "worst_router_param": worst_router,
+            "worst_grad_elem_rel_to_scale": elem[worst_elem], "worst_grad_elem_param": worst_elem,
+            "dropped_card": g["dropped"], "dropped_cpu": c["dropped"]}
+
+
+def lm_model_and_step(torch, lm, tfm, hp, batch: int = LM_BATCH, seq: int = LM_SEQ,
+                      vocab: int = 1000):
+    """A full-width LM on the card, its optimizer, a token batch and a train
+    step at the next step's ``Draws``; ``stats`` holds the last step's
+    ``lm_loss_fn`` statistics."""
+    model = lm.make_lm({**hp, "vocab": vocab}).init_like_flax(
+        torch.Generator().manual_seed(0)).cuda()
+    opt = tfm.trial_setup({"lr": 1e-3, "warmup": 2}, model.parameters(), 100)
+    toks = lm.synthetic_lm(batch, seq + 1, vocab, seed=0, device="cuda")
+    counter = iter(range(10 ** 6))
+    stats = {}
+
+    def step():
+        opt.zero_grad()
+        stats.clear()
+        loss = lm.lm_loss_fn(model, toks, tfm.Draws(0, next(counter), "cuda"), stats=stats)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, step, stats
+
+
+def lm_xent_paths(torch, xent, tfm, smi: str):
+    """The blocked xent against the materialized one at ``LM_XENT``: values,
+    both gradients (the cotangent a random weight per token), each path's
+    forward + backward time and the memory it adds at its peak; then the
+    blocked path with TF32 on against off."""
+    import torch.nn.functional as F
+
+    n, v, d = LM_XENT
+    if not tfm.blocked_xent_enabled(n, 1, v):
+        raise AssertionError(f"[lm] {LM_XENT} is not on the blocked route")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    y = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+    emb = (torch.randn(v, d, generator=gen, device="cuda") * 0.05).bfloat16()
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    w = torch.rand(n, generator=gen, device="cuda")
+    block_v = xent.pick_block_v(v)
+
+    def run(blocked: bool):
+        yl, el = y.clone().requires_grad_(), emb.clone().requires_grad_()
+        if blocked:
+            loss = xent.blocked_softmax_xent(yl, el, labels, block_v)
+        else:
+            loss = F.cross_entropy(yl.float() @ el.float().t(), labels, reduction="none")
+        (loss * w).sum().backward()
+        return loss.detach(), yl.grad, el.grad
+
+    out = {"shape": {"n": n, "v": v, "d": d, "block_v": block_v},
+           "logits_bytes": 4 * n * v, "card": smi}
+    results = {}
+    for label, blocked in (("blocked", True), ("materialized", False)):
+        run(blocked)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        results[label] = run(blocked)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run(blocked)
+        torch.cuda.synchronize()
+        out[label] = {"ms": (time.perf_counter() - t0) / 3 * 1e3, "peak_added_bytes": peak}
+    (lb, dyb, deb), (lm_, dym, dem) = results["blocked"], results["materialized"]
+    out["loss_max_abs_diff"] = float((lb - lm_).abs().max())
+    out["dy_rel_to_scale"] = rel_to_scale(dyb.float(), dym.float())
+    out["demb_rel_to_scale"] = rel_to_scale(deb.float(), dem.float())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lt, dyt, det = run(True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out["tf32_on_vs_off"] = {"loss_max_abs_diff": float((lt - lb).abs().max()),
+                             "dy_rel_to_scale": rel_to_scale(dyt.float(), dyb.float()),
+                             "demb_rel_to_scale": rel_to_scale(det.float(), deb.float())}
+    return out
+
+
+def lm_phase(torch, smi: str):
+    """The decoder-only LM at full width (``make_lm``'s defaults: d_model
+    512, 8 heads, 6 layers, d_ff 2048, vocab 1000), MoE, the blocked xent
+    and remat; see the module docstring, phase 14."""
+    from metaopt_tpu_torch.ledger import FileLedger
+    from metaopt_tpu_torch.models import lm
+    from metaopt_tpu_torch.models import transformer as tfm
+    from metaopt_tpu_torch.models.checkpoint import has_state
+    from metaopt_tpu_torch.ops import attention as att
+    from metaopt_tpu_torch.ops import xent
+    from metaopt_tpu_torch.space import build_space
+
+    out = {"card": smi}
+    part_s, last = {}, [time.perf_counter()]
+
+    def mark(part: str) -> None:  # seconds since the previous part ended
+        now = time.perf_counter()
+        part_s[part] = now - last[0]
+        last[0] = now
+
+    saved = dict(att.launches), dict(att.dropout_launches)
+
+    def restore_counts() -> None:  # comparison launches do not count
+        att.launches.update(saved[0])
+        att.dropout_launches.update(saved[1])
+
+    # -- (a) the full-width LM, card against CPU -----------------------------
+    cmp = {}
+    for extra in [{}] + LM_MOE:
+        for rate in (0.0, 0.1):
+            label = (f"moe k={extra['router_top_k']}" if extra else "dense") + f" rate {rate}"
+            r = lm_card_vs_cpu(torch, lm, tfm, extra, rate)
+            cmp[label] = r
+            log(f"[lm] card against CPU, {label} (batch {LM_CMP_BATCH}, seq {LM_SEQ}, {LM_CMP_LAYERS} layers): logits "
+                f"{r['logits_rel_to_scale']:.2e} of their scale; loss {r['loss_card']:.6f} / "
+                f"{r['loss_cpu']:.6f} (rel {r['loss_rel']:.2e}); gradient norms worst rel "
+                f"{r['worst_grad_norm_rel']:.2e} of its own norm ({r['worst_grad_norm_param']}), "
+                f"routers {r['worst_router_norm_rel']:.2e} ({r['worst_router_param']}); "
+                f"elementwise worst {r['worst_grad_elem_rel_to_scale']:.2e} of the tensor's "
+                f"scale ({r['worst_grad_elem_param']}); dropped card {r['dropped_card']} cpu "
+                f"{r['dropped_cpu']}; bounds 3e-2, routers {LM_ROUTER_TOL:g}, elementwise "
+                f"(dense) {LM_DENSE_ELEM_TOL:g}")
+            if not (math.isfinite(r["loss_card"]) and r["logits_rel_to_scale"] <= 3e-2
+                    and r["loss_rel"] <= 3e-2 and r["worst_grad_norm_rel"] <= 3e-2
+                    and r["worst_router_norm_rel"] <= LM_ROUTER_TOL
+                    and (extra or r["worst_grad_elem_rel_to_scale"] <= LM_DENSE_ELEM_TOL)):
+                raise AssertionError(f"[lm] {label}: the card disagrees with the CPU: {r}")
+    out["card_vs_cpu"] = cmp
+    restore_counts()
+    torch.cuda.empty_cache()
+    mark("card_vs_cpu")
+
+    # -- (b) the train step, plain and under remat ---------------------------
+    steps = {}
+    for remat in (False, True):
+        model, step, _ = lm_model_and_step(torch, lm, tfm, {"dropout": 0.1, "remat": remat})
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0  # remat's first call imports torch._dynamo
+        counts, drop_counts = dict(att.launches), dict(att.dropout_launches)
+        n = len(model.h)  # one attention call per layer: 6 at full depth
+        want = {"flash_fwd": 2 * n if remat else n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+        if counts != want or drop_counts != want:
+            raise AssertionError(f"[lm] remat {remat}: launches per step {counts}, with "
+                                 f"dropout {drop_counts}, want {want}")
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.reset_launch_counts()  # the LM path's run: its launches are read just after
+        st = None
+        for _ in range(2):  # a window the profiler dropped is traced again
+            st = trace_steps(torch, step, LM_STEPS, LM_TRACED, KERNEL_KINDS)
+            if st is not None and any("flash_" in r[0] for r in st["rows"]):
+                break
+        torch.cuda.synchronize()
+        run_counts = dict(att.dropout_launches)
+        peak = torch.cuda.max_memory_allocated()
+        if st is None:
+            raise AssertionError("[lm] the profiler traced no LM train step")
+        if min(run_counts.values()) < 1:
+            raise AssertionError(f"[lm] a kernel never ran on the LM path: {run_counts}")
+        rows = st.pop("rows")
+        tag = "remat" if remat else "plain"
+        log_breakdown("lm", f"LM train step, {tag} (B {LM_BATCH}, S {LM_SEQ}, dropout 0.1)",
+                      {**st, "rows": rows})
+        flash = [[k[:90], ms, n] for k, ms, n in rows if "flash_" in k]
+        steps[tag] = {**st, "peak_mem_bytes": peak, "first_step_s": first_s,
+                      "launches_per_step": counts,
+                      "launches": run_counts, "flash": flash,
+                      "flash_ms_per_step": sum(ms for _, ms, _ in flash),
+                      "top": [[k[:90], ms, n] for k, ms, n in rows[:12]]}
+        log(f"[lm] {tag} step: {st['wall_ms']:.3f} ms untraced, device busy "
+            f"{st['device_busy_ms']:.3f} ms = {100 * st['busy_share']:.1f}%, K1-K3 "
+            f"{steps[tag]['flash_ms_per_step']:.3f} ms per step, peak memory "
+            f"{peak / 2**30:.3f} GiB, launches per step {counts}, first step {first_s:.2f} s; "
+            f"card {smi}")
+        for key, ms, n in flash:
+            log(f"  {ms:8.4f} ms/step  x{n:4.1f}  = {ms / n:.4f} ms/launch  {key}")
+        del model, step
+        torch.cuda.empty_cache()
+    plain, rem = steps["plain"], steps["remat"]
+    log(f"[lm] remat trade: {rem['wall_ms']:.3f} / {plain['wall_ms']:.3f} ms per step = "
+        f"{rem['wall_ms'] / plain['wall_ms']:.3f}x, device {rem['device_busy_ms']:.3f} / "
+        f"{plain['device_busy_ms']:.3f} ms, peak memory {rem['peak_mem_bytes'] / 2**30:.3f} / "
+        f"{plain['peak_mem_bytes'] / 2**30:.3f} GiB = "
+        f"{rem['peak_mem_bytes'] / plain['peak_mem_bytes']:.3f}x")
+    out["step"] = steps
+    # remat on against off: one step's loss and gradients from the same weights
+    # and draws at dropout 0.1
+    grads = {}
+    for remat in (False, True):
+        model = lm.make_lm({"dropout": 0.1, "remat": remat}).init_like_flax(
+            torch.Generator().manual_seed(0)).cuda()
+        toks = lm.synthetic_lm(LM_BATCH, LM_SEQ + 1, 1000, seed=0, device="cuda")
+        loss = lm.lm_loss_fn(model, toks, tfm.Draws(0, 0, "cuda"))
+        loss.backward()
+        grads[remat] = (float(loss), {n: p.grad.detach().clone()
+                                      for n, p in model.named_parameters()})
+        del model
+    rel = {n: rel_to_scale(grads[True][1][n], g) for n, g in grads[False][1].items()}
+    same = sum(torch.equal(grads[True][1][n], g) for n, g in grads[False][1].items())
+    worst = max(rel, key=rel.get)
+    out["remat_vs_plain"] = {"loss_plain": grads[False][0], "loss_remat": grads[True][0],
+                             "grads_bit_equal": same, "grads": len(rel),
+                             "worst_grad_rel_to_scale": rel[worst], "worst_param": worst}
+    log(f"[lm] remat on against off at dropout 0.1: loss {grads[True][0]!r} / "
+        f"{grads[False][0]!r}; {same} of {len(rel)} gradients bit-equal, worst "
+        f"{rel[worst]:.2e} of its scale ({worst})")
+    if grads[True][0] != grads[False][0] or rel[worst] > 3e-2:
+        raise AssertionError(f"[lm] remat changes the step: {out['remat_vs_plain']}")
+    del grads
+    restore_counts()
+    torch.cuda.empty_cache()
+    mark("train_step")
+
+    # -- (c) MoE steps, and Transformer-base with MoE in-process -------------
+    moe = {}
+    for extra in LM_MOE:
+        model, step, stats = lm_model_and_step(torch, lm, tfm, {"dropout": 0.1, **extra})
+        losses = [step() for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"k={extra['router_top_k']}"
+        st = trace_steps(torch, lambda: losses.append(step()), LM_MOE_STEPS, 2, KERNEL_KINDS)
+        if st is None:
+            raise AssertionError(f"[lm] the profiler traced no MoE {label} step")
+        rows = st.pop("rows")
+        log_breakdown("lm", f"MoE {label} LM train step", {**st, "rows": rows})
+        ms = st["wall_ms"]
+        dropped = [float(x) for x in stats["moe_stats"]]
+        balance = [float(x) for x in stats["aux_loss"]]
+        moe[label] = {**st, "ms_per_step": ms, "over_dense": ms / plain["wall_ms"],
+                      "dropped_fraction": dropped, "balance_loss": balance,
+                      "loss": float(losses[-1]), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "top": [[k[:90], t, n] for k, t, n in rows[:12]]}
+        log(f"[lm] MoE {label} (8 experts, capacity 1.25): {ms:.3f} ms/step = "
+            f"{ms / plain['wall_ms']:.3f}x the dense step, device busy "
+            f"{100 * st['busy_share']:.1f}%; dropped fraction per layer "
+            f"{[round(x, 4) for x in dropped]}, balance loss {[round(x, 4) for x in balance]}; "
+            f"loss {float(losses[-1]):.4f}; card {smi}")
+        if not all(math.isfinite(float(x)) for x in losses) or len(dropped) != len(model.h):
+            raise AssertionError(f"[lm] MoE {label}: {moe[label]}")
+        del model, step
+        torch.cuda.empty_cache()
+    rep = {}
+    loss = tfm.train_and_eval({"lr": 1e-3, "warmup": 2, "dropout": 0.1, "n_experts": 8},
+                              steps=10, device="cuda", report=rep)
+    moe["transformer_base"] = {"loss": loss, "ms_per_step": rep["train_s"] / rep["steps"] * 1e3,
+                               "first_loss": rep["losses"][0]}
+    log(f"[lm] Transformer-base with 8-expert MoE feed-forwards, in-process train_and_eval, "
+        f"10 steps: loss {rep['losses'][0]:.4f} -> {loss:.4f}, "
+        f"{moe['transformer_base']['ms_per_step']:.3f} ms/step")
+    if not math.isfinite(loss):
+        raise AssertionError("[lm] Transformer-base with MoE: a non-finite loss")
+    out["moe"] = moe
+    restore_counts()
+    torch.cuda.empty_cache()
+    mark("moe")
+
+    # -- (d) the blocked xent on the card ------------------------------------
+    xr = lm_xent_paths(torch, xent, tfm, smi)
+    b, m_ = xr["blocked"], xr["materialized"]
+    log(f"[lm] blocked xent at N {LM_XENT[0]} x V {LM_XENT[1]} x D {LM_XENT[2]} (bf16 in, "
+        f"{xr['logits_bytes'] / 2**30:.1f} GiB of f32 logits, block_v "
+        f"{xr['shape']['block_v']}): forward + backward {b['ms']:.2f} ms, +"
+        f"{b['peak_added_bytes'] / 2**30:.3f} GiB at its peak; materialized {m_['ms']:.2f} ms, +"
+        f"{m_['peak_added_bytes'] / 2**30:.3f} GiB; losses differ by "
+        f"{xr['loss_max_abs_diff']:.2e}, dY by {xr['dy_rel_to_scale']:.2e} and dEmb by "
+        f"{xr['demb_rel_to_scale']:.2e} of their scale; TF32 on against off: "
+        f"{xr['tf32_on_vs_off']}; card {smi}")
+    if not (xr["loss_max_abs_diff"] <= 1e-3 and xr["dy_rel_to_scale"] <= 3e-2
+            and xr["demb_rel_to_scale"] <= 3e-2):
+        raise AssertionError(f"[lm] the blocked xent disagrees with the materialized: {xr}")
+    torch.cuda.empty_cache()
+    batch, seq, vocab = LM_BIG_VOCAB
+    model, step, stats = lm_model_and_step(torch, lm, tfm, {"dropout": 0.1}, batch, seq, vocab)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = step()
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    xr["lm_step"] = {"batch": batch, "seq": seq, "vocab": vocab, "ms": big_ms,
+                     "blocked_route": stats["blocked_xent"],
+                     "loss": float(loss), "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[lm] LM step at vocab {vocab}, batch {batch} x {seq}: blocked route "
+        f"{stats['blocked_xent']}, {big_ms:.2f} ms, "
+        f"peak memory {xr['lm_step']['peak_mem_bytes'] / 2**30:.3f} GiB, loss {float(loss):.4f}")
+    if not stats["blocked_xent"] or not math.isfinite(float(loss)):
+        raise AssertionError(f"[lm] the vocab-{vocab} step did not take the blocked route: "
+                             f"{xr['lm_step']}")
+    out["xent"] = xr
+    del model, step
+    restore_counts()
+    torch.cuda.empty_cache()
+    mark("xent")
+
+    # -- (e) lm_causal.py through hunt --n-chips 1 ----------------------------
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    # TMPDIR: the hunt's GPU registry file is this phase's own
+    env = dict(os.environ, TMPDIR=str(root))
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    ledger, ckpt = f"file:{root / 'ledger'}", root / "ckpt"
+    try:
+        summary, wall = run_cli(
+            ["hunt", "-n", "lm", "--n-chips", "1", "--max-trials", str(LM_CLI_TRIALS),
+             "--ledger", ledger, "--ckpt-root", str(ckpt),
+             "--config", str(examples / "tpe.json"), str(examples / "lm_causal.py"),
+             "--d-model", "512", "--d-ff", "2048", "--seq-len", str(LM_SEQ)]
+            + [f"--{k}~{v}" for k, v in LM_PRIORS.items()],
+            root, env, LM_CLI_TRIALS, 1, LM_TRIAL_S)
+        trials = sorted(FileLedger(str(root / "ledger")).fetch("lm"),
+                        key=lambda t: t.start_time or 0)
+        done = [t for t in trials if t.status == "completed"]
+        name = torch.cuda.get_device_name(0)
+        stats = [statistics_of(t) for t in done]
+        space = build_space(LM_PRIORS)
+        registry = json.loads((root / "metaopt_tpu_torch-gpus-1.json").read_text())
+        published = {t.id: has_state(str(ckpt / t.id / tfm.CKPT_FILE)) for t in done}
+        problems = []
+        if len(done) != LM_CLI_TRIALS or summary["total"] != {"completed": LM_CLI_TRIALS}:
+            problems.append(f"{[(t.status, t.objective) for t in trials]}")
+        if not all(math.isfinite(t.objective) for t in done):
+            problems.append("a non-finite objective")
+        if not all(t.params in space for t in done):
+            problems.append("a point outside the space")
+        if not all(st.get("device") == name for st in stats):
+            problems.append(f"devices {sorted({str(st.get('device')) for st in stats})}")
+        if not all(published.values()):
+            problems.append(f"checkpoints published: {published}")
+        if registry != {"claims": {}}:
+            problems.append(f"the GPU registry still holds {registry}")
+        if problems:
+            raise AssertionError(f"[lm] lm_causal.py through the CLI: {problems}")
+        rows = []
+        for t, st in zip(done, stats):
+            trial_s = t.end_time - t.start_time
+            parts = {k: st[k] for k in ("first_device_op_s", "setup_s", "train_s", "save_s")}
+            rows.append({"n_layers": t.params["n-layers"], "trial_s": trial_s, **parts,
+                         "rest_s": trial_s - sum(parts.values()),
+                         "ms_per_step": st["ms_per_step"], "loss": t.objective})
+        keys = ("trial_s", "first_device_op_s", "setup_s", "train_s", "save_s", "rest_s")
+        total = {k: sum(r[k] for r in rows) for k in keys}
+        out["cli"] = {
+            "trials": len(done), "hunt_wall_s": wall, "trials_per_hour": len(done) / wall * 3600,
+            "sum": total, "share": {k: total[k] / total["trial_s"] for k in keys[1:]},
+            "per_trial": rows, "best": summary["best"]["objective"], "device": name,
+            "producer_timings": summary["producer_timings"],
+        }
+        log(f"[lm] lm_causal.py through hunt --n-chips 1 (tpe.json: 10 initial points, so all "
+            f"{len(done)} trials are TPE's random draws), d_model 512, d_ff 2048, seq {LM_SEQ}, "
+            f"80 steps: {len(done)} trials completed on {name}, finite, checkpoints published, "
+            f"registry empty; {wall:.2f} s = {len(done) / wall * 3600:.1f} trials/hour; best loss "
+            f"{summary['best']['objective']:.4f}")
+        log(f"[lm] summed over trials: ledger wall {total['trial_s']:.2f} s = "
+            + ", ".join(f"{k[:-2]} {total[k]:.2f} s ({100 * total[k] / total['trial_s']:.1f}%)"
+                        for k in keys[1:]))
+        for r in rows:
+            log(f"[lm]   {r['n_layers']} layer(s): trial {r['trial_s']:.2f} s = start -> first "
+                f"CUDA op {r['first_device_op_s']:.2f} + setup {r['setup_s']:.2f} + training "
+                f"{r['train_s']:.2f} ({r['ms_per_step']:.2f} ms/step) + checkpoint "
+                f"{r['save_s']:.2f} + rest {r['rest_s']:.2f}; loss {r['loss']:.4f}; card {smi}")
+    except BaseException:
+        log_ledger(root / "ledger")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mark("cli")
+    out["part_s"] = part_s
+    log("[lm] seconds per part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2583,6 +3103,10 @@ def main() -> int:
     # -- 13. CMA-ES, DEHB, grid search, gradient descent, MOTPE ----------------
     algos_stats = algos_phase(torch, smi)
     mark("algos")
+
+    # -- 14. the decoder-only LM, MoE, the blocked xent, remat ------------------
+    lm_stats = lm_phase(torch, smi)
+    mark("lm")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -2602,6 +3126,17 @@ def main() -> int:
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": err, **row, "long": long_row,
             })
+        # the LM path (dropout 0.1): launches of its timed and traced steps,
+        # and the traced device ms of each kernel there (B 32, S 512, causal)
+        lm_step = lm_stats["step"]["plain"]
+        kernels[-1]["lm"] = {
+            "launches": lm_step["launches"][name],
+            "launches_per_step": lm_step["launches_per_step"][name],
+            "remat_launches_per_step": lm_stats["step"]["remat"]["launches_per_step"][name],
+            "ms_per_step": sum(ms for key, ms, _ in lm_step["flash"] if f"{name}_kernel" in key),
+        }
+        kernels[-1]["lm"]["ms_per_launch"] = (kernels[-1]["lm"]["ms_per_step"]
+                                              / kernels[-1]["lm"]["launches_per_step"])
         kernels[-2]["max_abs_err_by_case"] = case_err[name]
     print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,
                       "phase_s": phase_s,
@@ -2617,6 +3152,7 @@ def main() -> int:
     print(json.dumps({"wmt": wmt_stats}), flush=True)
     print(json.dumps({"pbt": pbt_stats}), flush=True)
     print(json.dumps({"algos": algos_stats}), flush=True)
+    print(json.dumps({"lm": lm_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

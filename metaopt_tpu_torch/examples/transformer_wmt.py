@@ -54,7 +54,7 @@ def main():
     p.add_argument("--ep", type=int, default=1,
                    help=">1 carves an expert-parallel mesh axis (not ported: raises)")
     p.add_argument("--n-experts", dest="n_experts", type=int, default=0,
-                   help=">0 swaps FFNs for a MoE (not ported: raises)")
+                   help=">0 swaps FFNs for a top-1-routed MoE with this many experts")
     p.add_argument("--steps-per-epoch", type=int, default=50)
     p.add_argument("--d-model", dest="d_model", type=int, default=512,
                    help="model width (smoke runs shrink the base config)")

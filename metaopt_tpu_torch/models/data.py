@@ -1,7 +1,8 @@
 """Synthetic on-device datasets (port of ``metaopt_tpu/models/data.py``).
 
-Trimmed to :func:`synthetic_images` (the MLP objective's data) and
-:func:`synthetic_seq2seq` (the Transformer's). Data is generated directly
+Trimmed to :func:`synthetic_images` (the MLP objective's data),
+:func:`synthetic_seq2seq` (the Transformer's) and :func:`synthetic_lm` (the
+decoder-only LM's). Data is generated directly
 on the device with an explicit ``torch.Generator``; it keeps the
 reference's semantics but not its bits (torch's generators, not
 threefry), so tests feed both packages the same numpy data.
@@ -58,3 +59,28 @@ def synthetic_seq2seq(
     teacher = torch.Generator(device=device).manual_seed(teacher_seed)
     perm = torch.randperm(vocab, generator=teacher, device=device)
     return src, perm[src]
+
+
+def synthetic_lm(
+    n: int,
+    seq_len: int = 64,
+    vocab: int = 1000,
+    seed: int = 0,
+    teacher_seed: int = 7,
+    device: Union[str, torch.device] = "cuda",
+) -> torch.Tensor:
+    """Permutation-walk token streams (n, seq_len): ``x[t+1] = perm[x[t]]``
+    from a random start, a one-step Markov map over [2, vocab), so next-token
+    prediction is exactly learnable and 0 = pad / 1 = bos never appear. The
+    permutation is keyed by ``teacher_seed`` alone, so separate train and
+    validation draws share one "language"."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tok = torch.randint(2, vocab, (n,), generator=gen, device=device)
+    teacher = torch.Generator(device=device).manual_seed(teacher_seed)
+    perm = 2 + torch.randperm(vocab - 2, generator=teacher, device=device)
+    cols = [tok]
+    for _ in range(seq_len - 1):
+        tok = perm[tok - 2]
+        cols.append(tok)
+    return torch.stack(cols, dim=1)

@@ -32,16 +32,33 @@ The port matches the reference's numerics where the two frameworks differ:
   through one seam, :class:`Draws` (generators seeded from (seed, step),
   as the reference folds the step into its key) or :class:`GivenDraws`
   (the tests' and ``chip_smoke.py``'s injected masks);
+- each layer's draws are taken before the layer runs (:class:`LayerDraws`)
+  and replayed inside it, so that ``remat`` (``torch.utils.checkpoint``,
+  non-reentrant, per layer; flax's ``nn.remat``) recomputes the forward's
+  dropout exactly: the generators are not pure, as flax's keys are, and a
+  recompute drawing afresh would give the backward other masks than the
+  forward. Under remat K1 runs twice per layer and train step;
+- ``n_experts > 0`` turns every FFN into a top-k-routed MoE
+  (:mod:`metaopt_tpu_torch.models.moe`), whose switch balance loss joins the
+  loss with weight ``moe_aux_weight`` (0.01), as the reference's
+  ``aux_loss`` collection does;
+- the loss routes through the blocked cross-entropy
+  (:mod:`metaopt_tpu_torch.ops.xent`) where the f32 logits would take at
+  least 4 GiB (:func:`blocked_xent_enabled`, the reference's threshold, so
+  the same shapes take the same route); the model then returns its
+  pre-readout features and the (B, T, V) logits never exist;
 - the optimizer is ``optax.adamw`` over the reference's schedule, written
   in ``torch._foreach`` ops (:class:`ScheduledAdamW`): ``torch.optim``'s
   first optimizer imports ``torch._dynamo``, ~11 s per trial process.
+  (``torch.utils.checkpoint`` imports it at its first call too: a trial
+  pays that only with remat on, and no example turns it on.)
 
-:func:`params_from_flax` converts the reference's parameter tree so both
-packages compute the same function in the tests. Trial checkpoints
-(``train_and_eval(restore_dir=..., save_dir=...)``) are the port's own
-format (:mod:`metaopt_tpu_torch.models.checkpoint`), not orbax. Not ported
-yet (queued in ROADMAP.md): the dp/tp/sp/ep meshes, MoE FFNs, ``remat``
-and the blocked xent.
+:func:`params_from_flax` converts the reference's parameter tree (this
+Transformer's or the decoder-only LM's) so both packages compute the same
+function in the tests. Trial checkpoints (``train_and_eval(restore_dir=...,
+save_dir=...)``) are the port's own format
+(:mod:`metaopt_tpu_torch.models.checkpoint`), not orbax. Not ported yet
+(queued in ROADMAP.md): the dp/tp/sp/ep meshes.
 """
 
 from __future__ import annotations
@@ -49,16 +66,18 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from metaopt_tpu_torch.models.checkpoint import has_state, restore_state, save_state
 from metaopt_tpu_torch.models.data import synthetic_seq2seq
-from metaopt_tpu_torch.ops.attention import flash_attention
+from metaopt_tpu_torch.ops.attention import draw_seed, flash_attention
+from metaopt_tpu_torch.ops.xent import blocked_softmax_xent, pick_block_v
 from metaopt_tpu_torch.utils.device import resolve_device
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -83,6 +102,13 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x.bfloat16(), layer.weight.bfloat16()) + layer.bias.bfloat16()
 
 
+def _check_mask(mask: torch.Tensor, shape) -> torch.Tensor:
+    if tuple(mask.shape) != tuple(shape):
+        raise ValueError(f"given mask of shape {tuple(mask.shape)}, the layer needs "
+                         f"{tuple(shape)}")
+    return mask
+
+
 class Draws:
     """Every random draw of one train step: the attention kernels' Philox
     seeds from a CPU generator (a draw costs no device sync) and the
@@ -96,29 +122,82 @@ class Draws:
         self.device = torch.device(device)
         self._ffn = torch.Generator(device=self.device).manual_seed(key)
 
+    def attention_draw(self) -> Dict[str, Any]:
+        """``flash_attention``'s dropout input for one call: a Philox pair."""
+        return {"philox": draw_seed(self.attention)}
+
     def ffn_keep(self, shape, keep: float) -> torch.Tensor:
         return torch.rand(shape, generator=self._ffn, device=self.device) < keep
 
 
 class GivenDraws:
     """Draws fixed in advance: ``ffn_masks``, one keep mask per feed-forward
-    layer in the order they run (encoder layers, then decoder layers), and
-    the attention seeds from a CPU generator seeded with ``attention_seed``."""
+    dropout in the order they run (encoder layers, then decoder layers; a
+    MoE layer's dense oracle draws one per routing choice), and the
+    attention seeds from a CPU generator seeded with ``attention_seed`` or,
+    where ``attention_keep`` is given (CPU only), one (B, H, Sq, Sk) keep
+    mask per attention call in the order they run (the tests inject the
+    reference's own bits)."""
 
-    def __init__(self, ffn_masks: Sequence[Any], attention_seed: int, device):
+    def __init__(self, ffn_masks: Sequence[Any], attention_seed: int, device,
+                 attention_keep: Optional[Sequence[Any]] = None):
         dev = torch.device(device)
         self._masks = [torch.as_tensor(np.asarray(m), dtype=torch.bool).to(dev)
                        for m in ffn_masks]
         self._next = 0
         self.attention = torch.Generator().manual_seed(int(attention_seed))
+        self._keep = None if attention_keep is None else [
+            torch.as_tensor(np.asarray(m), dtype=torch.bool).to(dev) for m in attention_keep]
+
+    def attention_draw(self) -> Dict[str, Any]:
+        if self._keep is None:
+            return {"philox": draw_seed(self.attention)}
+        return {"keep": self._keep.pop(0)}
 
     def ffn_keep(self, shape, keep: float) -> torch.Tensor:
         mask = self._masks[self._next]
         self._next += 1
-        if tuple(mask.shape) != tuple(shape):
-            raise ValueError(f"given mask of shape {tuple(mask.shape)}, the layer needs "
-                             f"{tuple(shape)}")
-        return mask
+        return _check_mask(mask, shape)
+
+
+class LayerDraws:
+    """One layer's draws, taken from a step's draws before the layer runs:
+    the attention inputs of its ``n_attention`` calls and its feed-forward
+    masks. Each :meth:`replay` hands them out again in the same order, so a
+    recompute under remat sees the forward's masks and seeds."""
+
+    def __init__(self, attention: Sequence[Dict[str, Any]], ffn: Sequence[torch.Tensor]):
+        self._attention, self._ffn = list(attention), list(ffn)
+        self._a = self._f = 0
+
+    @classmethod
+    def take(cls, draws, n_attention: int, mask_shapes: Sequence[tuple],
+             keep: float) -> "LayerDraws":
+        return cls([draws.attention_draw() for _ in range(n_attention)],
+                   [draws.ffn_keep(shape, keep) for shape in mask_shapes])
+
+    def replay(self) -> "LayerDraws":
+        return LayerDraws(self._attention, self._ffn)
+
+    def attention_draw(self) -> Dict[str, Any]:
+        self._a += 1
+        return self._attention[self._a - 1]
+
+    def ffn_keep(self, shape, keep: float) -> torch.Tensor:
+        self._f += 1
+        return _check_mask(self._ffn[self._f - 1], shape)
+
+
+def ffn_dropout(h: torch.Tensor, rate: float, draws) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode (``draws`` given): kept activations
+    over keep_prob, the rest 0. flax divides the bf16 activations by its
+    weak-typed keep_prob, which takes their dtype first: keep_prob is
+    rounded to bf16 before the division."""
+    if draws is None or rate <= 0.0:
+        return h
+    keep = 1.0 - rate
+    divisor = float(torch.tensor(keep, dtype=h.dtype))
+    return torch.where(draws.ffn_keep(h.shape, keep), h / divisor, torch.zeros_like(h))
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -157,7 +236,7 @@ class MHA(nn.Module):
             m3 = mask[:, 0].to(torch.int8).expand(b, sq, sk)
         rate = self.dropout if draws is not None else 0.0
         out = flash_attention(q, k, v, m3, dropout_rate=rate,
-                              generator=draws.attention if rate > 0.0 else None)
+                              **(draws.attention_draw() if rate > 0.0 else {}))
         return _dense(self.out, out.reshape(b, sq, -1))
 
 
@@ -168,49 +247,112 @@ class FeedForward(nn.Module):
         self.wo = nn.Linear(d_ff, d_model)
         self.dropout = dropout
 
-    def forward(self, x, draws=None):
-        """flax ``nn.Dropout`` after the relu when ``draws`` is given: kept
-        activations over keep_prob, the rest 0. flax divides the bf16
-        activations by its weak-typed keep_prob, which takes their dtype
-        first: keep_prob is rounded to bf16 before the division."""
-        h = torch.relu(_dense(self.wi, x))
-        if draws is not None and self.dropout > 0.0:
-            keep = 1.0 - self.dropout
-            divisor = float(torch.tensor(keep, dtype=h.dtype))
-            h = torch.where(draws.ffn_keep(h.shape, keep), h / divisor, torch.zeros_like(h))
+    def mask_shapes(self, b: int, s: int) -> List[tuple]:
+        """The dropout masks one call on a (b, s, d) input draws, in order."""
+        return [(b, s, self.wo.in_features)] if self.dropout > 0.0 else []
+
+    def forward(self, x, draws=None, aux=None):
+        """``nn.Dropout`` after the relu when ``draws`` is given
+        (:func:`ffn_dropout`). ``aux`` is the MoE's statistics sink, unused
+        here."""
+        h = ffn_dropout(torch.relu(_dense(self.wi, x)), self.dropout, draws)
         return _dense(self.wo, h)
 
 
+def _make_mlp(d_model: int, d_ff: int, dropout: float, n_experts: int,
+              capacity_factor: float, router_top_k: int) -> nn.Module:
+    if n_experts > 0:
+        from metaopt_tpu_torch.models.moe import MoEFeedForward
+
+        return MoEFeedForward(d_model, d_ff, n_experts, dropout, capacity_factor,
+                              router_top_k)
+    return FeedForward(d_model, d_ff, dropout)
+
+
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0):
+    n_attention = 1  # attention calls per forward
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0,
+                 n_experts: int = 0, capacity_factor: float = 1.25, router_top_k: int = 1):
         super().__init__()
+        self.dropout = dropout
         self.ln1 = nn.LayerNorm(d_model)
         self.self_attn = MHA(d_model, n_heads, dropout)
         self.ln2 = nn.LayerNorm(d_model)
-        self.mlp = FeedForward(d_model, d_ff, dropout)
+        self.mlp = _make_mlp(d_model, d_ff, dropout, n_experts, capacity_factor, router_top_k)
 
-    def forward(self, x, pad_mask, draws=None):
+    def forward(self, x, pad_mask, draws=None, aux=None):
         y = _layer_norm(self.ln1, x)
         x = x + self.self_attn(y, y, pad_mask, draws)
-        return x + self.mlp(_layer_norm(self.ln2, x), draws)
+        return x + self.mlp(_layer_norm(self.ln2, x), draws, aux)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0):
+    n_attention = 2
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0,
+                 n_experts: int = 0, capacity_factor: float = 1.25, router_top_k: int = 1):
         super().__init__()
+        self.dropout = dropout
         self.ln1 = nn.LayerNorm(d_model)
         self.self_attn = MHA(d_model, n_heads, dropout)
         self.ln2 = nn.LayerNorm(d_model)
         self.cross_attn = MHA(d_model, n_heads, dropout)
         self.ln3 = nn.LayerNorm(d_model)
-        self.mlp = FeedForward(d_model, d_ff, dropout)
+        self.mlp = _make_mlp(d_model, d_ff, dropout, n_experts, capacity_factor, router_top_k)
 
-    def forward(self, x, enc, causal_mask, cross_mask, draws=None):
+    def forward(self, x, enc, causal_mask, cross_mask, draws=None, aux=None):
         y = _layer_norm(self.ln1, x)
         x = x + self.self_attn(y, y, causal_mask, draws)
         y = _layer_norm(self.ln2, x)
         x = x + self.cross_attn(y, enc, cross_mask, draws)
-        return x + self.mlp(_layer_norm(self.ln3, x), draws)
+        return x + self.mlp(_layer_norm(self.ln3, x), draws, aux)
+
+
+def run_layer(layer: nn.Module, x: torch.Tensor, args: Tuple, draws, aux, remat: bool):
+    """``layer(x, *args, ...)`` with its draws taken first (see
+    :class:`LayerDraws`); under ``remat`` inside a non-reentrant
+    ``torch.utils.checkpoint``, which keeps only the layer's inputs and
+    recomputes its forward in the backward. The MoE statistics the layer
+    appends to ``aux`` leave the checkpoint as outputs of its first run."""
+    fixed = None
+    if draws is not None:
+        fixed = LayerDraws.take(draws, layer.n_attention if layer.dropout > 0.0 else 0,
+                                layer.mlp.mask_shapes(x.shape[0], x.shape[1]),
+                                1.0 - layer.dropout)
+    if not remat:
+        return layer(x, *args, fixed, aux)
+    keys: List[str] = []
+
+    def run(x, *args):
+        local = None if aux is None else {}
+        out = layer(x, *args, None if fixed is None else fixed.replay(), local)
+        flat = [(key, t) for key, ts in (local or {}).items() for t in ts]
+        keys[:] = [key for key, _ in flat]
+        return (out, *(t for _, t in flat))
+
+    outs = checkpoint(run, x, *args, use_reentrant=False, preserve_rng_state=False)
+    for key, t in zip(keys, outs[1:]):
+        aux.setdefault(key, []).append(t)
+    return outs[0]
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialize ``model`` (with ``embed`` and ``pos_embed``) in flax's
+    distributions from ``generator``."""
+    from metaopt_tpu_torch.models.moe import MoEFeedForward
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            init_dense_like_flax(mod, generator)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, MoEFeedForward):
+            mod.init_tables_like_flax(generator)
+    nn.init.normal_(model.embed.weight, 0.0, 1.0, generator=generator)
+    nn.init.normal_(model.pos_embed, 0.0, 0.02, generator=generator)
 
 
 class Transformer(nn.Module):
@@ -218,36 +360,34 @@ class Transformer(nn.Module):
 
     def __init__(self, vocab: int = 1000, d_model: int = 512, n_heads: int = 8,
                  n_layers: int = 6, d_ff: int = 2048, dropout: float = 0.1,
-                 max_len: int = 512):
+                 max_len: int = 512, n_experts: int = 0, capacity_factor: float = 1.25,
+                 router_top_k: int = 1, remat: bool = False):
         super().__init__()
         self.vocab = vocab
         self.max_len = max_len
+        self.remat = remat
+        moe = (n_experts, capacity_factor, router_top_k)
         self.embed = nn.Embedding(vocab, d_model)
         # zeros until init_like_flax or a loaded state: never uninitialized memory
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
         self.enc = nn.ModuleList(
-            EncoderLayer(d_model, n_heads, d_ff, dropout) for _ in range(n_layers))
+            EncoderLayer(d_model, n_heads, d_ff, dropout, *moe) for _ in range(n_layers))
         self.enc_ln = nn.LayerNorm(d_model)
         self.dec = nn.ModuleList(
-            DecoderLayer(d_model, n_heads, d_ff, dropout) for _ in range(n_layers))
+            DecoderLayer(d_model, n_heads, d_ff, dropout, *moe) for _ in range(n_layers))
         self.dec_ln = nn.LayerNorm(d_model)
 
-    @torch.no_grad()
     def init_like_flax(self, generator: torch.Generator) -> "Transformer":
         """Re-initialize in flax's distributions from ``generator``."""
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                init_dense_like_flax(mod, generator)
-            elif isinstance(mod, nn.LayerNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
-        nn.init.normal_(self.embed.weight, 0.0, 1.0, generator=generator)
-        nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
+        init_like_flax(self, generator)
         return self
 
-    def forward(self, src, tgt_in, draws=None):
-        """Logits (B, T, vocab) f32. ``draws`` given: training, with dropout
-        drawn from it (the reference's ``train=True``); else deterministic."""
+    def forward(self, src, tgt_in, draws=None, *, features: bool = False, aux=None):
+        """Logits (B, T, vocab) f32, or with ``features`` the pre-readout
+        features (B, T, d) f32 for the blocked xent. ``draws`` given:
+        training, with dropout drawn from it (the reference's ``train=True``);
+        else deterministic. ``aux``, a dict, receives the MoE layers'
+        ``aux_loss`` and ``moe_stats`` lists."""
         s_len, t_len = src.shape[1], tgt_in.shape[1]
         if max(s_len, t_len) > self.max_len:
             raise ValueError(
@@ -264,28 +404,29 @@ class Transformer(nn.Module):
         pos = self.pos_embed.bfloat16()
         x = emb[src] + pos[None, :s_len]
         for layer in self.enc:
-            x = layer(x, src_pad, draws)
+            x = run_layer(layer, x, (src_pad,), draws, aux, self.remat)
         enc = _layer_norm(self.enc_ln, x).bfloat16()
 
         y = emb[tgt_in] + pos[None, :t_len]
         for layer in self.dec:
-            y = layer(y, enc, causal_mask, src_pad, draws)
+            y = run_layer(layer, y, (enc, causal_mask, src_pad), draws, aux, self.remat)
         y = _layer_norm(self.dec_ln, y)
-        # weight-tied readout: bf16 features against the f32 table, in f32
-        return y.bfloat16().float() @ self.embed.weight.t()
+        return y if features else tied_readout(y, self.embed.weight)
+
+
+def tied_readout(y: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The weight-tied readout ``einsum("btd,vd->btv", bf16(y), table)`` with
+    the f32 table, which jnp promotes to an f32 product of the bf16-rounded
+    features (in f32 on the card: the port leaves TF32 off)."""
+    return y.bfloat16().float() @ table.t()
 
 
 # ---------------------------------------------------------------------------
 
 
-def make_model(hparams: Optional[Dict[str, Any]] = None, **overrides) -> Transformer:
-    h = dict(hparams or {})
-    h.update(overrides)
-    if int(h.get("n_experts", 0)) > 0:
-        raise NotImplementedError("MoE feed-forward layers are not ported yet")
-    if bool(h.get("remat", False)):
-        raise NotImplementedError("remat is not ported yet")
-    return Transformer(
+def model_kwargs(h: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's ``make_model``/``make_lm`` hyperparameters and defaults."""
+    return dict(
         vocab=int(h.get("vocab", 1000)),
         d_model=int(h.get("d_model", 512)),
         n_heads=int(h.get("n_heads", 8)),
@@ -293,14 +434,28 @@ def make_model(hparams: Optional[Dict[str, Any]] = None, **overrides) -> Transfo
         d_ff=int(h.get("d_ff", 2048)),
         dropout=float(h.get("dropout", 0.1)),
         max_len=int(h.get("max_len", 512)),
+        n_experts=int(h.get("n_experts", 0)),
+        capacity_factor=float(h.get("capacity_factor", 1.25)),
+        router_top_k=int(h.get("router_top_k", 1)),
+        remat=bool(h.get("remat", False)),
     )
 
 
+def make_model(hparams: Optional[Dict[str, Any]] = None, **overrides) -> Transformer:
+    h = dict(hparams or {})
+    h.update(overrides)
+    return Transformer(**model_kwargs(h))
+
+
 def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The reference's flax parameter tree (numpy leaves) → a state_dict.
+    """The reference's flax parameter tree (numpy leaves) → a state_dict, for
+    the Transformer (``enc{i}``, ``dec{i}``) or the decoder-only LM
+    (``h{i}``, ``ln_f``).
 
     flax kernels are (in, ..., out); torch ``Linear`` weights are (out, in).
     The per-head kernels (d, H, Dh) and (H, Dh, d) flatten over the heads.
+    A MoE layer's router is a ``Linear``; its expert tables ``wi`` (E, d, f)
+    and ``wo`` (E, f, d) keep flax's layout.
     """
     def arr(x):
         x = getattr(x, "value", x)  # a boxed (partitioned) leaf
@@ -323,17 +478,25 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             dense(f"{prefix}.{name}", p[name])
         dense(f"{prefix}.out", p["out"], in_axes=2)
 
+    def mlp(prefix, p):
+        if "router" in p:
+            dense(f"{prefix}.router", p["router"])
+            sd[f"{prefix}.wi"], sd[f"{prefix}.wo"] = arr(p["wi"]), arr(p["wo"])
+        else:
+            dense(f"{prefix}.wi", p["wi"])
+            dense(f"{prefix}.wo", p["wo"])
+
     sd["embed.weight"] = arr(flax_params["embed"]["embedding"])
     sd["pos_embed"] = arr(flax_params["pos_embed"])
-    i = 0
-    while f"enc{i}" in flax_params:
-        p = flax_params[f"enc{i}"]
-        ln(f"enc.{i}.ln1", p["ln1"])
-        mha(f"enc.{i}.self_attn", p["self_attn"])
-        ln(f"enc.{i}.ln2", p["ln2"])
-        dense(f"enc.{i}.mlp.wi", p["mlp"]["wi"])
-        dense(f"enc.{i}.mlp.wo", p["mlp"]["wo"])
-        i += 1
+    for name in ("enc", "h"):  # encoder layers, or the LM's blocks
+        i = 0
+        while f"{name}{i}" in flax_params:
+            p = flax_params[f"{name}{i}"]
+            ln(f"{name}.{i}.ln1", p["ln1"])
+            mha(f"{name}.{i}.self_attn", p["self_attn"])
+            ln(f"{name}.{i}.ln2", p["ln2"])
+            mlp(f"{name}.{i}.mlp", p["mlp"])
+            i += 1
     i = 0
     while f"dec{i}" in flax_params:
         p = flax_params[f"dec{i}"]
@@ -341,25 +504,70 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             ln(f"dec.{i}.{n}", p[n])
         mha(f"dec.{i}.self_attn", p["self_attn"])
         mha(f"dec.{i}.cross_attn", p["cross_attn"])
-        dense(f"dec.{i}.mlp.wi", p["mlp"]["wi"])
-        dense(f"dec.{i}.mlp.wo", p["mlp"]["wo"])
+        mlp(f"dec.{i}.mlp", p["mlp"])
         i += 1
-    ln("enc_ln", flax_params["enc_ln"])
-    ln("dec_ln", flax_params["dec_ln"])
+    for name in ("enc_ln", "dec_ln", "ln_f"):
+        if name in flax_params:
+            ln(name, flax_params[name])
     return sd
 
 
-def loss_fn(model: Transformer, batch, draws=None) -> torch.Tensor:
-    """Masked token-mean cross-entropy; ``tgt_in = [bos] ++ tgt[:, :-1]``.
-    ``draws`` given: in training mode, dropout drawn from it."""
+#: materialized f32 (B, T, V) logits size from which the losses take the
+#: blocked xent: the reference's threshold, so that the same shapes take the
+#: same route in both packages
+_BLOCKED_XENT_MIN_LOGITS_BYTES = 4 << 30
+
+
+def blocked_xent_enabled(batch: int, seq: int, vocab: int, shards: int = 1) -> bool:
+    """True when the losses fold the readout into the blocked xent: the
+    f32 logits per device, ``4 · batch · seq · vocab / shards`` bytes, reach
+    ``4 << 30``. The port has no mesh, so ``shards`` (the ways the batch
+    dims are split) is 1 unless a caller says otherwise."""
+    return 4 * batch * seq * vocab // max(shards, 1) >= _BLOCKED_XENT_MIN_LOGITS_BYTES
+
+
+def readout_xent(out: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+                 vocab: int, blocked: bool) -> torch.Tensor:
+    """Per-token xent against the tied embedding ``table``. ``out`` is the
+    pre-readout features when ``blocked`` (the (B, T, V) logits never
+    exist: bf16 features and a bf16 copy of the table go through
+    :func:`blocked_softmax_xent`), else the f32 logits."""
+    if blocked:
+        feats = out.reshape(-1, out.shape[-1]).bfloat16()
+        return blocked_softmax_xent(feats, table.bfloat16(), labels.reshape(-1),
+                                    pick_block_v(vocab)).view_as(labels)
+    return F.cross_entropy(out.reshape(-1, out.shape[-1]), labels.reshape(-1),
+                           reduction="none").view_as(labels)
+
+
+def masked_mean_with_aux(loss: torch.Tensor, mask: torch.Tensor,
+                         aux: Mapping[str, Sequence[torch.Tensor]],
+                         moe_aux_weight: float) -> torch.Tensor:
+    """Masked token mean plus the MoE switch load-balancing terms."""
+    total = (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    terms = aux.get("aux_loss", [])
+    if terms:
+        total = total + moe_aux_weight * sum(t.sum() for t in terms)
+    return total
+
+
+def loss_fn(model: Transformer, batch, draws=None, moe_aux_weight: float = 0.01,
+            stats: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Masked token-mean cross-entropy; ``tgt_in = [bos] ++ tgt[:, :-1]``,
+    plus ``moe_aux_weight`` times the MoE balance losses. ``draws`` given:
+    in training mode, dropout drawn from it. ``stats``, a dict, receives
+    ``blocked_xent`` (the route taken) and the MoE layers' ``aux_loss`` and
+    ``moe_stats`` lists."""
     src, tgt = batch
     bos = torch.ones_like(tgt[:, :1])
     tgt_in = torch.cat([bos, tgt[:, :-1]], dim=1)
-    logits = model(src, tgt_in, draws)
-    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           tgt.reshape(-1), reduction="none").view_as(tgt)
-    mask = (tgt != 0).float()
-    return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    blocked = blocked_xent_enabled(tgt.shape[0], tgt.shape[1], model.vocab)
+    aux: Dict[str, List[torch.Tensor]] = {}
+    out = model(src, tgt_in, draws, features=blocked, aux=aux)
+    if stats is not None:
+        stats.update(aux, blocked_xent=blocked)
+    loss = readout_xent(out, model.embed.weight, tgt, model.vocab, blocked)
+    return masked_mean_with_aux(loss, (tgt != 0).float(), aux, moe_aux_weight)
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,

@@ -307,13 +307,22 @@ def flash_fwd_plain(q, k, v, mask=None, block_k: int = 128, dropout_rate: float 
     return out, lse
 
 
+def _check_keep(name: str, q: torch.Tensor, keep: Optional[torch.Tensor]) -> None:
+    if keep is not None and q.device.type != "cpu":
+        raise ValueError(f"{name}: injected keep bits run only in the plain version "
+                         f"(CPU tensors); the kernel draws its own from (seed, offset)")
+
+
 def flash_fwd(q, k, v, mask=None, block_k: int = 128, dropout_rate: float = 0.0,
-              seed: int = 0, offset: int = 0):
-    """K1: (out, lse). Launches the kernel for CUDA tensors, plain on the CPU."""
+              seed: int = 0, offset: int = 0, keep: Optional[torch.Tensor] = None):
+    """K1: (out, lse). Launches the kernel for CUDA tensors, plain on the CPU
+    (where ``keep`` may inject the keep bits, as ``flash_fwd_plain`` takes
+    them)."""
     _check(q, k, v, mask)
     _check_dropout(dropout_rate, seed, offset)
+    _check_keep("flash_fwd", q, keep)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, mask, block_k, dropout_rate, seed, offset)
+        return flash_fwd_plain(q, k, v, mask, block_k, dropout_rate, seed, offset, keep)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_fwd: no kernel for device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -396,14 +405,16 @@ def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, block_q: int = 128,
-                  dropout_rate: float = 0.0, seed: int = 0, offset: int = 0):
+                  dropout_rate: float = 0.0, seed: int = 0, offset: int = 0,
+                  keep: Optional[torch.Tensor] = None):
     """K2: (dk, dv). Launches the kernel for CUDA tensors, plain on the CPU."""
     _check(q, k, v, mask)
     _check_bwd(q, g, lse, delta)
     _check_dropout(dropout_rate, seed, offset)
+    _check_keep("flash_bwd_dkv", q, keep)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask, block_q,
-                                   dropout_rate, seed, offset)
+                                   dropout_rate, seed, offset, keep)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_bwd_dkv: no kernel for device {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
@@ -420,14 +431,16 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, block_q: int = 128,
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, block_k: int = 128,
-                 dropout_rate: float = 0.0, seed: int = 0, offset: int = 0):
+                 dropout_rate: float = 0.0, seed: int = 0, offset: int = 0,
+                 keep: Optional[torch.Tensor] = None):
     """K3: dq. Launches the kernel for CUDA tensors, plain on the CPU."""
     _check(q, k, v, mask)
     _check_bwd(q, g, lse, delta)
     _check_dropout(dropout_rate, seed, offset)
+    _check_keep("flash_bwd_dq", q, keep)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, mask, block_k,
-                                  dropout_rate, seed, offset)
+                                  dropout_rate, seed, offset, keep)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_bwd_dq: no kernel for device {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
@@ -448,22 +461,22 @@ def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, block_k: int = 128,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, block_q, block_k, dropout_rate, seed, offset):
+    def forward(ctx, q, k, v, mask, block_q, block_k, dropout_rate, seed, offset, keep):
         dropout = (dropout_rate, seed, offset)
-        out, lse = flash_fwd(q, k, v, mask, block_k, *dropout)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
+        out, lse = flash_fwd(q, k, v, mask, block_k, *dropout, keep)
+        ctx.save_for_backward(q, k, v, mask, out, lse, keep)
         ctx.blocks = (block_q, block_k)
         ctx.dropout = dropout  # the backward replays the forward's keep bits
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask, out, lse = ctx.saved_tensors
+        q, k, v, mask, out, lse, keep = ctx.saved_tensors
         block_q, block_k = ctx.blocks
         delta = attention_delta(g, out)
-        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, mask, block_q, *ctx.dropout)
-        dq = flash_bwd_dq(q, k, v, g, lse, delta, mask, block_k, *ctx.dropout)
-        return dq, dk, dv, None, None, None, None, None, None
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, mask, block_q, *ctx.dropout, keep)
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, mask, block_k, *ctx.dropout, keep)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -473,7 +486,8 @@ def flash_attention(
     mask: Optional[torch.Tensor] = None,
     *,
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    philox: Optional[Tuple[int, int]] = None,
+    keep: Optional[torch.Tensor] = None,
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
@@ -483,21 +497,25 @@ def flash_attention(
     optional (B, Sq, Sk), True/nonzero = attend, shared by the heads (a
     broadcast view is read through its strides, not copied). Returns (B, Sq,
     H, D) in q's dtype. ``dropout_rate`` > 0 drops attention probabilities
-    inside the kernels with a Philox (seed, offset) drawn from
-    ``generator``, a CPU ``torch.Generator`` (the draw needs no device
-    sync); the backward replays the same bits. ``block_q``/``block_k`` set
-    the plain versions' blocking (and so their summation order); the CUDA
-    kernels tile with their own fixed 64-row tiles.
+    inside the kernels with the Philox pair ``philox``, drawn by
+    :func:`draw_seed` from a CPU ``torch.Generator`` (the draw needs no
+    device sync); the backward replays the same bits. On CPU tensors ``keep``, (B, H, Sq, Sk)
+    bool, injects the keep bits instead (the tests feed the reference's).
+    ``block_q``/``block_k`` set the plain versions' blocking (and so their
+    summation order); the CUDA kernels tile with their own fixed 64-row
+    tiles.
     """
     seed = offset = 0
     if dropout_rate > 0.0:
-        if generator is None:
-            raise ValueError("dropout_rate > 0 needs a generator")
-        seed, offset = draw_seed(generator)
+        if (philox is None) == (keep is None):
+            raise ValueError("dropout_rate > 0 needs one of a philox (seed, offset) pair, "
+                             "drawn by draw_seed(generator), or keep bits")
+        if philox is not None:
+            seed, offset = philox
     if mask is not None and mask.dtype != torch.int8:
         mask = mask.to(torch.int8)
     return _FlashAttention.apply(q, k, v, mask, block_q, block_k, float(dropout_rate),
-                                 seed, offset)
+                                 seed, offset, keep if dropout_rate > 0.0 else None)
 
 
 def reference_attention(q, k, v, mask=None):

@@ -205,7 +205,8 @@ def test_mean_output_over_seeds_is_attention_without_dropout():
     m8 = torch.from_numpy(mask).to(torch.int8)
     clean = att.flash_attention(tq, tk, tv, m8).double()
     gen = torch.Generator().manual_seed(0)
-    runs = torch.stack([att.flash_attention(tq, tk, tv, m8, dropout_rate=0.3, generator=gen)
+    runs = torch.stack([att.flash_attention(tq, tk, tv, m8, dropout_rate=0.3,
+                                             philox=att.draw_seed(gen))
                         for _ in range(2000)]).double()
     mean, se = runs.mean(0), runs.std(0) / 2000 ** 0.5
     assert float(se.max()) > 1e-3          # the draws differ from seed to seed
@@ -223,7 +224,7 @@ def test_autograd_replays_the_forward_bits():
     seed, offset = att.draw_seed(torch.Generator().manual_seed(3))
     xs = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     out = att.flash_attention(*xs, m8, dropout_rate=rate,
-                              generator=torch.Generator().manual_seed(3), block_q=16,
+                              philox=att.draw_seed(torch.Generator().manual_seed(3)), block_q=16,
                               block_k=16)
     out.backward(tg)
 
@@ -246,7 +247,8 @@ def test_dropout_needs_a_cpu_generator_and_a_rate_below_one():
         att.flash_attention(q, k, v, dropout_rate=0.1)
     for rate in (1.0, -0.1):
         with pytest.raises(ValueError, match="dropout rate"):
-            att.flash_attention(q, k, v, dropout_rate=rate, generator=torch.Generator())
+            att.flash_attention(q, k, v, dropout_rate=rate,
+                                philox=att.draw_seed(torch.Generator()))
     with pytest.raises(ValueError, match="offset"):
         att.flash_fwd(q, k, v, dropout_rate=0.1, seed=1, offset=2 ** 32)
 
@@ -257,6 +259,6 @@ def test_cpu_dropout_calls_count_no_kernel_launches():
                      for a in make_inputs(14, 1, 8, 8, 2, 32, None))
     q.requires_grad_()
     att.flash_attention(q, k, v, dropout_rate=0.1,
-                        generator=torch.Generator().manual_seed(0)).sum().backward()
+                        philox=att.draw_seed(torch.Generator().manual_seed(0))).sum().backward()
     assert att.launches == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
     assert att.dropout_launches == att.launches

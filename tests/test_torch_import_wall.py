@@ -3,10 +3,11 @@
 An AST scan covers every file of ``metaopt_tpu_torch/`` and
 ``chip_smoke.py``; a subprocess (this test process already imported jax in
 tests/conftest.py) then makes those imports fail with a ``sys.meta_path``
-hook, imports every module of the port, runs one CPU ``workon`` of the
-Transformer, one of BOHB on PPO, one each of GP-BO and CMA-ES, and one
-``hunt`` of the port's Rosenbrock example through ``cli.main`` (its trial
-processes start outside the wall).
+hook, imports every module of the port (the decoder-only LM, the MoE and
+the blocked xent among them), runs one CPU ``workon`` of the Transformer,
+two steps of the MoE LM under remat, one ``workon`` of BOHB on PPO, one
+each of GP-BO and CMA-ES, and one ``hunt`` of the port's Rosenbrock example
+through ``cli.main`` (its trial processes start outside the wall).
 """
 
 import ast
@@ -61,7 +62,9 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/algo/motpe.py", "metaopt_tpu_torch/algo/grid_search.py",
                  "metaopt_tpu_torch/algo/gradient_descent.py",
                  "metaopt_tpu_torch/examples/multiobj.py",
-                 "metaopt_tpu_torch/examples/pbt_sgd.py"):
+                 "metaopt_tpu_torch/examples/pbt_sgd.py", "metaopt_tpu_torch/models/lm.py",
+                 "metaopt_tpu_torch/models/moe.py", "metaopt_tpu_torch/ops/xent.py",
+                 "metaopt_tpu_torch/examples/lm_causal.py"):
         assert must in names
 
 
@@ -85,6 +88,8 @@ mods = [m.name for m in pkgutil.walk_packages(metaopt_tpu_torch.__path__,
                                                "metaopt_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"metaopt_tpu_torch.models.lm", "metaopt_tpu_torch.models.moe",
+        "metaopt_tpu_torch.ops.xent"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 
 from metaopt_tpu_torch import build_experiment
@@ -97,6 +102,11 @@ exp = build_experiment("walled", space={"lr": "loguniform(1e-4, 1e-2)"},
 stats = exp.workon(lambda p: train_and_eval({**p, **tiny}, n_train=8, batch_size=4,
                                             seq_len=8, steps=2, device="cpu"))
 assert stats.completed == 1, stats.events
+
+from metaopt_tpu_torch.models.lm import train_lm
+loss = train_lm({**tiny, "n_experts": 2, "remat": True, "dropout": 0.1}, n_train=8,
+                batch_size=4, seq_len=7, steps=2, device="cpu")
+assert loss == loss, loss
 
 from metaopt_tpu_torch.models import ppo
 exp = build_experiment("walled-bohb", space={"lr": "loguniform(1e-4, 1e-2)",
