@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through fourteen phases and exits non-zero if any fails:
+``metaopt_tpu``) through fifteen phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -66,9 +66,10 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    trials — all completed, none broken, none run twice, a finite best, and
    ``status --json`` from another fresh process agreeing; (b) BASELINE
    config 2, TPE (``examples/tpe.yaml``'s settings, passed as JSON) on
-   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 11 trials (cut from 16 to
-   make room for phase 14), each a fresh process on the card — finite, at
-   least 1 suggested by EI, in the space,
+   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 5 trials, 4 of them
+   initial points (cut from 16 and 10 to fit the script's time limit),
+   each a fresh process on the card — finite, at least 1 suggested by EI,
+   in the space,
    each on CUDA — split into process start → first CUDA op, training, and
    the rest of the trial's ledger wall; (c) ``cuda_backend_reachable()``;
 9. asha: BASELINE config 3. (a) The full-width ResNet-50 on the card
@@ -78,10 +79,10 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    train steps (batch 128): ms per step, images per second, device busy
    share, device ms by kind of kernel, peak memory. (b) ASHA (``asha.json``,
    seed 0, pool 1) on ``metaopt_tpu_torch/examples/resnet_cifar.py`` at
-   full width through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 9,
+   full width through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 3,
    base=3)`` on 1024 training images (cut from ``fidelity(1, 16, base=4)``
-   and 4096 to fit phase 14), 13 trials, each a fresh process pinned to
-   the card — all completed and finite, budgets 1, 3 and 9
+   and 4096 to fit the script's time limit), 4 trials, each a fresh
+   process pinned to the card — all completed and finite, budgets 1 and 3
    reached, promotions on their parents' lineage, every trial on the
    card, the GPU registry empty after, ``status --rungs --json`` from a
    fresh process equal to ASHA replayed over the ledger. (c) Config 3's
@@ -95,9 +96,10 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    card (seed 1 dropped to fit phase 14): the negated return above 50 after 2 iterations and below 5
    after 32; ms per iteration; one traced iteration's CUDA kernels, device
    busy share and device ms by kind; peak memory. (c) EvolutionES
-   (``evolution.json``: seed 0, population 10, pool 5) on
+   (``evolution.json``'s seed 0, with population 4 and pool 2 instead of
+   10 and 5 to fit the script's time limit) on
    ``metaopt_tpu_torch/examples/ppo_atari.py`` through ``hunt --n-chips 1``,
-   20 trials (two generations; the example runs 60), each a fresh process
+   8 trials (two generations; the example runs 60), each a fresh process
    on the card — all completed and finite, their points equal to the
    port's EvolutionES replayed on the CPU over the ledger's objectives, the
    GPU registry empty after, ``status --json`` from a fresh process
@@ -178,19 +180,43 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    peak memory, TF32 on against off; one LM step at vocab 32,768, batch 64 x
    512, which must take the blocked route. (e) TPE (``tpe.json``) on
    ``metaopt_tpu_torch/examples/lm_causal.py`` at d_model 512, d_ff 2048,
-   seq 512 with the example's priors through ``hunt --n-chips 1``, 4
-   trials (all random draws: 10 initial points) — finite, on the card,
-   checkpoints published, the GPU registry empty; trials per hour and each
-   trial's split.
+   seq 512 with the example's priors through ``hunt --n-chips 1``, 2
+   trials (all random draws: 10 initial points; cut from 4 to fit phase
+   15) — finite, on the card, checkpoints published, the GPU registry
+   empty; trials per hour and each trial's split. (f) At the LM's attention
+   shape (B 32, S 512, H 8, D 64, bf16, causal, dropout 0.1): K1-K3's bound
+   and SDPA's forward and backward times.
+15. batched: the batched hunt. (a) The MLP zoo (``models/objectives.py``:
+   width 16, 12 SGD steps on 64 points of dimension 8) through
+   ``BatchedExecutor`` on the card at pools of 64, 256 and 1024, against the
+   CPU on the same draws (f32, TF32 off; 1e-4 relative on the rows whose
+   training stays bounded, diverged rows diverged on both): ms per pool
+   (synchronized), split into stacking, the objective's call and the rest
+   (cohorts, heartbeats, a result per row), trials/s, CUDA kernels per pool
+   and the busy share (profiler); 64 trials one at a time through ``InProcessExecutor`` and
+   the pool's speed over theirs. (b) A pool of 64 with one NaN row: that
+   trial broken, the 63 others completed, one launch. (c) ``python -m
+   metaopt_tpu_torch hunt --algo cmaes`` (seed 0, population 64)
+   ``--vector-objective mlp --batch-size auto --max-trials 512`` in one
+   fresh process on a ``file:`` ledger, under a shim that records the
+   process age at its first CUDA op and each pool's rows: 512 completed,
+   the points and pools equal to the batched hunt replayed on the CPU over
+   the ledger's objectives, the objectives equal to the CPU batch form
+   (the bound of (a)), no ``torch._dynamo`` in the process; its wall and
+   trials/s. (d) ``benchmark --task branin --algos random tpe --max-trials
+   30 --repetitions 2`` in-process, TPE's EI on the card: the report's
+   curves, winner and seconds.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
 line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
-line and, last, the ``{"ok": true, "device": {...}}`` line. The
+line, a ``{"batched": {...}}`` line and, last, the ``{"ok": true, "device":
+{...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
-run; under ``"lm"`` the launches and device ms on the LM's path).
+run; under ``"lm"`` the launches and device ms on the LM's path, with the
+bound and SDPA's time at the LM's shape).
 """
 
 from __future__ import annotations
@@ -222,10 +248,10 @@ TPE_SPACE = {  # BASELINE config 2: examples/mlp_mnist.py's docstring
     "dropout": "uniform(0.0, 0.5)",
 }
 TPE_TRIALS, TPE_INITIAL = 16, 10
-# config 2 through the CLI: cut from 16 trials (10 random, 6 by EI) to 11
-# (10 random, 1 by EI) to make room for the [lm] phase; the in-process hunt of
-# [tpe] keeps its 16
-HUNT_TPE_TRIALS = 11
+# config 2 through the CLI: cut from 16 trials (10 random, 6 by EI) to 5
+# (4 random, 1 by EI) to fit the script's time limit; the in-process hunt of
+# [tpe] keeps its 16 with tpe.yaml's 10 initial points
+HUNT_TPE_TRIALS, HUNT_TPE_INITIAL = 5, 4
 ROSEN_TRIALS, ROSEN_WORKERS = 100, 4    # BASELINE config 1
 ROSEN_SPACE = {"x": "uniform(-5, 10)", "y": "uniform(-5, 10)"}
 # a CLI process's deadline: its own start (import torch, ~10 s on the card's
@@ -241,15 +267,15 @@ RESNET_SPACE = {  # BASELINE config 3: examples/resnet_cifar.py's docstring
     "weight-decay": "loguniform(1e-6, 1e-2)",
     "epochs": "fidelity(1, 16, base=4)",
 }
-# config 3 through the CLI, cut to make room for the [lm] phase: epochs
-# fidelity(1, 9, base=3) instead of the example's (1, 16, base=4), and 1024
+# config 3 through the CLI, cut to fit the script's time limit: epochs
+# fidelity(1, 3, base=3) instead of the example's (1, 16, base=4), and 1024
 # training images (8 steps per epoch) instead of 4096 (32)
-ASHA_FIDELITY, ASHA_BUDGETS, ASHA_N_TRAIN = "fidelity(1, 9, base=3)", (1, 3, 9), 1024
-# the fewest trials with which ASHA (one worker, pool 1) reaches budget 9
-# whatever the objectives: 9 at 1 epoch, 3 at 3, 1 at 9 (the example runs
-# 64; at asha.json's pool of 4 one worker never reaches the top, see
+ASHA_FIDELITY, ASHA_BUDGETS, ASHA_N_TRAIN = "fidelity(1, 3, base=3)", (1, 3), 1024
+# the fewest trials with which ASHA (one worker, pool 1) reaches budget 3
+# whatever the objectives: 3 at 1 epoch, then 1 promoted to 3 (the example
+# runs 64; at asha.json's pool of 4 one worker never reaches the top, see
 # examples/resnet_cifar.py)
-ASHA_TRIALS = 13
+ASHA_TRIALS = 4
 RESNET_BATCH, RESNET_TIMED_STEPS, RESNET_TRACED_STEPS = 128, 20, 5
 # a config-3 trial's wall-clock timeout, and its share of the CLI's deadline
 RESNET_TIMEOUT_S, RESNET_TRIAL_S = 300, 40
@@ -269,9 +295,10 @@ PPO_SPACE = {  # BASELINE config 5: examples/ppo_atari.py's docstring
     "gae-lambda": "uniform(0.8, 1.0)",
     "epochs": "fidelity(2, 32, base=2)",
 }
-# two full generations of evolution.json's population of 10: 10 trials at 2
-# iterations, then 10 mutants of the top 5 at 4 (the example runs 60)
-EVOLUTION_TRIALS, POPULATION = 20, 10
+# two full generations of evolution.json's EvolutionES (seed 0) at population
+# 4 and pool 2 (cut from 10 and 5 to fit the script's time limit): 4 trials at
+# 2 iterations, then 4 mutants of the top 2 at 4 (the example runs 60)
+EVOLUTION_TRIALS, POPULATION, EVOLUTION_POOL = 8, 4, 2
 # a config-5 trial's wall-clock timeout, and its share of the CLI's deadline
 PPO_TIMEOUT_S, PPO_TRIAL_S = 120, 30
 PPO_TOL = 1e-4          # card against CPU, relative to each tensor's largest entry
@@ -364,7 +391,21 @@ LM_PRIORS = {  # examples/lm_causal.py's docstring
     "dropout": "uniform(0.0, 0.3)",
     "n-layers": "uniform(1, 4, discrete=True)",
 }
-LM_CLI_TRIALS, LM_TRIAL_S = 4, 60  # with 10 initial points, all four are TPE's random draws
+# with 10 initial points, both are TPE's random draws (cut from 4 to fit phase 15)
+LM_CLI_TRIALS, LM_TRIAL_S = 2, 60
+BATCHED_POOLS = (64, 256, 1024)   # pools of the MLP zoo timed through BatchedExecutor
+# the zoo's losses, card against CPU on the same draws (f32, TF32 off), relative,
+# on rows whose training stays bounded (CPU loss <= BATCHED_DIVERGED): past
+# that, 12 steps at lr near 1 blew the loss up and f32 rounding decides the
+# trajectory (the reference's own per-trial and vmapped forms differ by up to
+# 41% there); such rows are held to having diverged on the card too (>= 10)
+BATCHED_TOL, BATCHED_DIVERGED = 1e-4, 100.0
+BATCHED_CLI_TRIALS, BATCHED_POPULATION = 512, 64   # 8 CMA-ES generations through the CLI
+# a benchmark study in-process; 30 trials, since TPE's default 20 initial
+# points would leave 20 with no EI launch on the card
+BENCH_TRIALS = 30
+BENCH_ARGS = ["--task", "branin", "--algos", "random", "tpe", "--max-trials",
+              str(BENCH_TRIALS), "--repetitions", "2", "--json"]
 REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
     "flash_bwd_dkv": "metaopt_tpu/ops/attention.py:181 (_flash_bwd_dkv_kernel)",
@@ -1302,9 +1343,9 @@ def hunt_phase(torch, smi: str):
             f"{best['objective']:.6g}; status from a fresh process agrees ({status_wall:.2f} s)")
 
         # -- (b) BASELINE config 2 -----------------------------------------
-        cfg = root / "tpe.json"   # examples/tpe.yaml's settings
-        cfg.write_text(json.dumps({"algorithm": {"tpe": {"seed": 0,
-                                                         "n_initial_points": TPE_INITIAL}}}))
+        cfg = root / "tpe.json"   # examples/tpe.yaml's settings, fewer initial points
+        cfg.write_text(json.dumps({"algorithm": {"tpe": {
+            "seed": 0, "n_initial_points": HUNT_TPE_INITIAL}}}))
         summary, wall = run_cli(
             ["hunt", "-n", "mlp", "--ledger", ledger, "--max-trials", str(HUNT_TPE_TRIALS),
              "--config", str(cfg), str(examples / "mlp_mnist.py")]
@@ -1313,15 +1354,15 @@ def hunt_phase(torch, smi: str):
         trials = FileLedger(str(root / "ledger")).fetch("mlp")
         done = sorted((t for t in trials if t.status == "completed"), key=lambda t: t.start_time)
         space = build_space(TPE_SPACE)
-        switch = sorted(t.end_time for t in done)[TPE_INITIAL - 1] if len(done) >= TPE_INITIAL \
-            else math.inf
+        switch = sorted(t.end_time for t in done)[HUNT_TPE_INITIAL - 1] \
+            if len(done) >= HUNT_TPE_INITIAL else math.inf
         by_ei = [t for t in trials if t.submit_time > switch]
         name = torch.cuda.get_device_name(0)
         stats = [statistics_of(t) for t in done]
         problems = []
         if len(done) != HUNT_TPE_TRIALS or not all(math.isfinite(t.objective) for t in done):
             problems.append(f"{[(t.status, t.objective) for t in trials]}")
-        if len(by_ei) < HUNT_TPE_TRIALS - TPE_INITIAL:
+        if len(by_ei) < HUNT_TPE_TRIALS - HUNT_TPE_INITIAL:
             problems.append(f"{len(by_ei)} trials suggested by EI")
         if not all(t.params in space for t in done):
             problems.append("a point outside the space")
@@ -1595,8 +1636,8 @@ def asha_phase(torch, smi: str):
             "best": summary["best"]["objective"], "device": name,
             "producer_timings": summary["producer_timings"],
         }
-        log(f"[asha] config 3: {len(done)} trials completed on {name} ({by_budget[1]['trials']} "
-            f"at 1 epoch, {by_budget[3]['trials']} at 3, {by_budget[9]['trials']} at 9), "
+        log(f"[asha] config 3: {len(done)} trials completed on {name} ("
+            + ", ".join(f"{by_budget[b]['trials']} at {b} epoch(s)" for b in ASHA_BUDGETS) + "), "
             f"none broken, promotions on their parents' lineage, registry empty, status "
             f"--rungs from a fresh process equal to the replay ({status_wall:.2f} s); "
             f"{wall:.2f} s = {len(done) / wall * 3600:.1f} trials/hour; best val error "
@@ -1704,11 +1745,15 @@ def evolution_phase(torch, smi: str):
     env = dict(os.environ, TMPDIR=str(root))
     env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
     ledger = f"file:{root / 'ledger'}"
+    cfg = json.loads((examples / "evolution.json").read_text())
+    cfg["algorithm"]["evolution_es"]["population_size"] = POPULATION
+    cfg["pool_size"] = EVOLUTION_POOL
+    (root / "evolution.json").write_text(json.dumps(cfg))
     try:
         summary, wall = run_cli(
             ["hunt", "-n", "ppo", "--n-chips", "1", "--max-trials", str(EVOLUTION_TRIALS),
              "--timeout-s", str(PPO_TIMEOUT_S), "--ledger", ledger,
-             "--config", str(examples / "evolution.json"), str(examples / "ppo_atari.py")]
+             "--config", str(root / "evolution.json"), str(examples / "ppo_atari.py")]
             + [f"--{k}~{v}" for k, v in PPO_SPACE.items()],
             root, env, EVOLUTION_TRIALS, 1, PPO_TRIAL_S)
         status, status_wall = run_cli(["status", "-n", "ppo", "--json", "--ledger", ledger],
@@ -1766,8 +1811,8 @@ def evolution_phase(torch, smi: str):
             "best": summary["best"]["objective"], "device": name,
             "producer_timings": summary["producer_timings"],
         }
-        log(f"[evolution] config 5: {len(done)} trials completed on {name} (10 at 2 "
-            f"iterations, 10 at 4), finite, equal to EvolutionES (seed 0) replayed on the CPU "
+        log(f"[evolution] config 5: {len(done)} trials completed on {name} ({POPULATION} at 2 "
+            f"iterations, {POPULATION} at 4), finite, equal to EvolutionES (seed 0) replayed on the CPU "
             f"over the ledger's objectives, registry empty, status --json from a fresh process "
             f"agreeing ({status_wall:.2f} s); {wall:.2f} s = {len(done) / wall * 3600:.1f} "
             f"trials/hour; best negated return {summary['best']['objective']:.4f}")
@@ -2573,6 +2618,44 @@ def lm_xent_paths(torch, xent, tfm, smi: str):
     return out
 
 
+def lm_attention_yardstick(torch):
+    """K1-K3's bound and SDPA's time at the LM's attention shape (B 32, S
+    512, H 8, D 64, bf16, causal: its tokens hold no pad, dropout 0.1). The
+    bound counts the mask as the LM passes it ((b, q, k) int8) and only the
+    causal pairs' products, which is what the kernels' inputs need. SDPA is
+    called with ``is_causal=True`` and ``dropout_p`` 0.1, one call for the
+    forward and one backward for dq, dk and dv together (a yardstick only)."""
+    import torch.nn.functional as F
+
+    b, s, h, d = LM_BATCH, LM_SEQ, 8, 64
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+                  .requires_grad_(i < 3) for i in range(4))
+    rate = WMT_TIMED_RATE
+    pairs = b * h * s * (s + 1) // 2
+    numel, mask_b, row_f32 = b * s * h * d, b * s * s, b * h * s * 4
+    work = {"flash_fwd": (4 * numel * 2 + mask_b + row_f32, 4.0 * pairs * d),
+            "flash_bwd_dkv": (6 * numel * 2 + mask_b + 2 * row_f32, 8.0 * pairs * d),
+            "flash_bwd_dq": (5 * numel * 2 + mask_b + 2 * row_f32, 6.0 * pairs * d)}
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, dropout_p=rate, is_causal=True)
+
+    out = sdpa()
+    fwd = device_ms(torch, sdpa, n=20)[0]
+    bwd = device_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
+                    n=20)[0]
+    rows = {}
+    for name, (nbytes, flops) in work.items():
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        rows[name] = {"bound_ms": bnd, "bound_by": by,
+                      "library_ms": fwd if name == "flash_fwd" else bwd}
+        log(f"[lm] at the LM's attention shape (32, 512, 8, 64) causal, dropout {rate}: "
+            f"{name} bound {bnd:.4f} ms by {by}; SDPA {'fwd' if name == 'flash_fwd' else 'bwd'} "
+            f"{rows[name]['library_ms']:.4f} ms")
+    return rows
+
+
 def lm_phase(torch, smi: str):
     """The decoder-only LM at full width (``make_lm``'s defaults: d_model
     512, 8 heads, 6 layers, d_ff 2048, vocab 1000), MoE, the blocked xent
@@ -2871,6 +2954,264 @@ def lm_phase(torch, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the batched hunt — pools of trials in one call on the card
+
+# runs the CLI's ``python -m metaopt_tpu_torch`` in this process with a
+# measuring shim around BatchedExecutor's pool evaluation: the process age at
+# its first CUDA op (the context and one synchronized kernel, as the example
+# scripts measure it) and each pool's rows, written as JSON to argv[1]
+BATCHED_CLI_SHIM = r"""
+import atexit, json, runpy, sys
+from metaopt_tpu_torch.executor import batched
+from metaopt_tpu_torch.utils.procs import process_age_s
+
+out_path, seen = sys.argv[1], {"rows": []}
+real = batched.BatchedExecutor._pool_eval
+
+
+def pool_eval(self, cols):
+    if "first_cuda_op_s" not in seen:
+        import torch
+
+        torch.zeros(1, device=self.device).sum().item()
+        seen["first_cuda_op_s"] = process_age_s()
+    values = real(self, cols)
+    seen["rows"].append(len(values))
+    return values
+
+
+def dump():
+    with open(out_path, "w") as f:
+        json.dump({**seen, "exit_age_s": process_age_s(),
+                   "torch_dynamo": "torch._dynamo" in sys.modules}, f)
+
+
+batched.BatchedExecutor._pool_eval = pool_eval
+atexit.register(dump)
+sys.argv = ["metaopt_tpu_torch"] + sys.argv[2:]
+runpy.run_module("metaopt_tpu_torch", run_name="__main__")
+"""
+
+
+def batched_replay(torch, exp, led_trials):
+    """The experiment's batched hunt replayed on the CPU through ``workon``
+    and a ``BatchedExecutor`` as the CLI ran it (``--batch-size auto``),
+    each row's objective read from the card's ledger by its point: the
+    trials it registers, and the rows of each pool it evaluated."""
+    from metaopt_tpu_torch.executor import BatchedExecutor
+    from metaopt_tpu_torch.ledger import Experiment, MemoryLedger
+    from metaopt_tpu_torch.worker import workon
+
+    names = list(exp.space)
+    objective = {tuple(t.params[n] for n in names): t.objective for t in led_trials}
+    pools = []
+
+    def lookup(cols):
+        rows = list(zip(*(cols[n].tolist() for n in names)))
+        pools.append(len(rows))
+        return torch.tensor([objective[r] for r in rows], dtype=torch.float64)
+
+    replay = Experiment(exp.name, MemoryLedger(), space=exp.space, max_trials=exp.max_trials,
+                        pool_size=exp.pool_size, algorithm=exp.algorithm).configure()
+    workon(replay, BatchedExecutor(lookup, exp.space, device="cpu"), "replay",
+           batch_size="auto")
+    return replay.fetch_trials(), pools
+
+
+def zoo_check(np, got, want, what: str):
+    """The zoo's losses ``got`` against ``want`` (the CPU's): the worst
+    relative error over rows that stayed bounded, which must be within
+    BATCHED_TOL (a NaN there fails), and every diverged row diverged in
+    ``got`` too (or overflowed on both)."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    ok = want <= BATCHED_DIVERGED   # false for a non-finite CPU loss too
+    rel = float(np.max(np.abs(got[ok] - want[ok]) / np.abs(want[ok]))) if ok.any() else 0.0
+    diverged = (got[~ok] >= 10.0) | ~np.isfinite(want[~ok])
+    if not (rel <= BATCHED_TOL and np.all(diverged)):
+        raise AssertionError(f"[batched] {what}: card against CPU worst relative {rel:.3e} "
+                             f"(bound {BATCHED_TOL}) over {int(ok.sum())} bounded rows, "
+                             f"diverged rows on the card {got[~ok].tolist()}")
+    return rel, int(ok.sum())
+
+
+def batched_phase(torch, smi: str):
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from metaopt_tpu_torch.cli import main as cli_main
+    from metaopt_tpu_torch.executor import BatchedExecutor, InProcessExecutor
+    from metaopt_tpu_torch.ledger import Experiment, FileLedger
+    from metaopt_tpu_torch.ledger.trial import Trial
+    from metaopt_tpu_torch.models import objectives as zoo
+    from metaopt_tpu_torch.space import build_space
+
+    out = {"card": smi}
+    space = build_space(zoo.MLP_SPACE)
+    # the zoo's four draws, taken once and given to the card and the CPU alike
+    draws = zoo.GivenZooDraws(*(t.numpy() for t in zoo.ZooDraws(0).take(64, 8, 16)))
+    card_fn = zoo.make_mlp_batch_objective(draws=draws)
+    cpu_fn = zoo.make_mlp_batch_objective(draws=draws)
+
+    # -- (a) the zoo through BatchedExecutor at pools of 64, 256 and 1024 ------
+    pools = {}
+    for b in BATCHED_POOLS:
+        trials = [Trial(params=p, experiment="zoo") for p in space.sample(b, seed=b)]
+        ex = BatchedExecutor(card_fn, space, device="cuda")
+        results = ex.execute_batch(trials)
+        if [r.status for r in results].count("completed") < b // 2:
+            raise AssertionError(f"[batched] pool {b}: {[r.note for r in results][:4]}")
+        got = [r.results[0]["value"] if r.status == "completed" else math.nan for r in results]
+        want = cpu_fn(space.stack_points([t.params for t in trials])[0]).numpy()
+        rel, bounded = zoo_check(np, got, want, f"pool {b}")
+        host_ms, dev_ms, kernels = profile_calls(torch, lambda: ex.execute_batch(trials), 10)
+        # the pool's host time split: stacking the params into columns, the
+        # objective's call (its values come back in one copy, so it is
+        # synchronized), and the rest (cohorts, heartbeats, one
+        # ExecutionResult per row), each over 10 calls
+        params, cols = [t.params for t in trials], space.stack_points([t.params for t in trials])[0]
+        split = {}
+        for part, fn in (("stack_ms", lambda: space.stack_points(params)),
+                         ("eval_ms", lambda: ex._pool_eval(cols))):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            split[part] = (time.perf_counter() - t0) * 1e2
+        split["rest_ms"] = host_ms - split["stack_ms"] - split["eval_ms"]
+        pools[b] = {"ms_per_pool": host_ms, "trials_per_s": b / host_ms * 1e3,
+                    "device_ms": dev_ms, "kernels_per_pool": kernels,
+                    "busy": dev_ms / host_ms if dev_ms else None, **split,
+                    "max_rel_err": rel, "bounded_rows": bounded, "telemetry": ex.telemetry()}
+        log(f"[batched] zoo pool {b}: {host_ms:.3f} ms a pool (synchronized) = "
+            f"{pools[b]['trials_per_s']:.0f} trials/s (stack {split['stack_ms']:.3f}, "
+            f"objective {split['eval_ms']:.3f}, the rest {split['rest_ms']:.3f} ms); device "
+            f"{dev_ms} ms, {kernels} CUDA kernels a pool, busy {pools[b]['busy']}; card vs CPU "
+            f"worst relative {rel:.2e} over {bounded} bounded rows (bound {BATCHED_TOL}); "
+            f"card {smi}")
+    out["pools"] = pools
+
+    # the same 64 trials one at a time: the per-trial dispatch it replaces
+    trials = [Trial(params=p, experiment="zoo") for p in space.sample(64, seed=64)]
+    serial = InProcessExecutor(zoo.make_mlp_objective(draws=draws))
+    for t in trials[:2]:
+        serial.execute(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [serial.execute(t) for t in trials]
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    got = [r.results[0]["value"] if r.status == "completed" else math.nan for r in rows]
+    want = cpu_fn(space.stack_points([t.params for t in trials])[0]).numpy()
+    zoo_check(np, got, want, "64 serial trials")
+    out["serial_64"] = {"ms": serial_ms, "trials_per_s": 64 / serial_ms * 1e3,
+                        "batched_over_serial": serial_ms / pools[64]["ms_per_pool"]}
+    log(f"[batched] 64 zoo trials one at a time through InProcessExecutor: {serial_ms:.2f} ms "
+        f"= {64 / serial_ms * 1e3:.0f} trials/s; the pool of 64 is "
+        f"{out['serial_64']['batched_over_serial']:.1f}x faster; card {smi}")
+
+    # -- (b) a poisoned pool: one NaN row breaks alone -------------------------
+    trials = [Trial(params=p, experiment="zoo") for p in space.sample(64, seed=5)]
+    trials[17].params["lr"] = float("nan")
+    ex = BatchedExecutor(card_fn, space, device="cuda")
+    statuses = [r.status for r in ex.execute_batch(trials)]
+    if statuses[17] != "broken" or statuses.count("completed") != 63 \
+            or ex.telemetry()["kernel_launches"] != 1:
+        raise AssertionError(f"[batched] the poisoned pool: {statuses}, {ex.telemetry()}")
+    out["poisoned"] = {"broken": statuses.count("broken"), "completed": 63}
+    log("[batched] a pool of 64 with one NaN lr: that trial broken, 63 completed, one launch")
+
+    # -- (c) one CLI process: CMA-ES, population 64, through --batch-size auto ---
+    repo = Path(__file__).resolve().parent
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_batched_"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    try:
+        (root / "cmaes.json").write_text(json.dumps(
+            {"algorithm": {"cmaes": {"seed": 0, "population_size": BATCHED_POPULATION}}}))
+        (root / "shim.py").write_text(BATCHED_CLI_SHIM)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(root / "shim.py"), str(root / "shim.json"), "hunt", "-n", "zoo",
+             "--algo", "cmaes", "--config", str(root / "cmaes.json"),
+             "--vector-objective", "mlp", "--batch-size", "auto",
+             "--max-trials", str(BATCHED_CLI_TRIALS), "--ledger", f"file:{root / 'ledger'}"],
+            capture_output=True, text=True, env=env, cwd=root, timeout=HUNT_START_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[batched] the CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        summary, shim = json.loads(proc.stdout), json.loads((root / "shim.json").read_text())
+        led = FileLedger(str(root / "ledger"))
+        exp = Experiment("zoo", led).configure()
+        done = [t for t in led.fetch("zoo") if t.status == "completed"]
+        replayed, replay_pools = batched_replay(torch, exp, done)
+        key = (lambda p: json.dumps(p, sort_keys=True))  # noqa: E731
+        problems = []
+        if len(done) != BATCHED_CLI_TRIALS or summary["total"] != {
+                "completed": BATCHED_CLI_TRIALS}:
+            problems.append(f"{summary['total']}")
+        if shim["torch_dynamo"]:
+            problems.append("the CLI process imported torch._dynamo")
+        if shim["rows"] != replay_pools or shim["rows"][0] != BATCHED_POPULATION:
+            problems.append(f"pools of {shim['rows']}, replayed {replay_pools}")
+        if sorted(key(t.params) for t in done) != sorted(key(t.params) for t in replayed):
+            problems.append("the ledger's points differ from CMA-ES replayed on the CPU")
+        if not all(t.params in space for t in done):
+            problems.append("a point outside the space")
+        if problems:
+            raise AssertionError(f"[batched] the CLI hunt: {problems}")
+        cols = space.stack_points([t.params for t in done])[0]
+        rel, bounded = zoo_check(np, [t.objective for t in done], cpu_fn(cols).numpy(),
+                                 "the CLI hunt's ledger")
+        out["cli"] = {"trials": len(done), "pools": shim["rows"], "wall_s": wall,
+                      "trials_per_s": len(done) / wall,
+                      "first_cuda_op_s": shim["first_cuda_op_s"],
+                      "exit_age_s": shim["exit_age_s"], "max_rel_err": rel,
+                      "bounded_rows": bounded, "best": summary["best"]["objective"],
+                      "producer_timings": summary["producer_timings"]}
+        log(f"[batched] hunt --algo cmaes (population {BATCHED_POPULATION}) --vector-objective "
+            f"mlp --batch-size auto: {len(done)} trials in {len(shim['rows'])} pools "
+            f"({shim['rows']}, as replayed on the CPU), {wall:.2f} s "
+            f"= {len(done) / wall:.1f} trials/s; process start -> first CUDA op "
+            f"{shim['first_cuda_op_s']:.2f} s; points equal to CMA-ES replayed on the CPU; "
+            f"objectives vs the CPU batch form worst relative {rel:.2e} over {bounded} bounded "
+            f"rows; best {summary['best']['objective']:.4f}; card {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- (d) a benchmark study in-process, TPE on the card --------------------
+    from metaopt_tpu_torch.algo.tpe import TPE
+
+    ei, real_launch = [], TPE._launch_ei
+
+    def counting_launch(self, num):  # TPE's EI launches, and where they ran
+        ei.append(str(self.device))
+        return real_launch(self, num)
+
+    buf = io.StringIO()
+    TPE._launch_ei = counting_launch
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["benchmark"] + BENCH_ARGS)
+        bench_s = time.perf_counter() - t0
+    finally:
+        TPE._launch_ei = real_launch
+    report = json.loads(buf.getvalue())
+    curves = report["curves"]
+    if rc != 0 or set(curves) != {"random", "tpe"} or report["winner"] not in curves \
+            or not all(len(c) == BENCH_TRIALS and all(math.isfinite(v) for v in c)
+                       for c in curves.values()) or not ei or set(ei) != {"cuda"}:
+        raise AssertionError(f"[batched] benchmark: rc {rc}, EI launches on {ei}, {report}")
+    out["benchmark"] = {"seconds": bench_s, "winner": report["winner"],
+                        "final_best": report["final_best"], "ei_launches": len(ei)}
+    log(f"[batched] benchmark {' '.join(BENCH_ARGS)}: winner {report['winner']}, final best "
+        f"{report['final_best']}, {bench_s:.2f} s, {len(ei)} TPE EI launches on the card; "
+        f"card {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3106,7 +3447,12 @@ def main() -> int:
 
     # -- 14. the decoder-only LM, MoE, the blocked xent, remat ------------------
     lm_stats = lm_phase(torch, smi)
+    lm_stats["yardstick"] = lm_attention_yardstick(torch)
     mark("lm")
+
+    # -- 15. the batched hunt: the MLP zoo's pools, one CLI hunt, a benchmark --
+    batched_stats = batched_phase(torch, smi)
+    mark("batched")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -3137,6 +3483,7 @@ def main() -> int:
         }
         kernels[-1]["lm"]["ms_per_launch"] = (kernels[-1]["lm"]["ms_per_step"]
                                               / kernels[-1]["lm"]["launches_per_step"])
+        kernels[-1]["lm"].update(lm_stats["yardstick"][name])
         kernels[-2]["max_abs_err_by_case"] = case_err[name]
     print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,
                       "phase_s": phase_s,
@@ -3153,6 +3500,7 @@ def main() -> int:
     print(json.dumps({"pbt": pbt_stats}), flush=True)
     print(json.dumps({"algos": algos_stats}), flush=True)
     print(json.dumps({"lm": lm_stats}), flush=True)
+    print(json.dumps({"batched": batched_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,13 +10,18 @@ own command line, with ``~priors`` marking searchable arguments:
         -x~'uniform(-5, 10)' -y~'uniform(-5, 10)'
 
 Ported subcommands: ``hunt``, ``init-only``, ``insert``, ``resume``,
-``list``, ``status`` and ``info``. ``hunt --n-chips N`` (or
+``list``, ``status``, ``info`` and ``benchmark``. ``hunt --n-chips N`` (or
 ``executor.n_chips`` in the config file) places each trial on its own block
 of N GPUs (:class:`~metaopt_tpu_torch.executor.GPUExecutor`), and ``status
---rungs`` shows a multi-fidelity algorithm's rung occupancy. Flags whose
-machinery is not ported yet (EVC branching and warm start, the batched
-hunt, the coordinator producer) are accepted by the parser and raise a
-clear "not ported yet".
+--rungs`` shows a multi-fidelity algorithm's rung occupancy.
+
+``hunt --vector-objective NAME [--batch-size K|auto]`` is the batched hunt:
+no trial process, pools of trials evaluated in-process by a
+:class:`~metaopt_tpu_torch.executor.BatchedExecutor` on ``cuda``, or on the
+device that ``executor.device`` in the config file names (the CPU tests
+pass ``"cpu"``; the key never enters the stored experiment). Flags whose
+machinery is not ported yet (EVC branching and warm start, the coordinator
+producer) are accepted by the parser and raise a clear "not ported yet".
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import sys
 import time
 from typing import Any, Dict, List, Optional
 
-from metaopt_tpu_torch.executor import GPUExecutor, SubprocessExecutor
+from metaopt_tpu_torch.executor import BatchedExecutor, GPUExecutor, SubprocessExecutor
 from metaopt_tpu_torch.io.resolve_config import DEFAULTS, resolve_config
 from metaopt_tpu_torch.ledger import Experiment
 from metaopt_tpu_torch.ledger.backends import (
@@ -110,9 +115,18 @@ def build_parser() -> argparse.ArgumentParser:
                            "(scripts resolve it via "
                            "client.checkpoint_paths())")
     hunt.add_argument("--batch-size", dest="batch_size", default=None,
-                      help="batched hunt (not ported yet)")
+                      help="evaluate pools of this many trials as ONE call "
+                           "of the vectorized objective on the device (needs "
+                           "--vector-objective; 'auto' sizes pools from the "
+                           "algorithm's population cohort)")
     hunt.add_argument("--vector-objective", dest="vector_objective",
-                      default=None, help="batched hunt (not ported yet)")
+                      default=None,
+                      help="named vectorized in-process objective for the "
+                           "batched hunt: a benchmark task with a batch() "
+                           "form (rosenbrock/branin/sphere/rastrigin) or "
+                           "'mlp' (the batched zoo train objective); "
+                           "without a user command the space comes from "
+                           "the objective")
     hunt.add_argument("cmd", nargs=argparse.REMAINDER,
                       help="user script and its args with ~priors")
 
@@ -159,6 +173,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-worker liveness derived from trial "
                          "ownership + heartbeats (who holds what, last "
                          "seen when)")
+
+    bm = sub.add_parser(
+        "benchmark",
+        help="compare algorithms on standard tasks (benchmark studies)",
+    )
+    bm.add_argument("--algos", nargs="+", default=["random", "tpe"],
+                    help="algorithm names, e.g. --algos random tpe gp")
+    bm.add_argument("--task", default="rosenbrock",
+                    help="benchmark task (rosenbrock/branin/sphere/"
+                         "rastrigin/zdt1)")
+    bm.add_argument("--max-trials", type=int, default=25,
+                    help="trial budget per repetition")
+    bm.add_argument("--repetitions", type=int, default=3)
+    bm.add_argument("--assessment", choices=("result", "rank",
+                                             "hypervolume", "parallel"),
+                    default="result",
+                    help="result = mean best-so-far; rank = mean final "
+                         "rank; hypervolume = mean dominated hypervolume "
+                         "(multi-objective tasks, e.g. zdt1); parallel = "
+                         "same trial budget under 1 vs N racing workers "
+                         "(async-suggestion quality cost + wall-clock "
+                         "speedup)")
+    bm.add_argument("--workers", nargs="+", type=int, default=(1, 4),
+                    metavar="N",
+                    help="parallel assessment: worker counts to compare")
+    bm.add_argument("--json", dest="as_json", action="store_true")
     return p
 
 
@@ -354,13 +394,46 @@ def _experiment_from_args(args, cfg: Dict[str, Any], need_cmd: bool):
     return exp, template
 
 
+def _vector_objective(name: str):
+    """Resolve a named vectorized objective to (batch_fn, space DSL)."""
+    from metaopt_tpu_torch.models import objectives as zoo
+
+    if name == "mlp":
+        return zoo.make_mlp_batch_objective(), dict(zoo.MLP_SPACE)
+    from metaopt_tpu_torch.benchmark.tasks import task_registry
+
+    try:
+        task = task_registry.get(name)()
+    except KeyError:
+        raise SystemExit(
+            f"unknown vectorized objective {name!r} (benchmark task "
+            "with a batch() form, or 'mlp')"
+        )
+    if not task.vectorized:
+        raise SystemExit(f"benchmark task {name!r} has no vectorized form")
+    return task.batch, dict(task.space)
+
+
 def _cmd_hunt(args, cfg: Dict[str, Any]) -> int:
-    if (getattr(args, "batch_size", None) or cfg.get("batch_size")
-            or getattr(args, "vector_objective", None)
-            or cfg.get("vector_objective")):
-        raise _not_ported("the batched hunt (--batch-size/--vector-objective)")
+    batch_size = getattr(args, "batch_size", None) or cfg.get("batch_size")
+    vector_name = (getattr(args, "vector_objective", None)
+                   or cfg.get("vector_objective"))
+    if batch_size not in (None, 1, "1") and not vector_name:
+        raise SystemExit(
+            "--batch-size needs --vector-objective NAME: pools evaluate "
+            "in-process as one vmap program, subprocess trials can't batch"
+        )
+    vector_fn = None
+    if vector_name:
+        vector_fn, vector_space = _vector_objective(vector_name)
+        if not _strip_remainder(getattr(args, "cmd", []) or []):
+            # no user command: the objective is in-process anyway, so the
+            # space comes from its declaration (~prior tokens, never run)
+            args.cmd = [f"batched:{vector_name}"] + [
+                f"{k}~{v}" for k, v in vector_space.items()
+            ]
     exp, template = _experiment_from_args(args, cfg, need_cmd=False)
-    if template is None or not exp.user_args:
+    if vector_fn is None and (template is None or not exp.user_args):
         raise SystemExit("hunt needs a user command (or an experiment that has one)")
 
     script = template.argv[0] if template.argv else ""
@@ -372,7 +445,17 @@ def _cmd_hunt(args, cfg: Dict[str, Any]) -> int:
         (cfg.get("executor") or {}).get("n_chips")
     )
 
+    batched_executor = None
+    if vector_fn is not None:
+        if exp.space is None:
+            raise SystemExit("batched hunt needs a space (none stored or declared)")
+        # one executor for every worker thread (its telemetry is locked)
+        batched_executor = BatchedExecutor(
+            vector_fn, exp.space, device=(cfg.get("executor") or {}).get("device"))
+
     def make_executor(tmpl):
+        if batched_executor is not None:
+            return batched_executor
         kwargs = dict(
             working_dir=args.working_dir or cfg.get("working_dir"),
             interpreter=interpreter,
@@ -394,6 +477,11 @@ def _cmd_hunt(args, cfg: Dict[str, Any]) -> int:
         heartbeat_timeout_s=cfg.get("heartbeat_s", 30.0) * 2,
         producer_mode=args.producer or cfg.get("producer") or "local",
     )
+    if vector_fn is not None:
+        # in-process vectorized objective: default to cohort-sized pools
+        workon_kwargs["batch_size"] = (
+            "auto" if batch_size in (None, "auto") else int(batch_size)
+        )
     worker_id = args.worker_id or f"{os.uname().nodename}-{os.getpid()}"
     n_workers = max(1, int(getattr(args, "n_workers", 1) or 1))
     if n_workers == 1:
@@ -408,8 +496,9 @@ def _cmd_hunt(args, cfg: Dict[str, Any]) -> int:
         # subprocesses, so N run concurrently. Every loop shares the one
         # (thread-safe) ledger — the memory backend especially must not
         # give each thread a private universe — and has its own Experiment
-        # handle, algorithm and executor; the ledger's atomic reserve
-        # arbitrates exactly as it does between separate worker processes.
+        # handle, algorithm and executor (the batched hunt's threads share
+        # its one executor); the ledger's atomic reserve arbitrates exactly
+        # as it does between separate worker processes.
         import threading
 
         results: Dict[int, Any] = {}
@@ -685,8 +774,92 @@ def _cmd_info(args, cfg: Dict[str, Any]) -> int:
     return 0
 
 
+def _cmd_benchmark(args, cfg) -> int:
+    """Run one study (task × assessment) across the requested algorithms."""
+    from metaopt_tpu_torch.benchmark import (
+        AverageRank, AverageResult, Benchmark, Hypervolume,
+        ParallelAssessment, task_registry,
+    )
+
+    try:
+        task_cls = task_registry.get(args.task)
+    except KeyError:
+        print(f"unknown task {args.task!r}; have: "
+              f"{', '.join(sorted(task_registry))}", file=sys.stderr)
+        return 2
+    if args.assessment == "parallel":
+        try:
+            assess = ParallelAssessment(args.repetitions,
+                                        worker_counts=args.workers)
+        except ValueError as err:
+            print(err, file=sys.stderr)
+            return 2
+    else:
+        assess = {"rank": AverageRank, "hypervolume": Hypervolume}.get(
+            args.assessment, AverageResult)(args.repetitions)
+    task = task_cls(args.max_trials)
+    if isinstance(assess, Hypervolume):
+        try:  # detectable BEFORE any trial runs — don't waste a study
+            assess.resolve_reference(task)
+        except ValueError as err:
+            print(err, file=sys.stderr)
+            return 2
+    bench = Benchmark(
+        "cli",
+        algorithms=list(args.algos),
+        targets=[{"assess": [assess], "task": [task]}],
+    )
+    bench.process()
+    (report,) = bench.analysis()
+    if args.as_json:
+        print(json.dumps(report, indent=2))
+        return 0
+    print(f"task: {report['task']}  assessment: {report['assessment']}  "
+          f"repetitions: {report['repetitions']}")
+    def _num(v):  # an algorithm with zero completed trials prints n/a
+        return f"{v:.6g}" if v is not None else "n/a"
+
+    if "final_best" in report:
+        width = max(len(a) for a in args.algos)
+        finals = report["final_best"]
+        for algo in sorted(finals,
+                           key=lambda a: (finals[a] is None,
+                                          finals[a] or 0.0)):
+            print(f"  {algo:<{width}}  final best = {_num(finals[algo])}")
+    if "ranks" in report:
+        width = max(len(a) for a in args.algos)
+        for algo in sorted(report["ranks"], key=lambda a: report["ranks"][a]):
+            print(f"  {algo:<{width}}  mean rank = {report['ranks'][algo]:.2f}")
+    if "final_hypervolume" in report:
+        width = max(len(a) for a in args.algos)
+        finals = report["final_hypervolume"]
+        for algo in sorted(finals, key=lambda a: (finals[a] is None,
+                                                  -(finals[a] or 0.0))):
+            print(f"  {algo:<{width}}  final hypervolume = "
+                  f"{_num(finals[algo])}")
+    if "algorithms" in report:  # parallel assessment table
+        for algo, rows in sorted(report["algorithms"].items()):
+            print(f"  {algo}:")
+            for wkey, row in sorted(
+                    rows.items(), key=lambda kv: int(kv[0][1:])):
+                line = (f"    {wkey:<4} final best = "
+                        f"{_num(row['final_best'])}")
+                if row.get("mean_wall_s") is not None:
+                    line += f", wall {row['mean_wall_s']:.2f}s"
+                if "speedup_vs_1w" in row:
+                    line += (f", speedup {row['speedup_vs_1w']}x "
+                             f"(eff {row['efficiency']})")
+                if "regret_penalty_vs_1w" in row:
+                    line += (f", regret penalty "
+                             f"{_num(row['regret_penalty_vs_1w'])}")
+                print(line)
+    print(f"winner: {report['winner']}")
+    return 0
+
+
 _COMMANDS = {
     "hunt": _cmd_hunt,
+    "benchmark": _cmd_benchmark,
     "init-only": _cmd_init_only,
     "insert": _cmd_insert,
     "info": _cmd_info,

@@ -1,9 +1,10 @@
 """Ledger summaries for the CLI (port of ``metaopt_tpu/io/webapi.py``).
 
-Trimmed to the two read-only derivations ``list`` and ``status --workers``
-print: :func:`_experiment_summary` and :func:`worker_table`. The
-reference serves the same derivations over HTTP; that server is not
-ported yet.
+Trimmed to the read-only derivations that ``list``, ``status --workers``
+and the benchmark's assessments read: :func:`_experiment_summary`,
+:func:`worker_table`, and the progress series :func:`completed_in_order`,
+:func:`regret_series` and :func:`parallel_series`. The reference serves
+the same derivations over HTTP; that server is not ported yet.
 """
 
 from __future__ import annotations
@@ -71,3 +72,42 @@ def worker_table(ledger: LedgerBackend, name: str) -> List[Dict[str, Any]]:
             if r["last_seen"] is not None else None
         )
     return out
+
+
+def completed_in_order(ledger: LedgerBackend, name: str):
+    """Completed trials sorted by completion time — THE progress order.
+
+    Single source for every progress series (regret, lcurves,
+    hypervolume-so-far): if the ordering semantics ever change, every
+    surface moves together.
+    """
+    done = list(ledger.fetch(name, "completed"))
+    done.sort(key=lambda t: t.end_time or t.submit_time or 0.0)
+    return done
+
+
+def regret_series(ledger: LedgerBackend, name: str) -> List[Dict[str, Any]]:
+    """Best-so-far objective per completed trial (the series the
+    benchmark's assessments read)."""
+    done = [t for t in completed_in_order(ledger, name)
+            if t.objective is not None]
+    out, best = [], float("inf")
+    for i, t in enumerate(done):
+        best = min(best, t.objective)
+        out.append({"trial": i, "objective": t.objective, "best": best,
+                    "id": t.id})
+    return out
+
+
+def parallel_series(ledger: LedgerBackend, name: str):
+    """(dimensions, rows) for parallel-coordinates rendering: the space's
+    dimension names, sorted, and one row of params and objective per
+    completed trial."""
+    doc = ledger.load_experiment(name) or {}
+    dims = sorted((doc.get("space") or {}).keys())
+    rows = [
+        {**{d: t.params.get(d) for d in dims}, "objective": t.objective}
+        for t in ledger.fetch(name, "completed")
+        if t.objective is not None
+    ]
+    return dims, rows

@@ -33,8 +33,8 @@ The port matches the reference's numerics where the two frameworks differ:
   as the reference folds the step into its key) or :class:`GivenDraws`
   (the tests' and ``chip_smoke.py``'s injected masks);
 - each layer's draws are taken before the layer runs (:class:`LayerDraws`)
-  and replayed inside it, so that ``remat`` (``torch.utils.checkpoint``,
-  non-reentrant, per layer; flax's ``nn.remat``) recomputes the forward's
+  and replayed inside it, so that ``remat`` (a ``torch.autograd.Function``
+  per layer, :class:`_Remat`; flax's ``nn.remat``) recomputes the forward's
   dropout exactly: the generators are not pure, as flax's keys are, and a
   recompute drawing afresh would give the backward other masks than the
   forward. Under remat K1 runs twice per layer and train step;
@@ -50,8 +50,8 @@ The port matches the reference's numerics where the two frameworks differ:
 - the optimizer is ``optax.adamw`` over the reference's schedule, written
   in ``torch._foreach`` ops (:class:`ScheduledAdamW`): ``torch.optim``'s
   first optimizer imports ``torch._dynamo``, ~11 s per trial process.
-  (``torch.utils.checkpoint`` imports it at its first call too: a trial
-  pays that only with remat on, and no example turns it on.)
+  ``torch.utils.checkpoint`` imports it at its first call too, so remat is
+  a Function of the port's own and imports nothing.
 
 :func:`params_from_flax` converts the reference's parameter tree (this
 Transformer's or the decoder-only LM's) so both packages compute the same
@@ -72,7 +72,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from metaopt_tpu_torch.models.checkpoint import has_state, restore_state, save_state
 from metaopt_tpu_torch.models.data import synthetic_seq2seq
@@ -309,30 +308,85 @@ class DecoderLayer(nn.Module):
         return x + self.mlp(_layer_norm(self.ln3, x), draws, aux)
 
 
+# MoE statistics that carry no gradient (the dropped fraction)
+_AUX_WITHOUT_GRAD = frozenset({"moe_stats"})
+
+
+class _Remat(torch.autograd.Function):
+    """One layer under remat (flax's ``nn.remat``): the forward runs the
+    layer without a graph and saves only its inputs; the backward re-runs it
+    with one on the replayed draws and takes the gradients of its inputs and
+    parameters with ``torch.autograd.grad``. No RNG state is saved: the
+    draws are already fixed (:class:`LayerDraws`). ``torch.utils.checkpoint``
+    would do the same, but its first call imports ``torch._dynamo`` (~11 s
+    in a fresh process on the card's host)."""
+
+    @staticmethod
+    def forward(ctx, run, n_args, x, *rest):
+        args = rest[:n_args]
+        ctx.run = run
+        ctx.save_for_backward(x, *args)
+        ctx.set_materialize_grads(False)
+        outs = run(x, args, replay=False)
+        ctx.mark_non_differentiable(*(t for key, t in zip(run.keys, outs[1:])
+                                      if key in _AUX_WITHOUT_GRAD))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        x, *args = ctx.saved_tensors
+        params = ctx.run.params
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(t.requires_grad) for t in (x, *args)]
+            outs = ctx.run(inputs[0], tuple(inputs[1:]), replay=True)
+        pairs = [(o, g) for o, g in zip(outs, grad_outs) if g is not None and o.requires_grad]
+        wrt = [t for t in inputs if t.requires_grad] + params
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                         allow_unused=True) if pairs else [None] * len(wrt))
+        got = [next(grads) if t.requires_grad else None for t in inputs]
+        # a parameter the recompute does not reach (an expert that received
+        # no token) gets zeros, as jax.grad gives it
+        got += [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return (None, None, *got)
+
+
+class _LayerRun:
+    """The callable :class:`_Remat` runs twice: ``layer(x, *args)`` on the
+    layer's fixed draws (replayed on the second run), returning the output
+    and the MoE statistics it appended to a local ``aux`` as a flat tuple."""
+
+    def __init__(self, layer: nn.Module, fixed, with_aux: bool):
+        self.layer, self.fixed, self.with_aux = layer, fixed, with_aux
+        self.params = [p for p in layer.parameters() if p.requires_grad]
+        self.keys: List[str] = []
+
+    def __call__(self, x, args, replay: bool):
+        local = {} if self.with_aux else None
+        draws = None if self.fixed is None else self.fixed.replay()
+        out = self.layer(x, *args, draws, local)
+        flat = [(key, t) for key, ts in (local or {}).items() for t in ts]
+        if not replay:
+            self.keys = [key for key, _ in flat]
+        return (out, *(t for _, t in flat))
+
+
 def run_layer(layer: nn.Module, x: torch.Tensor, args: Tuple, draws, aux, remat: bool):
     """``layer(x, *args, ...)`` with its draws taken first (see
-    :class:`LayerDraws`); under ``remat`` inside a non-reentrant
-    ``torch.utils.checkpoint``, which keeps only the layer's inputs and
+    :class:`LayerDraws`); under ``remat`` (and a graph being recorded)
+    through :class:`_Remat`, which keeps only the layer's inputs and
     recomputes its forward in the backward. The MoE statistics the layer
-    appends to ``aux`` leave the checkpoint as outputs of its first run."""
+    appends to ``aux`` leave it as outputs of its first run, so the balance
+    loss's gradient flows back into the recompute."""
     fixed = None
     if draws is not None:
         fixed = LayerDraws.take(draws, layer.n_attention if layer.dropout > 0.0 else 0,
                                 layer.mlp.mask_shapes(x.shape[0], x.shape[1]),
                                 1.0 - layer.dropout)
-    if not remat:
+    if not (remat and torch.is_grad_enabled()):
         return layer(x, *args, fixed, aux)
-    keys: List[str] = []
-
-    def run(x, *args):
-        local = None if aux is None else {}
-        out = layer(x, *args, None if fixed is None else fixed.replay(), local)
-        flat = [(key, t) for key, ts in (local or {}).items() for t in ts]
-        keys[:] = [key for key, _ in flat]
-        return (out, *(t for _, t in flat))
-
-    outs = checkpoint(run, x, *args, use_reentrant=False, preserve_rng_state=False)
-    for key, t in zip(keys, outs[1:]):
+    run = _LayerRun(layer, fixed, aux is not None)
+    outs = _Remat.apply(run, len(args), x, *args, *run.params)
+    for key, t in zip(run.keys, outs[1:]):
         aux.setdefault(key, []).append(t)
     return outs[0]
 

@@ -9,8 +9,10 @@ the first cycle), per-worker trial caps (``worker_trials``), the
 infrastructure requeues (``ExecutionResult.requeue``, bounded per trial).
 Suspension as in the reference: a reserved trial for which the
 algorithm's ``should_suspend`` says so is parked as ``suspended``, never
-executed. Not ported yet: the coordinator-hosted producer and its fused
-cycle, and the batched hunt (``batch_size > 1``).
+executed. The batched hunt (``batch_size > 1``, or ``"auto"``) reserves
+pools of trials and evaluates each in one ``execute_batch`` call
+(:func:`_workon_batched`). Not ported yet: the coordinator-hosted producer
+and its fused cycle (serial and batched).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ def workon(
     producer_mode: str = "local",
     stop_event: Optional[Any] = None,
     stale_sweep_interval_s: float = 2.0,
+    batch_size: Any = 1,
 ) -> WorkerStats:
     """Run trials until the experiment finishes (or this worker's cap hits).
 
@@ -70,12 +73,36 @@ def workon(
     ``producer_mode`` must be ``"local"`` (the algorithm fits in this
     worker); the reference's coordinator-hosted ``"coord"`` producer is not
     ported yet.
+
+    ``batch_size > 1`` switches to the batched hunt: up to that many
+    reserved trials evaluate as ONE call into the executor's
+    ``execute_batch`` (one pool on a
+    :class:`~metaopt_tpu_torch.executor.BatchedExecutor`). ``"auto"`` sizes
+    the batch from the algorithm's population cohort
+    (``BaseAlgorithm.cohort_size``) when it has one, else from the
+    experiment's pool size (at least 8).
     """
     if producer_mode != "local":
         raise NotImplementedError(f"producer {producer_mode!r}: coordinator producer "
                                   "not ported yet")
     algo = algorithm or make_algorithm(experiment.space, experiment.algorithm)
     producer = Producer(experiment, algo)
+    if batch_size == "auto":
+        # population algorithms emit same-fidelity generations — the natural
+        # pool; non-cohort algorithms fall back to the experiment's pool
+        batch_size = algo.cohort_size or max(int(experiment.pool_size or 1), 8)
+    batch_size = int(batch_size)
+    if batch_size > 1:
+        if not hasattr(executor, "execute_batch"):
+            raise ValueError(
+                f"batch_size={batch_size} needs an executor with "
+                f"execute_batch (got {type(executor).__name__})"
+            )
+        return _workon_batched(
+            experiment, executor, worker_id, producer, algo,
+            worker_trials, max_broken, heartbeat_timeout_s, idle_sleep_s,
+            max_idle_cycles, stop_event, stale_sweep_interval_s, batch_size,
+        )
     stats = WorkerStats()
     # per-trial requeue budget: a wedge-attributed infrastructure failure
     # releases the trial (ExecutionResult.requeue), but only this many
@@ -221,6 +248,148 @@ def workon(
         )
 
     # final observe so the algorithm state is current for callers
+    algo.observe(experiment.fetch_completed_trials())
+    stats.producer_timings = dict(producer.timings)
+    return stats
+
+
+def _workon_batched(
+    experiment: Experiment,
+    executor: Executor,
+    worker_id: str,
+    producer: Producer,
+    algo: BaseAlgorithm,
+    worker_trials: Optional[int],
+    max_broken: Optional[int],
+    heartbeat_timeout_s: float,
+    idle_sleep_s: float,
+    max_idle_cycles: int,
+    stop_event: Optional[Any],
+    stale_sweep_interval_s: float,
+    batch_size: int,
+) -> WorkerStats:
+    """The batched hunt: pools of trials through ``executor.execute_batch``.
+
+    Each outer iteration produces, then reserves up to ``batch_size``
+    trials (parking those the algorithm wants suspended) and evaluates them
+    in ONE executor call, so a population generation or ASHA rung cohort
+    is a single pool on the device. Status handling per trial mirrors the
+    serial loop; the batched executor never requeues (a pool-level failure
+    surfaces as broken notes, and the ``max_broken`` guard handles
+    persistence).
+    """
+    stats = WorkerStats()
+    last_sweep = 0.0
+    last_broken_note = ""
+
+    def heartbeat_for(trial: Trial):
+        def beat() -> bool:
+            return experiment.ledger.heartbeat(experiment.name, trial.id, worker_id)
+        return beat
+
+    def _park_suspended(trial: Trial) -> None:
+        trial.transition("suspended")
+        experiment.ledger.update_trial(
+            trial, expected_status="reserved", expected_worker=worker_id
+        )
+        stats.suspended += 1
+
+    while True:
+        if experiment.is_done:
+            break
+        if stop_event is not None and stop_event.is_set():
+            log.info("%s: stop requested — winding down", worker_id)
+            break
+        if worker_trials is not None and stats.reserved >= worker_trials:
+            log.info("%s: worker_trials cap (%d) reached", worker_id, worker_trials)
+            break
+        if max_broken is not None and stats.broken >= max_broken:
+            log.error(
+                "%s: %d trials broke (max_broken=%d) — is the objective "
+                "runnable? Stopping. Last failure: %s", worker_id,
+                stats.broken, max_broken, last_broken_note or "(no detail)",
+            )
+            break
+
+        want = batch_size
+        if worker_trials is not None:
+            want = min(want, worker_trials - stats.reserved)
+        now = time.time()
+        if now - last_sweep >= stale_sweep_interval_s:
+            experiment.ledger.release_stale(experiment.name, heartbeat_timeout_s)
+            last_sweep = now
+        produced = producer.produce(pool_size=want)
+        batch: List[Trial] = []
+        while len(batch) < want:
+            t = experiment.reserve_trial(worker_id)
+            if t is None:
+                break
+            if producer.should_suspend(t):
+                _park_suspended(t)
+                continue
+            batch.append(t)
+
+        if not batch:
+            if produced == 0 and experiment.count("reserved") == 0:
+                stats.idle_cycles += 1
+                if producer.algo_done or stats.idle_cycles > max_idle_cycles:
+                    log.info("%s: no work producible; stopping", worker_id)
+                    break
+            else:
+                stats.idle_cycles = 0
+            time.sleep(idle_sleep_s)
+            continue
+
+        stats.idle_cycles = 0
+        stats.reserved += len(batch)
+        log.debug("%s running pool of %d trials", worker_id, len(batch))
+        t0 = time.time()
+        try:
+            results = executor.execute_batch(
+                batch, heartbeats=[heartbeat_for(t) for t in batch])
+        except KeyboardInterrupt:
+            for t in batch:
+                t.transition("interrupted")
+                experiment.ledger.update_trial(
+                    t, expected_status="reserved", expected_worker=worker_id
+                )
+                stats.interrupted += 1
+            raise
+        runtime_s = round(time.time() - t0, 4)
+
+        for trial, res in zip(batch, results):
+            trial.exit_code = res.exit_code
+            if res.status == "completed":
+                if experiment.push_results(trial, res.results):
+                    stats.completed += 1
+                    stats.pruned += int("pruned" in res.note)
+                else:
+                    log.warning(
+                        "%s lost reservation of %s before result push",
+                        worker_id, trial.id,
+                    )
+            else:
+                trial.transition(res.status)
+                experiment.ledger.update_trial(
+                    trial, expected_status="reserved", expected_worker=worker_id
+                )
+                stats.broken += res.status == "broken"
+                stats.interrupted += res.status == "interrupted"
+                if res.status == "broken":
+                    last_broken_note = res.note
+                    if res.note:
+                        log.warning(
+                            "%s: trial %s broken: %s",
+                            worker_id, trial.id[:8], res.note,
+                        )
+            stats.events.append({
+                "trial": trial.id,
+                "status": res.status,
+                "runtime_s": runtime_s,
+                "note": res.note,
+                "pool": len(batch),
+            })
+
     algo.observe(experiment.fetch_completed_trials())
     stats.producer_timings = dict(producer.timings)
     return stats

@@ -179,8 +179,6 @@ def test_on_conflict_fail_and_adopt(tmp_path, quad, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--batch-size", "4"], "batched hunt"),
-    (["--vector-objective", "rosenbrock"], "batched hunt"),
     (["--branch-from", "a"], "--branch-from"),
     (["--warm-start", "a"], "--warm-start"),
     (["--on-conflict", "branch"], "--on-conflict branch"),

@@ -6,8 +6,9 @@ tests/conftest.py) then makes those imports fail with a ``sys.meta_path``
 hook, imports every module of the port (the decoder-only LM, the MoE and
 the blocked xent among them), runs one CPU ``workon`` of the Transformer,
 two steps of the MoE LM under remat, one ``workon`` of BOHB on PPO, one
-each of GP-BO and CMA-ES, and one ``hunt`` of the port's Rosenbrock example
-through ``cli.main`` (its trial processes start outside the wall).
+each of GP-BO and CMA-ES, one ``hunt`` of the port's Rosenbrock example
+through ``cli.main`` (its trial processes start outside the wall), the
+batched hunt of the MLP zoo and one ``benchmark`` study.
 """
 
 import ast
@@ -64,7 +65,14 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/examples/multiobj.py",
                  "metaopt_tpu_torch/examples/pbt_sgd.py", "metaopt_tpu_torch/models/lm.py",
                  "metaopt_tpu_torch/models/moe.py", "metaopt_tpu_torch/ops/xent.py",
-                 "metaopt_tpu_torch/examples/lm_causal.py"):
+                 "metaopt_tpu_torch/examples/lm_causal.py",
+                 "metaopt_tpu_torch/executor/batched.py",
+                 "metaopt_tpu_torch/benchmark/__init__.py",
+                 "metaopt_tpu_torch/benchmark/tasks.py",
+                 "metaopt_tpu_torch/benchmark/assessments.py",
+                 "metaopt_tpu_torch/benchmark/benchmark.py",
+                 "metaopt_tpu_torch/models/objectives.py",
+                 "metaopt_tpu_torch/io/webapi.py"):
         assert must in names
 
 
@@ -89,7 +97,9 @@ mods = [m.name for m in pkgutil.walk_packages(metaopt_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert {"metaopt_tpu_torch.models.lm", "metaopt_tpu_torch.models.moe",
-        "metaopt_tpu_torch.ops.xent"} <= set(mods), mods
+        "metaopt_tpu_torch.ops.xent", "metaopt_tpu_torch.executor.batched",
+        "metaopt_tpu_torch.benchmark.tasks", "metaopt_tpu_torch.benchmark.benchmark",
+        "metaopt_tpu_torch.benchmark.assessments"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 
 from metaopt_tpu_torch import build_experiment
@@ -132,6 +142,18 @@ rosen = os.path.join(os.path.dirname(metaopt_tpu_torch.__file__), "examples", "r
 rc = main(["hunt", "-n", "rosen", "--ledger", "file:" + os.path.join(root, "ledger"),
            "--max-trials", "2", "--config", cfg, rosen,
            "-x~uniform(-5, 10)", "-y~uniform(-5, 10)"])
+assert rc == 0, rc
+# the batched hunt on the zoo and a benchmark study, in this process
+cfg = os.path.join(root, "cmaes.json")
+with open(cfg, "w") as f:
+    json.dump({"algorithm": {"cmaes": {"seed": 0, "population_size": 8}},
+               "executor": {"device": "cpu"}}, f)
+rc = main(["hunt", "-n", "zoo", "--ledger", "file:" + os.path.join(root, "ledger"),
+           "--max-trials", "16", "--config", cfg, "--vector-objective", "mlp",
+           "--batch-size", "auto"])
+assert rc == 0, rc
+rc = main(["benchmark", "--algos", "random", "cmaes", "--task", "rastrigin",
+           "--max-trials", "6", "--repetitions", "1", "--json"])
 assert rc == 0, rc
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not leaked, leaked
@@ -185,6 +207,10 @@ assert main(["hunt", "-n", "sgd", "--ledger", led, "--max-trials", "3", "--ckpt-
              os.path.join(os.path.dirname(sgd), "asha.json"), sgd,
              "--lr~loguniform(1e-3, 1.0)", "--steps~fidelity(4, 16, base=2)"]) == 0
 assert main(["status", "-n", "sgd", "--ledger", led, "--rungs", "--json"]) == 0
+try:
+    main(["benchmark", "--help"])
+except SystemExit as done:
+    assert done.code == 0, done.code
 loaded = sorted(n for n in sys.modules if n.split(".")[0] == "torch")
 assert not loaded, loaded
 print("NO-TORCH")

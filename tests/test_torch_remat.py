@@ -1,9 +1,9 @@
-"""Remat (``torch.utils.checkpoint`` per layer) in the port's LM and Transformer.
+"""Remat (a ``torch.autograd.Function`` per layer) in the port's LM and Transformer.
 
 The reference rematerializes with ``nn.remat``, whose recompute draws the
 same dropout because flax's keys are pure. The port's draws advance
 generators, so each layer's masks and attention seeds are taken before the
-checkpointed region (``LayerDraws``) and replayed in it. Held here, on the
+recomputed region (``LayerDraws``) and replayed in it. Held here, on the
 CPU at dropout 0.1: remat on gives the same loss and gradients as remat off
 (bit for bit: the recompute runs the same operations on the same inputs),
 dense and MoE, for both model families, with ``Draws`` and with
@@ -130,3 +130,36 @@ def test_layer_draws_replay_in_order_and_check_shapes():
     assert fixed.replay().attention_draw() == a
     with pytest.raises(ValueError, match="shape"):
         fixed.replay().ffn_keep((3, 2), 0.9)
+
+
+def test_a_remat_train_step_imports_no_torch_dynamo():
+    """Remat is the port's own ``torch.autograd.Function``:
+    ``torch.utils.checkpoint`` imports ``torch._dynamo`` at its first call
+    (~11 s per fresh process on the card's host), and the reference's
+    ``nn.remat`` costs nothing at a trial's start. Dense and MoE, both model
+    families, forward and backward."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "from metaopt_tpu_torch.models import lm, transformer as tt\n"
+        "small = dict(vocab=64, d_model=64, n_heads=1, n_layers=2, d_ff=64, dropout=0.1,\n"
+        "             max_len=32, remat=True)\n"
+        "toks = torch.randint(2, 64, (2, 9), generator=torch.Generator().manual_seed(0))\n"
+        "for moe in ({}, {'n_experts': 4}):\n"
+        "    m = lm.make_lm({**small, **moe}).init_like_flax(torch.Generator().manual_seed(0))\n"
+        "    lm.lm_loss_fn(m, toks, tt.Draws(0, 0, 'cpu')).backward()\n"
+        "tt.train_and_eval({'lr': 1e-3, 'dropout': 0.1, 'd_model': 64, 'n_heads': 1,\n"
+        "                   'n_layers': 1, 'd_ff': 64, 'vocab': 64, 'remat': True}, steps=2,\n"
+        "                  n_train=8, batch_size=4, seq_len=8, device='cpu')\n"
+        "print('torch._dynamo' in sys.modules)\n")
+    repo = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=repo, env={**os.environ, "PYTHONPATH": repo,
+                                                     "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "False"
