@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through fifteen phases and exits non-zero if any fails:
+``metaopt_tpu``) through sixteen phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -205,14 +205,38 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    (the bound of (a)), no ``torch._dynamo`` in the process; its wall and
    trials/s. (d) ``benchmark --task branin --algos random tpe --max-trials
    30 --repetitions 2`` in-process, TPE's EI on the card: the report's
-   curves, winner and seconds.
+   curves, winner and seconds;
+16. ledger: the ledger at sweep scale, all on the card's host except TPE.
+   (a) ``g++`` builds the port's ledgerstore engine into
+   ``metaopt_tpu_torch/_build/`` (its seconds printed); a bare ``--ledger
+   DIR`` resolves to ``NativeFileLedger`` on that library, and ``db test``
+   passes on it. (b) BASELINE config 1 (100 Rosenbrock trials, 4 workers)
+   through the CLI on the bare path: 100 completed, none run twice,
+   ``status`` agreeing, its trials/s beside ``[hunt]``'s on ``file:``; then
+   4 processes racing one experiment through register -> reserve ->
+   heartbeat -> complete cycles, on ``native:`` (250 cycles each) and on
+   ``file:`` (50 each): µs per cycle. (c) ``db load`` of a parent
+   of 15,000 completed Rosenbrock trials (numpy draws from a fixed seed),
+   then ``hunt --algo tpe --branch-from parent`` with ``y`` narrowed to
+   ``uniform(-5, 5)``, 4 trials, 1 worker, in this process: the child's
+   observed count equal to a CPU replay of ``TrialAdapter`` over ``db
+   dump``, its document at version 2 with ``metadata.branch``, every EI
+   launch on the card, TPE's fit (split, weights, bandwidths) card against
+   CPU within 1e-5; the warm start's seconds, and host ms, device ms and
+   CUDA kernels per EI launch at n ~10k. (d) Transfer priors
+   (``metadata.transfer_from``): ``n_prior`` equal to the adapted count,
+   the discounted fit card against CPU within 1e-5. (e) 50,000 completed
+   trials in a ``MemoryLedger`` with the archive on and off, each in a
+   fresh torch-free process: resident bytes per trial and the seconds of
+   ``fetch(..., "completed")``; TPE's columnar ``observe`` of the
+   ``CompletedBatch``.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
 line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
-line, a ``{"batched": {...}}`` line and, last, the ``{"ok": true, "device":
-{...}}`` line. The
+line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line and, last,
+the ``{"ok": true, "device": {...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
 run; under ``"lm"`` the launches and device ms on the LM's path, with the
@@ -403,6 +427,14 @@ BATCHED_TOL, BATCHED_DIVERGED = 1e-4, 100.0
 BATCHED_CLI_TRIALS, BATCHED_POPULATION = 512, 64   # 8 CMA-ES generations through the CLI
 # a benchmark study in-process; 30 trials, since TPE's default 20 initial
 # points would leave 20 with no EI launch on the card
+LEDGER_PROCS = 4        # processes racing one experiment in the engine benchmark
+LEDGER_CYCLES = 250     # register -> reserve -> heartbeat -> complete cycles per process
+LEDGER_FILE_CYCLES = 50   # the same on file:
+LEDGER_CYCLE_TIMEOUT_S = 240
+LEDGER_PARENT = 15000   # completed Rosenbrock trials of the EVC parent
+LEDGER_SEED = 12
+LEDGER_CHILD_TRIALS = 4
+ARCHIVE_ROWS = 50_000   # completed trials in the archive's memory check
 BENCH_TRIALS = 30
 BENCH_ARGS = ["--task", "branin", "--algos", "random", "tpe", "--max-trials",
               str(BENCH_TRIALS), "--repetitions", "2", "--json"]
@@ -3212,6 +3244,471 @@ def batched_phase(torch, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the ledger at sweep scale — the native engine, EVC, the archive
+
+# one of the engine benchmark's processes: argv spec name rank cycles go-file;
+# waits for the go file, then runs ``cycles`` register -> reserve ->
+# heartbeat -> complete cycles and prints its start, end and wall as JSON
+LEDGER_CYCLE_SCRIPT = r"""
+import json, os, sys, time
+from metaopt_tpu_torch.ledger.backends import ledger_from_spec
+from metaopt_tpu_torch.ledger.trial import Trial
+spec, name, rank, n, go = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+led, w = ledger_from_spec(spec), f"p{rank}"
+open(go + f".ready{rank}", "w").close()
+while not os.path.exists(go):
+    time.sleep(0.001)
+start = time.time()
+t0 = time.perf_counter()
+for i in range(n):
+    led.register(Trial(params={"x": float(rank * n + i)}, experiment=name))
+    t = led.reserve(name, w)
+    assert t is not None and led.heartbeat(name, t.id, w)
+    t.attach_results([{"name": "objective", "type": "objective", "value": float(i)}])
+    t.transition("completed")
+    assert led.update_trial(t, expected_status="reserved", expected_worker=w)
+wall = time.perf_counter() - t0
+print(json.dumps({"start": start, "end": time.time(), "wall_s": wall}))
+"""
+
+# the archive's memory in a fresh torch-free process: argv rows on|off;
+# prints the resident bytes the ledger added per completed trial and the
+# seconds of one fetch(..., "completed")
+ARCHIVE_RSS_SCRIPT = r"""
+import gc, json, os, sys, time
+import numpy as np
+from metaopt_tpu_torch.ledger.backends import MemoryLedger
+from metaopt_tpu_torch.ledger.trial import Trial
+from metaopt_tpu_torch.models.objectives import rosenbrock
+n, on = int(sys.argv[1]), sys.argv[2] == "on"
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+rng = np.random.default_rng(0)
+xy = rng.uniform(-5.0, 10.0, (n, 2)).tolist()
+led = MemoryLedger(archive_completed=on)
+led.create_experiment({"name": "a"})
+gc.collect()
+base = rss()
+t0 = time.perf_counter()
+for i, (x, y) in enumerate(xy):
+    p = {"x": x, "y": y}
+    led.register(Trial(params=p, experiment="a", status="completed", worker="w0",
+                       results=[{"name": "objective", "type": "objective",
+                                 "value": rosenbrock(p)}],
+                       submit_time=1e9 + i, start_time=1e9 + i + 0.25,
+                       end_time=1e9 + i + 0.5))
+fill = time.perf_counter() - t0
+gc.collect()
+grown = rss() - base
+t0 = time.perf_counter()
+got = led.fetch("a", "completed")
+fetch_s = time.perf_counter() - t0
+assert len(got) == n, len(got)
+print(json.dumps({"rows": n, "archive": on, "rss_bytes": grown, "rss_bytes_per_trial": grown / n,
+                  "fill_s": fill, "fetch_completed_s": fetch_s,
+                  "stats": led.archive_stats("a")}))
+"""
+
+
+def ledger_cycles(root: Path, env, spec: str, name: str, n_cycles: int):
+    """µs per register -> reserve -> heartbeat -> complete cycle with
+    ``LEDGER_PROCS`` processes racing one experiment on ``spec``, each
+    running ``n_cycles`` cycles."""
+    from metaopt_tpu_torch.ledger.backends import ledger_from_spec
+
+    led = ledger_from_spec(spec)
+    led.create_experiment({"name": name, "space": {"x": "uniform(0, 1e9)"},
+                           "algorithm": {"random": {}}, "max_trials": 10 ** 9, "version": 1})
+    go = root / f"{name}.go"
+    procs = [subprocess.Popen([sys.executable, "-c", LEDGER_CYCLE_SCRIPT, spec, name, str(r),
+                               str(n_cycles), str(go)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+             for r in range(LEDGER_PROCS)]
+    try:
+        deadline = time.monotonic() + 60
+        while not all((root / f"{name}.go.ready{r}").exists() for r in range(LEDGER_PROCS)):
+            if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
+                raise AssertionError(f"[ledger] {spec}: a cycle process did not start")
+            time.sleep(0.005)
+        go.touch()
+        rows = []
+        for p in procs:
+            out, err = p.communicate(timeout=LEDGER_CYCLE_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"[ledger] {spec}: cycle process exited {p.returncode}:\n"
+                                     f"{err[-2000:]}")
+            rows.append(json.loads(out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cycles = LEDGER_PROCS * n_cycles
+    span = max(r["end"] for r in rows) - min(r["start"] for r in rows)
+    done = led.fetch(name, "completed")
+    if len(done) != cycles or len({t.id for t in done}) != cycles:
+        raise AssertionError(f"[ledger] {spec}: {len(done)} completed of {cycles}")
+    return {"cycles": cycles, "procs": LEDGER_PROCS, "span_s": span,
+            "us_per_cycle": span / cycles * 1e6,
+            "us_per_cycle_per_proc": [r["wall_s"] / n_cycles * 1e6 for r in rows],
+            "backend": type(led).__name__}
+
+
+def cli_in_process(argv):
+    """``python -m metaopt_tpu_torch ARGV`` in this process: (rc, stdout)."""
+    import contextlib
+    import io
+
+    from metaopt_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def tpe_fit_card_vs_cpu(torch, algo):
+    """TPE's split, weights and bandwidths (``_tpe_fit``) from its buffer on
+    the card against the same rows in a CPU buffer: max |diff| per field."""
+    import numpy as np
+
+    from metaopt_tpu_torch.algo import ObservationBuffer
+    from metaopt_tpu_torch.ops import tpe_math as P
+
+    with algo._kernel_lock:
+        algo._buf.sync(algo._X, algo._y)   # rows observed since the last launch
+    n = len(algo._y)
+    host = ObservationBuffer(algo.cube.n_dims, "cpu")
+    host.sync(algo._X, algo._y)
+    g_pad, b_pad = P.split_pads(n, algo.gamma)
+    kw = dict(kmax=algo._kmax, equal_weight=algo.equal_weight, n_good_pad=g_pad,
+              n_bad_pad=b_pad)
+    nch = torch.as_tensor(np.asarray(algo.cube.n_choices), dtype=torch.int32)
+    args = (n, algo.gamma, algo.prior_weight, algo.full_weight_num, algo._n_prior,
+            algo.transfer_discount)
+
+    def fit(buf, dev):
+        n_, gamma, pw, fwn, n_prior, disc = args
+        return P._tpe_fit(buf.Xdev, buf.ydev, n_, nch.to(dev), gamma, pw, fwn, n_prior, disc,
+                          **kw)
+
+    card, cpu = fit(algo._buf, algo._buf.device), fit(host, "cpu")
+    errs = {}
+    for name, a, b in zip(P.TPEFit._fields, card, cpu):
+        a = a.cpu()
+        if not torch.equal(torch.isinf(a), torch.isinf(b)):
+            raise AssertionError(f"[ledger] TPE fit at n {n}: {name} -inf pattern differs")
+        fin = torch.isfinite(b)
+        errs[name] = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+        if not torch.allclose(a[fin], b[fin], rtol=TPE_TOL, atol=TPE_TOL):
+            raise AssertionError(f"[ledger] TPE fit at n {n}: {name} off by {errs[name]:.3e}")
+    return errs, cpu
+
+
+def ledger_phase(torch, smi: str, hunt_stats):
+    import numpy as np
+
+    from metaopt_tpu_torch import native
+    from metaopt_tpu_torch.algo import make_algorithm
+    from metaopt_tpu_torch.algo.tpe import TPE
+    from metaopt_tpu_torch.ledger import Experiment, MemoryLedger, Trial, TrialAdapter
+    from metaopt_tpu_torch.ledger.backends import ledger_from_spec
+    from metaopt_tpu_torch.ledger.native import NativeFileLedger
+    from metaopt_tpu_torch.models.objectives import rosenbrock
+    from metaopt_tpu_torch.space import build_space
+    from metaopt_tpu_torch.utils import cuda_build
+    from metaopt_tpu_torch.worker.producer import Producer
+
+    repo = Path(__file__).resolve().parent
+    rosen = str(repo / "metaopt_tpu_torch" / "examples" / "rosenbrock.py")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ledger_"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = {"card": smi}
+    part_s, last = {}, [time.perf_counter()]
+    probes = {}
+
+    def mark(part: str) -> None:  # seconds since the previous part ended
+        now = time.perf_counter()
+        part_s[part] = now - last[0]
+        last[0] = now
+
+    try:
+        # -- (a) build the engine with g++; a bare path resolves to it ------
+        t0 = time.perf_counter()
+        so = cuda_build.build_host("ledgerstore", [native.SOURCE])
+        build_s = time.perf_counter() - t0
+        bare = str(root / "ledger")
+        led = ledger_from_spec(bare)
+        if not isinstance(led, NativeFileLedger) or native.lib_path != so:
+            raise AssertionError(f"[ledger] a bare path resolved to {type(led).__name__} "
+                                 f"({native.lib_path}), not the engine built at {so}")
+        if so.parent != cuda_build.BUILD_DIR:
+            raise AssertionError(f"[ledger] the engine was built outside _build/: {so}")
+        rc, text = cli_in_process(["db", "test", "--ledger", bare])
+        if rc != 0 or "NativeFileLedger" not in text:
+            raise AssertionError(f"[ledger] db test returned {rc}:\n{text[-2000:]}")
+        log(f"[ledger] (a) g++ built the ledgerstore engine in {build_s:.2f} s ({so.name}); "
+            f"a bare path resolves to NativeFileLedger; db test: {text.strip().splitlines()[-1]}")
+        out["build_s"] = build_s
+        mark("build")
+
+        # -- (b) config 1 on the engine, then the engine alone ---------------
+        cfg = root / "random.json"
+        cfg.write_text(json.dumps({"algorithm": {"random": {"seed": 0}}}))
+        summary, wall = run_cli(
+            ["hunt", "-n", "rosen", "--ledger", bare, "--max-trials", str(ROSEN_TRIALS),
+             "--n-workers", str(ROSEN_WORKERS), "--config", str(cfg), rosen]
+            + [f"-{k}~{v}" for k, v in ROSEN_SPACE.items()],
+            root, env, ROSEN_TRIALS, ROSEN_WORKERS, ROSEN_TRIAL_S)
+        rc, text = cli_in_process(["status", "-n", "rosen", "--ledger", bare, "--json"])
+        if rc != 0:
+            raise AssertionError(f"[ledger] status returned {rc}: {text[-2000:]}")
+        status = json.loads(text)
+        done = [t for t in ledger_from_spec(bare).fetch("rosen") if t.status == "completed"]
+        n_results = {t.id: sum(r.type == "objective" for r in t.results) for t in done}
+        problems = []
+        if len(done) != ROSEN_TRIALS or len({t.id for t in done}) != len(done):
+            problems.append(f"{len(done)} completed")
+        if summary["completed_by_worker"] != len(done) or set(n_results.values()) != {1}:
+            problems.append(f"a trial ran twice ({summary['completed_by_worker']} pushes)")
+        if status[0]["by_status"] != summary["total"] or status[0]["best"] != summary["best"]:
+            problems.append(f"status disagrees: {status[0]} vs {summary}")
+        if problems:
+            raise AssertionError(f"[ledger] config 1 on the native engine: {problems}")
+        file_rate = hunt_stats["config1"]["trials_per_s"]
+        out["config1"] = {"trials": len(done), "workers": ROSEN_WORKERS, "hunt_wall_s": wall,
+                          "trials_per_s": len(done) / wall, "file_trials_per_s": file_rate,
+                          "producer_timings": summary["producer_timings"]}
+        log(f"[ledger] (b) config 1 on the native engine: {len(done)} completed, each reserved "
+            f"once, status agrees; {len(done) / wall:.2f} trials/s ([hunt] on file: "
+            f"{file_rate:.2f} trials/s)")
+        # file: at fewer cycles (a file cycle costs ~17x an engine cycle);
+        # each run is long enough that the 4 processes overlap throughout
+        cyc = {f"{kind}_{n}": ledger_cycles(root, env, f"{kind}:{root / f'cyc_{kind}'}", "cyc", n)
+               for kind, n in (("native", LEDGER_CYCLES), ("file", LEDGER_FILE_CYCLES))}
+        nat, fil = cyc[f"native_{LEDGER_CYCLES}"], cyc[f"file_{LEDGER_FILE_CYCLES}"]
+        ratio = fil["us_per_cycle"] / nat["us_per_cycle"]
+        out["cycles"] = {**cyc, "file_over_native": ratio}
+        for key, row in cyc.items():
+            log(f"[ledger] (b) {key}: {LEDGER_PROCS} processes x {row['cycles'] // LEDGER_PROCS} "
+                f"register -> reserve -> heartbeat -> complete cycles on one experiment: "
+                f"{row['us_per_cycle']:.1f} us/cycle over the {row['span_s']:.2f} s span; per "
+                f"process {[round(v, 1) for v in row['us_per_cycle_per_proc']]} us/cycle")
+        log(f"[ledger] (b) file ({fil['cycles']} trials) / "
+            f"native ({nat['cycles']} trials) = {ratio:.1f}x per cycle; card {smi}")
+        mark("native")
+
+        # -- (c) EVC: a 15,000-trial parent, a TPE child on the card ---------
+        rng = np.random.default_rng(LEDGER_SEED)
+        xy = rng.uniform(-5.0, 10.0, (LEDGER_PARENT, 2)).tolist()
+        mem = MemoryLedger()
+        Experiment("parent", mem, space=build_space(ROSEN_SPACE), algorithm={"random": {}},
+                   max_trials=LEDGER_PARENT,
+                   user_args=[rosen] + [f"-{k}~{v}" for k, v in ROSEN_SPACE.items()]).configure()
+        docs = []
+        for i, (x, y) in enumerate(xy):
+            p = {"x": x, "y": y}
+            docs.append(Trial(params=p, experiment="parent", status="completed", worker="w0",
+                              results=[{"name": "objective", "type": "objective",
+                                        "value": rosenbrock(p)}],
+                              submit_time=1e9 + i, start_time=1e9 + i + 0.25,
+                              end_time=1e9 + i + 0.5).to_dict())
+        archive = root / "parent.json"
+        archive.write_text(json.dumps({"format": "metaopt-tpu-archive", "version": 1, "experiments": [
+            {"document": mem.load_experiment("parent"), "trials": docs}]}))
+        t0 = time.perf_counter()
+        rc, text = cli_in_process(["db", "load", "--ledger", bare, "--file", str(archive)])
+        load_s = time.perf_counter() - t0
+        if rc != 0 or f"{LEDGER_PARENT} trial(s)" not in text:
+            raise AssertionError(f"[ledger] db load returned {rc}:\n{text[-2000:]}")
+        mark("evc_load")
+        launches = []
+        real_launch = TPE._launch_ei
+
+        def counting_launch(self, num):
+            t0 = time.perf_counter()
+            pts = real_launch(self, num)
+            launches.append((self, (time.perf_counter() - t0) * 1e3, len(self._y),
+                             self._buf.Xdev.device.type))
+            return pts
+
+        warm = []
+        real_adapt = Producer._adapt_foreign
+
+        def timed_adapt(self, fetched, src, branch):
+            usable = real_adapt(self, fetched, src, branch)
+            warm.append((src, len(fetched), len(usable)))
+            return usable
+
+        TPE._launch_ei, Producer._adapt_foreign = counting_launch, timed_adapt
+        real_produce, producers = Producer.produce, []
+
+        def recording_produce(self, pool_size=None):
+            if self not in producers:
+                producers.append(self)
+            return real_produce(self, pool_size)
+
+        Producer.produce = recording_produce
+        child_space = {"x": "uniform(-5, 10)", "y": "uniform(-5, 5)"}
+        t0 = time.perf_counter()
+        try:
+            rc, text = cli_in_process(
+                ["hunt", "-n", "child", "--branch-from", "parent", "--ledger", bare, "--algo",
+                 "tpe", "--max-trials", str(LEDGER_CHILD_TRIALS), rosen]
+                + [f"-{k}~{v}" for k, v in child_space.items()])
+        finally:
+            TPE._launch_ei, Producer._adapt_foreign = real_launch, real_adapt
+            Producer.produce = real_produce
+        child_wall = time.perf_counter() - t0
+        summary = json.loads(text)
+        if rc != 0 or summary["total"] != {"completed": LEDGER_CHILD_TRIALS}:
+            raise AssertionError(f"[ledger] the child hunt: rc {rc}, {summary}")
+        # the CPU replay of the adapter over the parent's dump
+        dump = root / "dump.json"
+        t0 = time.perf_counter()
+        rc, text = cli_in_process(["db", "dump", "-n", "parent", "--ledger", bare, "-o",
+                                   str(dump)])
+        if rc != 0:
+            raise AssertionError(f"[ledger] db dump returned {rc}: {text[-2000:]}")
+        parent_doc = json.loads(dump.read_text())["experiments"][0]
+        adapter = TrialAdapter(build_space(parent_doc["document"]["space"]),
+                               build_space(child_space))
+        replay = {a.id for a in (adapter.adapt(Trial.from_dict(d)) for d in parent_doc["trials"])
+                  if a is not None}
+        replay_s = time.perf_counter() - t0
+        algos = {id(a): a for a, *_ in launches}
+        if len(algos) != 1 or not launches:
+            raise AssertionError(f"[ledger] expected one TPE with EI launches, got {len(algos)} "
+                                 f"TPEs and {len(launches)} launches")
+        algo = launches[0][0]
+        first_n = min(n for _, _, n, _ in launches)
+        child_doc = ledger_from_spec(bare).load_experiment("child")
+        problems = []
+        if warm != [("parent", LEDGER_PARENT, len(replay))]:
+            problems.append(f"warm start {warm} (replay {len(replay)})")
+        if first_n != len(replay) or algo.n_observed != len(replay) + LEDGER_CHILD_TRIALS:
+            problems.append(f"observed {first_n} at the first launch, {algo.n_observed} after; "
+                            f"replay {len(replay)}")
+        if any(dev != "cuda" for *_, dev in launches):
+            problems.append("an EI launch ran off the card")
+        if (child_doc.get("version") != 2
+                or (child_doc.get("metadata") or {}).get("branch", {}).get("parent") != "parent"):
+            problems.append(f"child doc version {child_doc.get('version')}, metadata "
+                            f"{child_doc.get('metadata')}")
+        if problems:
+            raise AssertionError(f"[ledger] (c) EVC: {problems}")
+        t0 = time.perf_counter()
+        errs, _ = tpe_fit_card_vs_cpu(torch, algo)
+        fit_s = time.perf_counter() - t0
+        algo.drain_suggest_ahead()
+        algo._suggest_ahead_async = lambda: None   # launches only when timed
+        ei_host, ei_dev, ei_kernels = profile_calls(torch, lambda: algo._launch_ei(8))
+        warm_s = producers[0].warm_start_s if producers else None
+        out["evc"] = {
+            "parent_trials": LEDGER_PARENT, "db_load_s": load_s, "adapted": len(replay),
+            "child_trials": LEDGER_CHILD_TRIALS, "child_hunt_wall_s": child_wall,
+            "warm_start_s": warm_s, "ei_launches_in_hunt": len(launches),
+            "ei_launch_host_ms_in_hunt": [ms for _, ms, _, _ in launches],
+            "ei_n_obs": [n for _, _, n, _ in launches],
+            "fit_max_abs_err": errs, "ei_host_ms": ei_host, "ei_device_ms": ei_dev,
+            "ei_cuda_kernels": ei_kernels, "n_obs_timed": len(algo._y),
+            "dump_and_replay_s": replay_s, "fit_check_s": fit_s,
+            "producer_timings": summary["producer_timings"],
+        }
+        log(f"[ledger] (c) db load of {LEDGER_PARENT} parent trials {load_s:.2f} s; the child "
+            f"(y narrowed to uniform(-5, 5)) observed {first_n} adapted trials = the CPU replay "
+            f"of TrialAdapter over the dump ({len(replay)}), version 2, branched from parent; "
+            f"warm start {warm_s:.3f} s; {len(launches)} EI launches on the card at n "
+            f"{sorted({n for _, _, n, _ in launches})}, host ms {[round(ms, 2) for _, ms, _, _ in launches]}; "
+            f"TPE fit card vs cpu max |diff| {max(errs.values()):.3e} (tol {TPE_TOL}); at n "
+            f"{len(algo._y)}: host {ei_host:.3f} ms, device {ei_dev} ms, {ei_kernels} CUDA "
+            f"kernels per EI launch; child hunt {child_wall:.2f} s; card {smi}")
+        mark("evc_child")
+
+        # -- (d) transfer priors: n_prior and the discounted weights ----------
+        xexp = Experiment("xfer", ledger_from_spec(bare), space=build_space(child_space),
+                          algorithm={"tpe": {"seed": 0}}, max_trials=1,
+                          metadata={"transfer_from": "parent"}).configure()
+        xalgo = make_algorithm(xexp.space, xexp.algorithm)
+        xalgo._suggest_ahead_async = lambda: None
+        prod = Producer(xexp, xalgo)
+        prod.produce()
+        if xalgo.n_prior != len(replay) or xalgo.n_observed != len(replay):
+            raise AssertionError(f"[ledger] (d) n_prior {xalgo.n_prior}, observed "
+                                 f"{xalgo.n_observed}, replay {len(replay)}")
+        xerrs, xfit = tpe_fit_card_vs_cpu(torch, xalgo)
+        # the discount must reach the fit: without it the weights differ
+        prior, xalgo._n_prior = xalgo._n_prior, 0
+        _, plain_fit = tpe_fit_card_vs_cpu(torch, xalgo)
+        xalgo._n_prior = prior
+        moved = float((xfit.g_logw - plain_fit.g_logw).nan_to_num(0.0, 0.0, 0.0).abs().max())
+        if not moved > 0:
+            raise AssertionError("[ledger] (d) the transfer discount left the weights unchanged")
+        out["transfer"] = {"n_prior": xalgo.n_prior, "fit_max_abs_err": xerrs,
+                           "discount": xalgo.transfer_discount, "warm_start_s": prod.warm_start_s,
+                           "logw_moved_by_discount": moved}
+        log(f"[ledger] (d) transfer priors: n_prior {xalgo.n_prior} = the adapted count; "
+            f"discounted fit card vs cpu max |diff| {max(xerrs.values()):.3e} (tol {TPE_TOL}); "
+            f"the discount {xalgo.transfer_discount} moves log weights by up to {moved:.3f}")
+        mark("transfer")
+
+        # -- (e) the archive: memory, fetch, TPE's columnar observe -----------
+        # the two memory probes run in their own processes while this one
+        # fills the ledger that TPE observes
+        probes = {mode: subprocess.Popen([sys.executable, "-c", ARCHIVE_RSS_SCRIPT,
+                                          str(ARCHIVE_ROWS), mode], stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+                  for mode in ("on", "off")}
+        arch = MemoryLedger()
+        arch.create_experiment({"name": "a"})
+        for i, (x, y) in enumerate(np.random.default_rng(0).uniform(
+                -5.0, 10.0, (ARCHIVE_ROWS, 2)).tolist()):
+            p = {"x": x, "y": y}
+            arch.register(Trial(params=p, experiment="a", status="completed", worker="w0",
+                                results=[{"name": "objective", "type": "objective",
+                                          "value": rosenbrock(p)}],
+                                submit_time=1e9 + i, start_time=1e9 + i + 0.25,
+                                end_time=1e9 + i + 0.5))
+        batch, _ = arch.fetch_completed_since("a", None)
+        tpe = make_algorithm(build_space(ROSEN_SPACE), {"tpe": {"seed": 0}})
+        tpe._suggest_ahead_async = lambda: None
+        columnar = []
+        real_batch = tpe._observe_batch
+        tpe._observe_batch = lambda trials: columnar.append(real_batch(trials)) or columnar[-1]
+        t0 = time.perf_counter()
+        tpe.observe(batch)
+        observe_s = time.perf_counter() - t0
+        if columnar != [True] or tpe.n_observed != ARCHIVE_ROWS:
+            raise AssertionError(f"[ledger] (e) TPE's observe took the columnar path "
+                                 f"{columnar}, observed {tpe.n_observed}")
+        rss = {}
+        for mode, proc in probes.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"[ledger] archive {mode}: {stderr[-2000:]}")
+            rss[mode] = json.loads(stdout)
+        out["archive"] = {"rows": ARCHIVE_ROWS, "on": rss["on"], "off": rss["off"],
+                          "tpe_columnar_observe_s": observe_s}
+        log(f"[ledger] (e) {ARCHIVE_ROWS} completed trials in a MemoryLedger: archive on "
+            f"{rss['on']['rss_bytes_per_trial']:.1f} B/trial resident, fetch(completed) "
+            f"{rss['on']['fetch_completed_s']:.3f} s; off {rss['off']['rss_bytes_per_trial']:.1f} "
+            f"B/trial, {rss['off']['fetch_completed_s']:.3f} s; TPE's columnar observe of the "
+            f"CompletedBatch {observe_s:.3f} s")
+        mark("archive")
+    finally:
+        for proc in probes.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    out["part_s"] = part_s
+    log(f"[ledger] part seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in part_s.items()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3453,6 +3950,10 @@ def main() -> int:
     # -- 15. the batched hunt: the MLP zoo's pools, one CLI hunt, a benchmark --
     batched_stats = batched_phase(torch, smi)
     mark("batched")
+
+    # -- 16. the ledger at sweep scale: the native engine, EVC, the archive ----
+    ledger_stats = ledger_phase(torch, smi, hunt_stats)
+    mark("ledger")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -3501,6 +4002,7 @@ def main() -> int:
     print(json.dumps({"algos": algos_stats}), flush=True)
     print(json.dumps({"lm": lm_stats}), flush=True)
     print(json.dumps({"batched": batched_stats}), flush=True)
+    print(json.dumps({"ledger": ledger_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,13 @@ own command line, with ``~priors`` marking searchable arguments:
         -x~'uniform(-5, 10)' -y~'uniform(-5, 10)'
 
 Ported subcommands: ``hunt``, ``init-only``, ``insert``, ``resume``,
-``list``, ``status``, ``info`` and ``benchmark``. ``hunt --n-chips N`` (or
+``list``, ``status``, ``info``, ``db`` (``test``, ``rm``, ``compact``,
+``dump``, ``load``, ``set``, ``release``) and ``benchmark``. A bare
+``--ledger DIR`` resolves as the reference's does: the native ledgerstore
+engine, or the file backend where the directory already holds per-trial
+JSON documents or ``g++`` cannot build the engine. EVC: ``--warm-start``,
+``--branch-from`` (with ``--branch-default`` / ``--branch-rename``) and
+``--on-conflict adopt|fail|branch``. ``hunt --n-chips N`` (or
 ``executor.n_chips`` in the config file) places each trial on its own block
 of N GPUs (:class:`~metaopt_tpu_torch.executor.GPUExecutor`), and ``status
 --rungs`` shows a multi-fidelity algorithm's rung occupancy.
@@ -19,9 +25,9 @@ of N GPUs (:class:`~metaopt_tpu_torch.executor.GPUExecutor`), and ``status
 no trial process, pools of trials evaluated in-process by a
 :class:`~metaopt_tpu_torch.executor.BatchedExecutor` on ``cuda``, or on the
 device that ``executor.device`` in the config file names (the CPU tests
-pass ``"cpu"``; the key never enters the stored experiment). Flags whose
-machinery is not ported yet (EVC branching and warm start, the coordinator
-producer) are accepted by the parser and raise a clear "not ported yet".
+pass ``"cpu"``; the key never enters the stored experiment). The
+coordinator (``--producer coord``, ``coord://``) is not ported yet: those
+raise a clear "not ported yet".
 """
 
 from __future__ import annotations
@@ -36,24 +42,40 @@ from typing import Any, Dict, List, Optional
 
 from metaopt_tpu_torch.executor import BatchedExecutor, GPUExecutor, SubprocessExecutor
 from metaopt_tpu_torch.io.resolve_config import DEFAULTS, resolve_config
-from metaopt_tpu_torch.ledger import Experiment
+from metaopt_tpu_torch.ledger import Experiment, Trial
 from metaopt_tpu_torch.ledger.backends import (
+    DuplicateExperimentError,
+    DuplicateTrialError,
     ledger_from_spec,
     local_ledger,
     make_ledger,
 )
-from metaopt_tpu_torch.ledger.evc import branch_parent
-from metaopt_tpu_torch.space import SpaceBuilder
+from metaopt_tpu_torch.ledger.evc import (
+    BranchConflictError,
+    TrialAdapter,
+    branch_parent,
+)
+from metaopt_tpu_torch.ledger.trial import STATUSES
+from metaopt_tpu_torch.space import SpaceBuilder, build_space
 from metaopt_tpu_torch.worker import workon
 
 log = logging.getLogger(__name__)
 
-LEDGER_HELP = ("ledger spec: 'memory', 'file:<dir>', or a dir path (the file "
-               "backend; 'native:' and 'coord://' are not ported yet)")
 
+def fsync_dir(path: str) -> None:
+    """fsync the parent directory so a rename/creat is itself durable."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    try:
+        fd = os.open(d, os.O_RDONLY)
+    except OSError:
+        return  # platform without directory fds — best effort
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what}: not ported yet (see ROADMAP.md)")
+LEDGER_HELP = ("ledger spec: 'memory', a dir path (native engine preferred), "
+               "'native:<dir>' or 'file:<dir>' ('coord://' is not ported yet)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,17 +115,31 @@ def build_parser() -> argparse.ArgumentParser:
                       help="per-trial wall-clock timeout")
     hunt.add_argument("--warm-start", dest="warm_start", default=None,
                       help="observe another experiment's completed trials "
-                           "first (EVC; not ported yet)")
+                           "into this experiment's algorithm before "
+                           "suggesting (same ledger)")
     hunt.add_argument("--branch-from", dest="branch_from", default=None,
                       help="EVC: create this experiment as a child of "
-                           "another (not ported yet)")
+                           "another; the parent's completed trials are "
+                           "adapted into the (possibly changed) space and "
+                           "observed before suggesting")
     hunt.add_argument("--on-conflict", dest="on_conflict", default=None,
                       choices=["adopt", "fail", "branch"],
                       help="what to do when the command's ~priors (or "
                            "--algo) differ from the stored experiment: "
                            "adopt = warn and defer to the stored config "
-                           "(default); fail = stop; branch = EVC "
-                           "auto-resolution (not ported yet)")
+                           "(the reference's joiner semantics, default); "
+                           "fail = stop; branch = EVC auto-resolution — "
+                           "create NAME-vN branched from the latest "
+                           "version (rerunning the same changed command "
+                           "joins the branch it already created)")
+    hunt.add_argument("--branch-default", dest="branch_default",
+                      action="append", metavar="NAME=VALUE",
+                      help="value backfilled into parent trials for a "
+                           "dimension the child space added (repeatable)")
+    hunt.add_argument("--branch-rename", dest="branch_rename",
+                      action="append", metavar="OLD=NEW",
+                      help="carry parent dimension OLD into child "
+                           "dimension NEW (repeatable)")
     hunt.add_argument("--producer", default=None, choices=["local", "coord"],
                       help="where suggestion runs: 'local' fits the algorithm "
                            "in this worker ('coord' is not ported yet)")
@@ -135,6 +171,10 @@ def build_parser() -> argparse.ArgumentParser:
     init.add_argument("--on-conflict", dest="on_conflict", default=None,
                       choices=["adopt", "fail", "branch"])
     init.add_argument("--branch-from", dest="branch_from", default=None)
+    init.add_argument("--branch-rename", dest="branch_rename",
+                      action="append", metavar="OLD=NEW")
+    init.add_argument("--branch-default", dest="branch_default",
+                      action="append", metavar="NAME=VALUE")
     init.add_argument("cmd", nargs=argparse.REMAINDER)
 
     ins = sub.add_parser("insert", help="manually register a trial")
@@ -173,6 +213,48 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-worker liveness derived from trial "
                          "ownership + heartbeats (who holds what, last "
                          "seen when)")
+
+    db = sub.add_parser("db", help="ledger backend utilities")
+    db.add_argument("action", choices=["test", "rm", "compact", "dump",
+                                       "load", "set", "release"],
+                    help="test: drive the full backend contract (create, "
+                         "dup-detect, reserve CAS, heartbeat, stale "
+                         "release) against the configured ledger; "
+                         "rm: delete an experiment and its trials; "
+                         "compact: rewrite a native ledger's append-only "
+                         "log to its live state (reclaims heartbeat spam), "
+                         "or fold a file ledger's index log into its "
+                         "snapshot; "
+                         "dump: archive experiments + trials to portable "
+                         "JSON; load: restore an archive into the "
+                         "configured ledger; "
+                         "set: edit experiment fields (max_trials=N, "
+                         "pool_size=N) or, with --trial, force a trial's "
+                         "status; release: free reserved trials back to "
+                         "'new' immediately (instead of waiting for the "
+                         "stale-heartbeat sweep)")
+    db.add_argument("-n", "--name",
+                    help="experiment to delete (rm) / archive (dump; "
+                         "default all)")
+    db.add_argument("--force", action="store_true",
+                    help="rm: required to actually delete")
+    db.add_argument("-o", "--output",
+                    help="dump: write the archive here (default stdout)")
+    db.add_argument("--file", help="load: the archive file to restore")
+    db.add_argument("--resolve", choices=["fail", "ignore", "overwrite",
+                                          "bump"], default="fail",
+                    help="load: name-collision policy — fail (default), "
+                         "ignore (skip existing), overwrite (replace doc + "
+                         "trials), bump (load as NAME-vN with version+1 and "
+                         "parent set, the EVC-style sibling)")
+    db.add_argument("--trial", dest="trial_id", default=None,
+                    help="set/release: act on one trial (id prefix ok)")
+    db.add_argument("assignments", nargs="*", metavar="KEY=VALUE",
+                    help="set: fields to change")
+    db.add_argument("--json", action="store_true", dest="as_json",
+                    help="test: emit the check report as JSON")
+    db.add_argument("--config", help="framework config YAML (or JSON)")
+    db.add_argument("--ledger", help=LEDGER_HELP)
 
     bm = sub.add_parser(
         "benchmark",
@@ -226,17 +308,15 @@ def _family_versions(ledger, name: str):
 
     Returns ``(members, next_name, next_version)``: ``members`` is the
     ``name`` document followed by the ``name-vN`` siblings that EVC
-    auto-resolution created, ordered by version suffix;
-    ``next_name``/``next_version`` is one past the HIGHEST occupied slot.
+    auto-resolution (and ``db load --resolve bump``) created, ordered by
+    version suffix; ``next_name``/``next_version`` is one past the HIGHEST
+    occupied (or squatted) slot — a gap left by ``db rm`` is never reused,
+    so surviving later versions keep their lineage intact.
     A ``name-vN`` experiment whose lineage does NOT chain back to the
     family (a user-created name that happens to match the pattern, an
     orphan whose parent version was deleted, or a child created BEFORE its
     claimed parent) is skipped — it blocks its slot but is neither joined
     nor branched from.
-
-    The port does not branch yet (the EVC flags raise), so only a ledger
-    the reference's CLI wrote holds a family; ``list``'s tree and
-    ``info``'s "branched from" line read the same ones.
     """
     import re
 
@@ -303,14 +383,6 @@ def _experiment_from_args(args, cfg: Dict[str, Any], need_cmd: bool):
     name = args.name or cfg.get("name")
     if not name:
         raise SystemExit("an experiment name is required (-n/--name)")
-    if getattr(args, "warm_start", None) or cfg.get("warm_start"):
-        raise _not_ported("--warm-start (EVC)")
-    if getattr(args, "branch_from", None) or cfg.get("branch_from"):
-        raise _not_ported("--branch-from (EVC)")
-    on_conflict = (getattr(args, "on_conflict", None)
-                   or cfg.get("on_conflict") or "adopt")
-    if on_conflict == "branch":
-        raise _not_ported("--on-conflict branch (EVC)")
     ledger = _make_ledger_from_spec(args.ledger, cfg)
 
     space = template = None
@@ -321,55 +393,130 @@ def _experiment_from_args(args, cfg: Dict[str, Any], need_cmd: bool):
                 "no ~priors found in the command; mark searchable args like "
                 "--lr~'loguniform(1e-5, 1e-1)'"
             )
-    requested_algo: Optional[List[str]] = None
-    if getattr(args, "algo", None):
-        requested_algo = [args.algo]
-    elif cfg.get("algorithm") not in (None, DEFAULTS["algorithm"]):
-        requested_algo = sorted(cfg["algorithm"].keys())
+    metadata = {}
+    warm = getattr(args, "warm_start", None) or cfg.get("warm_start")
+    if warm:
+        metadata["warm_start"] = warm
+    version = 1
+    branch = getattr(args, "branch_from", None) or cfg.get("branch_from")
+    on_conflict = (getattr(args, "on_conflict", None)
+                   or cfg.get("on_conflict") or "adopt")
+    auto_branch_version: Optional[int] = None
+    if not branch:
+        requested_algo: Optional[List[str]] = None
+        if getattr(args, "algo", None):
+            requested_algo = [args.algo]
+        elif cfg.get("algorithm") not in (None, DEFAULTS["algorithm"]):
+            requested_algo = sorted(cfg["algorithm"].keys())
 
-    def _fits(mdoc) -> bool:
-        if space is not None \
-                and (mdoc.get("space") or {}) != space.configuration:
-            return False
-        if requested_algo is not None and mdoc.get("algorithm") \
-                and sorted(mdoc["algorithm"].keys()) != requested_algo:
-            return False
-        return True
+        def _fits(mdoc) -> bool:
+            if space is not None \
+                    and (mdoc.get("space") or {}) != space.configuration:
+                return False
+            if requested_algo is not None and mdoc.get("algorithm") \
+                    and sorted(mdoc["algorithm"].keys()) != requested_algo:
+                return False
+            return True
 
-    if space is not None or requested_algo is not None:
-        family, _, _ = _family_versions(ledger, name)
-    else:
-        family = []
-    match = next(((mn, md) for mn, md in family if _fits(md)), None)
-    if family and match is None:
-        # diff against the experiment configure() would actually join (the
-        # named one), not the newest family version
-        base_doc = family[0][1]
-        stored_space = base_doc.get("space") or {}
-        diff = _conflict_summary(
-            stored_space,
-            space.configuration if space is not None else stored_space,
-            sorted((base_doc.get("algorithm") or {}).keys()),
-            requested_algo,
-        )
-        if on_conflict == "fail":
-            raise SystemExit(
-                f"experiment {name!r} exists with a different "
-                f"configuration ({diff}); rerun with --on-conflict adopt "
-                f"to defer to the stored config"
+        if space is not None or requested_algo is not None:
+            family, free_name, free_version = _family_versions(ledger, name)
+        else:
+            family, free_name, free_version = [], name, 1
+        match = next(((mn, md) for mn, md in family if _fits(md)), None)
+        if family and match is None:
+            # diff against the experiment configure() would actually join
+            # (the named one), not the newest family version
+            base_doc = family[0][1]
+            stored_space = base_doc.get("space") or {}
+            diff = _conflict_summary(
+                stored_space,
+                space.configuration if space is not None else stored_space,
+                sorted((base_doc.get("algorithm") or {}).keys()),
+                requested_algo,
             )
-        log.warning(
-            "experiment %r already exists; your command's configuration "
-            "differs (%s) and the STORED config wins — pass --on-conflict "
-            "fail to stop instead", name, diff,
-        )
-    elif match is not None and match[0] != name:
-        log.warning(
-            "EVC: this configuration matches version %d (%r); joining it",
-            match[1].get("version", 1), match[0],
-        )
-        name = match[0]
+            if on_conflict == "fail":
+                raise SystemExit(
+                    f"experiment {name!r} exists with a different "
+                    f"configuration ({diff}); rerun with --on-conflict "
+                    f"branch to version it, or adopt to defer to the "
+                    f"stored config"
+                )
+            if on_conflict == "branch":
+                # parent = newest FAMILY member; child name = the first
+                # free -vN slot (never an unrelated name-squatter)
+                branch = family[-1][0]
+                name = free_name
+                auto_branch_version = free_version
+                log.warning(
+                    "EVC: configuration changed (%s); branching %r from %r",
+                    diff, name, branch,
+                )
+            else:
+                log.warning(
+                    "experiment %r already exists; your command's "
+                    "configuration differs (%s) and the STORED config "
+                    "wins — pass --on-conflict branch to version the "
+                    "change, or fail to stop instead",
+                    name, diff,
+                )
+        elif match is not None and match[0] != name:
+            log.warning(
+                "EVC: this configuration matches version %d (%r); "
+                "joining it", match[1].get("version", 1), match[0],
+            )
+            name = match[0]
+    if branch:
+        if branch == name:
+            raise SystemExit("--branch-from: the child needs its own name")
 
+        parent_doc = ledger.load_experiment(branch)
+        if parent_doc is None:
+            raise SystemExit(f"--branch-from: no such experiment {branch!r}")
+        existing_child = ledger.load_experiment(name)
+        if existing_child is not None:
+            if branch_parent(existing_child) != branch:
+                # configure() adopts stored config, which would silently drop
+                # the requested branch — refuse instead
+                raise SystemExit(
+                    f"experiment {name!r} already exists and was not "
+                    f"branched from {branch!r}; pick a new child name"
+                )
+        parent_space = build_space(parent_doc["space"])
+        defaults: Dict[str, Any] = {}
+        for kv in getattr(args, "branch_default", None) or []:
+            key, sep, raw = kv.partition("=")
+            if not sep:
+                raise SystemExit(
+                    f"--branch-default wants NAME=VALUE, got {kv!r}"
+                )
+            try:
+                defaults[key] = json.loads(raw)
+            except json.JSONDecodeError:
+                defaults[key] = raw
+        renames: Dict[str, str] = {}
+        for kv in getattr(args, "branch_rename", None) or []:
+            old, sep, new = kv.partition("=")
+            if not sep:
+                raise SystemExit(f"--branch-rename wants OLD=NEW, got {kv!r}")
+            renames[old] = new
+        if space is None:  # same space, new version (config/code change)
+            space = parent_space
+            user_argv = list(parent_doc.get("user_args", []))
+        try:  # fail at branch time, not at first produce
+            adapter = TrialAdapter(parent_space, space, defaults, renames)
+        except BranchConflictError as err:
+            raise SystemExit(f"cannot branch from {branch!r}: {err}")
+        metadata["branch"] = {
+            "parent": branch,
+            "defaults": defaults,
+            "renames": renames,
+            "adapter": adapter.describe(),
+        }
+        version = parent_doc.get("version", 1) + 1
+        if auto_branch_version is not None:
+            # the -vN suffix of an auto-branch child must agree with its
+            # document even when a name-squatter forced a later slot
+            version = max(version, auto_branch_version)
     algorithm = cfg.get("algorithm")
     if getattr(args, "algo", None):
         explicit = algorithm not in (None, DEFAULTS["algorithm"])
@@ -386,7 +533,9 @@ def _experiment_from_args(args, cfg: Dict[str, Any], need_cmd: bool):
         algorithm=algorithm,
         max_trials=cfg.get("max_trials", 100),
         pool_size=cfg.get("pool_size", 1),
+        metadata=metadata,
         user_args=user_argv,
+        version=version,
     ).configure()
     # a joiner (no cmd) reuses the stored user_args to rebuild the template
     if template is None and exp.user_args:
@@ -774,6 +923,389 @@ def _cmd_info(args, cfg: Dict[str, Any]) -> int:
     return 0
 
 
+#: the dump/load interchange format marker: portable JSON, the reference's
+#: own, so archives move between ANY two ledger backends of either package
+#: and survive version skew legibly
+_ARCHIVE_FORMAT = "metaopt-tpu-archive"
+
+
+def _db_dump(args, ledger) -> int:
+    """Archive experiments (document + every trial) as one JSON file."""
+    names = [args.name] if args.name else sorted(ledger.list_experiments())
+    experiments = []
+    for name in names:
+        doc = ledger.load_experiment(name)
+        if doc is None:
+            raise SystemExit(f"no such experiment: {name}")
+        experiments.append({
+            "document": doc,
+            "trials": [t.to_dict() for t in ledger.fetch(name)],
+        })
+    archive = {"format": _ARCHIVE_FORMAT, "version": 1,
+               "experiments": experiments}
+    text = json.dumps(archive, indent=2)
+    if args.output:
+        tmp = args.output + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, args.output)  # atomic AND durable: never a torn
+        fsync_dir(args.output)        # archive, even across power loss
+        n_trials = sum(len(e["trials"]) for e in experiments)
+        print(f"dumped {len(experiments)} experiment(s), {n_trials} "
+              f"trial(s) to {args.output}")
+    else:
+        print(text)
+    return 0
+
+
+def _db_load(args, ledger) -> int:
+    """Restore a dump archive into the configured ledger.
+
+    Collision policy per --resolve: fail | ignore | overwrite | bump
+    (bump loads as ``NAME-vN`` with version+1 and ``parent`` set — the
+    ledger keys experiments by name, so a version bump is an EVC-style
+    sibling, not an in-place rewrite).
+    """
+    if not args.file:
+        raise SystemExit("db load needs --file ARCHIVE")
+    with open(args.file) as f:
+        archive = json.load(f)
+    if archive.get("format") != _ARCHIVE_FORMAT:
+        raise SystemExit(
+            f"{args.file}: not a {_ARCHIVE_FORMAT} file "
+            f"(format={archive.get('format')!r})"
+        )
+    if archive.get("version") != 1:
+        # a future format revision must fail loudly here, not "succeed"
+        # with silently-dropped fields
+        raise SystemExit(
+            f"{args.file}: archive version {archive.get('version')!r} "
+            "is not supported by this release (expected 1)"
+        )
+    for entry in archive.get("experiments", []):
+        doc = dict(entry["document"])
+        name = doc.get("name")
+        if not name:
+            raise SystemExit(f"{args.file}: experiment entry without a name")
+        existing = ledger.load_experiment(name)
+        if existing is not None:
+            if args.resolve == "fail":
+                raise SystemExit(
+                    f"experiment {name!r} already exists; re-run with "
+                    "--resolve ignore|overwrite|bump"
+                )
+            if args.resolve == "ignore":
+                print(f"{name}: exists, skipped")
+                continue
+            if args.resolve == "overwrite":
+                if not ledger.delete_experiment(name):
+                    raise SystemExit(
+                        f"backend {type(ledger).__name__} cannot overwrite "
+                        f"{name!r} (no deletion support)"
+                    )
+            elif args.resolve == "bump":
+                version = int(existing.get("version", 1)) + 1
+                bumped = f"{name}-v{version}"
+                if ledger.load_experiment(bumped) is not None:
+                    raise SystemExit(
+                        f"bump target {bumped!r} already exists; "
+                        "rm it or dump/load under another name"
+                    )
+                doc.update(name=bumped, version=version, parent=name)
+                name = bumped
+        ledger.create_experiment(doc)
+        loaded = dups = 0
+        for tdoc in entry.get("trials", []):
+            t = Trial.from_dict({**tdoc, "experiment": name})
+            try:
+                ledger.register(t)
+                loaded += 1
+            except DuplicateTrialError:
+                dups += 1  # partially-loaded archive re-applied: idempotent
+        note = f" ({dups} already present)" if dups else ""
+        print(f"{name}: loaded document + {loaded} trial(s){note}")
+    return 0
+
+
+#: experiment-document fields `db set` may edit, with their coercions —
+#: mutating anything else (space, algorithm) would invalidate registered
+#: trials; that path is EVC branching, not an in-place edit.
+_SETTABLE_EXP_FIELDS = {"max_trials": int, "pool_size": int}
+
+
+def _resolve_trial_prefix(trials, prefix: str, what: str):
+    """Exactly one trial whose id starts with ``prefix``, or SystemExit."""
+    matches = [t for t in trials if t.id.startswith(prefix)]
+    if not matches:
+        raise SystemExit(f"no {what} matching {prefix!r}")
+    if len(matches) > 1:
+        raise SystemExit(
+            f"{prefix!r} is ambiguous ({len(matches)} trials); "
+            f"use a longer prefix"
+        )
+    return matches[0]
+
+
+def _db_set(args, ledger) -> int:
+    """Edit experiment fields, or force a trial's status (admin override)."""
+    if not args.name:
+        raise SystemExit("db set needs an experiment name (-n/--name)")
+    if ledger.load_experiment(args.name) is None:
+        raise SystemExit(f"no such experiment: {args.name}")
+    assignments: Dict[str, str] = {}
+    for kv in args.assignments or []:
+        key, sep, raw = kv.partition("=")
+        if not sep:
+            raise SystemExit(f"db set wants KEY=VALUE, got {kv!r}")
+        assignments[key] = raw
+    if not assignments:
+        raise SystemExit("db set: nothing to change (pass KEY=VALUE)")
+
+    if args.trial_id:
+        if list(assignments) != ["status"]:
+            raise SystemExit(
+                "db set --trial supports exactly one assignment: status=…"
+            )
+        status = assignments["status"]
+        if status not in STATUSES:
+            raise SystemExit(
+                f"unknown status {status!r}; one of {sorted(STATUSES)}"
+            )
+        t = _resolve_trial_prefix(ledger.fetch(args.name), args.trial_id,
+                                  "trial")
+        was = t.status
+        # admin override: bypass lifecycle legality but keep the
+        # bookkeeping consistent with where the trial lands
+        if status == "new":
+            t.reset_to_new()
+        else:
+            t.status = status
+            now = time.time()
+            if status == "reserved":
+                # a reservation without a heartbeat would be invisible to
+                # the stale sweep (release_stale skips heartbeat=None) —
+                # stamp it like transition() would
+                t.start_time = t.start_time or now
+                t.heartbeat = now
+            elif status in ("completed", "broken", "interrupted") \
+                    and t.end_time is None:
+                t.end_time = now
+        if not ledger.update_trial(t, expected_status=was):
+            raise SystemExit(
+                f"trial {t.id} changed state concurrently; re-run"
+            )
+        print(f"trial {t.id}: {was} -> {status}")
+        return 0
+
+    patch: Dict[str, Any] = {}
+    for key, raw in assignments.items():
+        coerce = _SETTABLE_EXP_FIELDS.get(key)
+        if coerce is None:
+            raise SystemExit(
+                f"db set: field {key!r} is not editable (only "
+                f"{sorted(_SETTABLE_EXP_FIELDS)}; space/algorithm changes "
+                f"are EVC branches — see hunt --on-conflict branch)"
+            )
+        try:
+            patch[key] = coerce(raw)
+        except ValueError:
+            raise SystemExit(f"db set: {key} wants {coerce.__name__}, "
+                             f"got {raw!r}")
+        if patch[key] < 1:
+            # a stored 0 stalls the producer (pool) or instantly finishes
+            # the experiment (max_trials) with no error anywhere
+            raise SystemExit(f"db set: {key} must be >= 1, got {patch[key]}")
+    ledger.update_experiment(args.name, patch)
+    print(f"{args.name}: set " +
+          ", ".join(f"{k}={v}" for k, v in patch.items()))
+    return 0
+
+
+def _db_release(args, ledger) -> int:
+    """Force reserved trials back to 'new' without waiting for staleness.
+
+    The CAS (`expected_status="reserved"` on the write, and the executor's
+    `expected_worker` guard on the old owner's next write) keeps a racing
+    live worker safe: whichever side loses the CAS abandons its claim.
+    """
+    if not args.name:
+        raise SystemExit("db release needs an experiment name (-n/--name)")
+    if ledger.load_experiment(args.name) is None:
+        raise SystemExit(f"no such experiment: {args.name}")
+    reserved = ledger.fetch(args.name, status="reserved")
+    if args.trial_id:
+        reserved = [_resolve_trial_prefix(reserved, args.trial_id,
+                                          "reserved trial")]
+    released = 0
+    for t in reserved:
+        t.reset_to_new()
+        if ledger.update_trial(t, expected_status="reserved"):
+            released += 1
+    print(f"released {released} trial(s)")
+    return 0
+
+
+def _cmd_db(args, cfg: Dict[str, Any]) -> int:
+    """``db test`` validates a live backend end-to-end; the other actions
+    are the admin tools (rm, compact, dump, load, set, release).
+
+    Drives the coordination contract against the *configured* ledger (the
+    one production would use), with a throwaway experiment name. Exit 0
+    iff every check passed.
+    """
+    import time as _time
+
+    if args.action != "set" and getattr(args, "assignments", None):
+        # a stray positional silently ignored is how `db release -n exp
+        # TRIALID` (forgot --trial) would release EVERY reservation
+        raise SystemExit(
+            f"db {args.action} takes no KEY=VALUE arguments, got "
+            f"{args.assignments!r}"
+        )
+    ledger = _make_ledger_from_spec(args.ledger, cfg)
+    if args.action == "dump":
+        return _db_dump(args, ledger)
+    if args.action == "load":
+        return _db_load(args, ledger)
+    if args.action == "set":
+        return _db_set(args, ledger)
+    if args.action == "release":
+        return _db_release(args, ledger)
+    if args.action == "compact":
+        if not hasattr(ledger, "compact"):
+            raise SystemExit(
+                f"backend {type(ledger).__name__} has no compaction "
+                "(native and file ledgers keep append-only logs; memory "
+                "and coord stores have nothing on disk to fold)"
+            )
+        names = ([args.name] if args.name
+                 else sorted(ledger.list_experiments()))
+        total = 0
+        for name in names:
+            freed = ledger.compact(name)
+            total += freed
+            print(f"{name}: reclaimed {freed} bytes")
+        print(f"total reclaimed: {total} bytes")
+        return 0
+    if args.action == "rm":
+        # destructive, so --force gates
+        if not args.name:
+            raise SystemExit("db rm needs an experiment name (-n/--name)")
+        doc = ledger.load_experiment(args.name)
+        if doc is None:
+            raise SystemExit(f"no such experiment: {args.name}")
+        n = ledger.count(args.name)
+        if not args.force:
+            raise SystemExit(
+                f"would delete experiment {args.name!r} and its {n} "
+                "trial(s); re-run with --force"
+            )
+        if not ledger.delete_experiment(args.name):
+            raise SystemExit(
+                f"backend {type(ledger).__name__} does not support deletion"
+            )
+        print(f"deleted experiment {args.name!r} ({n} trials)")
+        return 0
+
+    name = f"_dbtest-{os.getpid()}-{int(os.times().elapsed * 1000)}"
+    results: List[tuple] = []
+
+    def check(desc, fn):
+        try:
+            ok = fn()
+            results.append((desc, bool(ok), None))
+        except Exception as err:  # a failing backend must not stop the scan
+            results.append((desc, False, f"{type(err).__name__}: {err}"))
+
+    doc = {"name": name, "space": {"x": "uniform(0, 1)"},
+           "algorithm": {"random": {}}, "max_trials": 1, "version": 1}
+    check("create experiment", lambda: ledger.create_experiment(doc) or True)
+
+    def dup_exp():
+        try:
+            ledger.create_experiment(doc)
+            return False
+        except DuplicateExperimentError:
+            return True
+    check("duplicate experiment rejected", dup_exp)
+    check("load round-trips", lambda: ledger.load_experiment(name)["name"] == name)
+    check("listed", lambda: name in ledger.list_experiments())
+
+    trial = Trial(params={"x": 0.5}, experiment=name)
+    check("register trial", lambda: ledger.register(trial) or True)
+
+    def dup_trial():
+        try:
+            ledger.register(Trial(params={"x": 0.5}, experiment=name,
+                                  id=trial.id))
+            return False
+        except DuplicateTrialError:
+            return True
+    check("duplicate trial rejected", dup_trial)
+
+    got = {}
+    def do_reserve():
+        got["t"] = ledger.reserve(name, "dbtest-w1")
+        return got["t"] is not None and got["t"].id == trial.id
+    check("reserve wins", do_reserve)
+    check("second reserve starves", lambda: ledger.reserve(name, "w2") is None)
+    check("owner heartbeat", lambda: ledger.heartbeat(name, trial.id, "dbtest-w1"))
+    check("foreign heartbeat rejected",
+          lambda: not ledger.heartbeat(name, trial.id, "intruder"))
+
+    def stale_cycle():
+        t = got["t"]
+        t.heartbeat = _time.time() - 10_000
+        ledger.update_trial(t)
+        released = ledger.release_stale(name, 60.0)
+        if not any(r.id == t.id for r in released):
+            return False
+        again = ledger.reserve(name, "dbtest-w2")
+        return again is not None and again.id == t.id
+    check("stale release + re-reserve", stale_cycle)
+
+    def push():
+        t = ledger.get(name, trial.id)
+        t.attach_results([{"name": "o", "type": "objective", "value": 0.25}])
+        t.transition("completed")
+        return ledger.update_trial(
+            t, expected_status="reserved", expected_worker="dbtest-w2"
+        )
+    check("CAS result push", push)
+    check("count by status", lambda: ledger.count(name, "completed") == 1)
+    check("fetch filter",
+          lambda: [t.objective for t in ledger.fetch(name, "completed")] == [0.25])
+
+    try:
+        cleaned = ledger.delete_experiment(name)
+    except Exception:
+        cleaned = False
+    failed = [r for r in results if not r[1]]
+    if args.as_json:
+        print(json.dumps({
+            "backend": type(ledger).__name__,
+            "passed": len(results) - len(failed),
+            "total": len(results),
+            "cleaned": bool(cleaned),
+            # name the leftover so a JSON consumer can remove it later
+            **({} if cleaned else {"scratch": name}),
+            "checks": [{"check": d, "ok": ok, **({"error": e} if e else {})}
+                       for d, ok, e in results],
+        }, indent=2))
+        return 0 if not failed else 1
+    for desc, ok, err in results:
+        mark = "ok " if ok else "FAIL"
+        print(f"  [{mark}] {desc}" + (f" — {err}" if err else ""))
+    scratch = ("scratch experiment removed" if cleaned
+               else f"scratch experiment {name!r} left on ledger "
+                    "(backend has no delete)")
+    print(f"{len(results) - len(failed)}/{len(results)} checks passed "
+          f"({type(ledger).__name__}; {scratch})")
+    return 0 if not failed else 1
+
+
 def _cmd_benchmark(args, cfg) -> int:
     """Run one study (task × assessment) across the requested algorithms."""
     from metaopt_tpu_torch.benchmark import (
@@ -860,6 +1392,7 @@ def _cmd_benchmark(args, cfg) -> int:
 _COMMANDS = {
     "hunt": _cmd_hunt,
     "benchmark": _cmd_benchmark,
+    "db": _cmd_db,
     "init-only": _cmd_init_only,
     "insert": _cmd_insert,
     "info": _cmd_info,

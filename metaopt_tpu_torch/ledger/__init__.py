@@ -1,8 +1,10 @@
 """The trial ledger (port of ``metaopt_tpu.ledger``).
 
 Register / reserve (CAS) / update / fetch over a :class:`LedgerBackend`:
-:class:`MemoryLedger` and :class:`FileLedger` (the reference's on-disk
-layout) are ported.
+:class:`MemoryLedger` (completed trials sealed into the columnar archive),
+:class:`FileLedger` and ``NativeFileLedger`` (the C++ ledgerstore engine,
+``ledger.native``; both keep the reference's on-disk layout), and EVC
+branching (:class:`TrialAdapter`).
 """
 
 from metaopt_tpu_torch.ledger.trial import Trial
@@ -18,6 +20,7 @@ from metaopt_tpu_torch.ledger.backends import (
     make_ledger,
 )
 from metaopt_tpu_torch.ledger.experiment import Experiment
+from metaopt_tpu_torch.ledger.evc import BranchConflictError, TrialAdapter
 
 __all__ = [
     "Trial",
@@ -31,4 +34,6 @@ __all__ = [
     "local_ledger",
     "make_ledger",
     "Experiment",
+    "TrialAdapter",
+    "BranchConflictError",
 ]

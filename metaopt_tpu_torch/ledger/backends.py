@@ -1,7 +1,8 @@
 """Ledger backends: the storage/concurrency contract behind experiments.
 
-Port of ``metaopt_tpu/ledger/backends.py``, trimmed to the in-memory and
-the file backends. The contract kept:
+Port of ``metaopt_tpu/ledger/backends.py``: the in-memory and the file
+backends, and the spec grammar that picks one (the native engine's backend
+is :mod:`metaopt_tpu_torch.ledger.native`). The contract kept:
 
 - **register is create-if-absent** (duplicate id → ``DuplicateTrialError``,
   the CAS-failure signal Producer uses to drop lost suggestion races),
@@ -10,17 +11,18 @@ the file backends. The contract kept:
 - **update_trial supports compare-and-swap on status** so a worker that lost
   its reservation (e.g. declared stale and re-issued) cannot clobber state.
 
-The reference's ``MemoryLedger`` seals completed trials into a columnar
-archive; here completed trials stay resident. :class:`FileLedger` keeps the
-reference's on-disk layout exactly, so either package reads the other's
-file ledgers. The native engine and the coordinator backend are not
-ported yet: their specs raise.
+:class:`MemoryLedger` seals completed trials into the columnar archive
+(:mod:`metaopt_tpu_torch.ledger.archive`), as the reference's does.
+:class:`FileLedger` keeps the reference's on-disk layout exactly, so either
+package reads the other's file ledgers. The coordinator backend
+(``coord://``) is not ported yet: its spec raises.
 """
 
 from __future__ import annotations
 
 import fcntl
 import heapq
+import itertools
 import json
 import logging
 import os
@@ -30,11 +32,18 @@ import uuid
 from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
+from metaopt_tpu_torch.ledger.archive import (CompletedBatch, ExperimentArchive,
+                                              _id_key)
 from metaopt_tpu_torch.ledger.trial import Trial
 from metaopt_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 from metaopt_tpu_torch.utils.registry import Registry
 
 log = logging.getLogger(__name__)
+
+#: MemoryLedger instance counter (cursor epochs; see fetch_completed_since)
+_MEM_EPOCHS = itertools.count()
 
 ledger_registry: Registry = Registry("ledger backend")
 
@@ -115,6 +124,16 @@ class LedgerBackend(ABC):
         """
         return self.fetch(experiment, "completed"), None
 
+    def delete_experiment(self, name: str) -> bool:
+        """Remove an experiment and its trials; False if unsupported.
+
+        Optional: used by housekeeping (``db rm``, ``db load --resolve
+        overwrite``, ``db test``'s scratch cleanup). Backends where
+        deletion is unsafe or unimplemented return False and the caller
+        leaves the documents in place.
+        """
+        return False
+
     def release_stale(self, experiment: str, timeout_s: float) -> List[Trial]:
         """Re-free reserved trials whose heartbeat lapsed (dead worker)."""
         now = self.clock.time()
@@ -133,25 +152,91 @@ class LedgerBackend(ABC):
         return released
 
 
+class _CompletedLog:
+    """Append-only completion-order log of trial ids.
+
+    A plain list of id strings costs ~80 bytes per entry at 1M trials
+    (the 24-char str plus its slot); this stores the ids in a growable
+    fixed-width ``S24`` byte array (~24 bytes/entry) and materializes
+    strings lazily at iteration. Ids the fixed shape can't round-trip
+    (see :func:`metaopt_tpu_torch.ledger.archive._id_key`) go to a side dict.
+    Same contract as the list it replaces: ``len`` is the cursor space,
+    entries are immutable once appended.
+    """
+
+    __slots__ = ("_buf", "_len", "_odd")
+
+    def __init__(self) -> None:
+        self._buf = np.empty(64, dtype="S24")
+        self._len = 0
+        self._odd: Dict[int, str] = {}
+
+    def __len__(self) -> int:
+        return self._len
+
+    def append(self, tid: str) -> None:
+        if self._len == len(self._buf):
+            grown = np.empty(len(self._buf) * 2, dtype="S24")
+            grown[:self._len] = self._buf
+            self._buf = grown
+        key = _id_key(tid)
+        if key is None:
+            self._odd[self._len] = tid
+            key = b""
+        self._buf[self._len] = key
+        self._len += 1
+
+    def iter_from(self, start: int):
+        for i in range(start, self._len):
+            odd = self._odd.get(i)
+            yield odd if odd is not None else self._buf[i].decode()
+
+
 @ledger_registry.register("memory")
 class MemoryLedger(LedgerBackend):
     """Dict + lock: the in-process ledger for single-process runs."""
 
-    def __init__(self, **_: Any) -> None:
+    def __init__(self, archive_completed: bool = True,
+                 archive_segment_rows: int = 4096, **_: Any) -> None:
         self._lock = threading.RLock()
         self._experiments: Dict[str, Dict[str, Any]] = {}
+        #: RESIDENT trials only — an id lives in exactly one of this table
+        #: or the experiment's archive, never both. Completed trials move
+        #: to the archive (below); everything mutable stays here.
         self._trials: Dict[str, Dict[str, Trial]] = {}
-        #: per-experiment status → trial-id set (count/reserve off the index,
-        #: not a scan: is_done polls count() every workon cycle)
+        #: columnar archive per experiment (ledger/archive.py): completed
+        #: trials are terminal, so they seal into structure-of-arrays
+        #: segments instead of sitting as resident Python objects — flat
+        #: RSS at 1M+ trials. When it is on, the archive's own id index
+        #: doubles as the "completed" status index (_move skips the set)
+        #: and the completed log stores fixed-width bytes, not id strings
+        #: — the per-trial Python-object footprint is what the archive
+        #: exists to eliminate.
+        self._archive_completed = bool(archive_completed)
+        self._segment_rows = int(archive_segment_rows)
+        self._archives: Dict[str, ExperimentArchive] = {}
+        #: per-experiment status → trial-id set (count/reserve off the
+        #: index, not a scan: is_done polls count() every workon cycle)
         self._status_ids: Dict[str, Dict[str, set]] = {}
-        #: per-experiment min-heap of (submit_time, id) over 'new' trials,
-        #: lazily validated against the status set on pop
+        #: per-experiment min-heap of (submit_time, id) over 'new' trials:
+        #: a producer mints whole pools ahead of the workers, so the new
+        #: set is O(registered-not-yet-run) — min() over it measured 1.9k
+        #: entries per reserve mid-sweep. Lazy-validated against the
+        #: status set on pop (requeued ids may appear twice; dead entries
+        #: are skipped), so reserve is O(log n) amortized.
         self._new_heap: Dict[str, List[Any]] = {}
-        #: per-experiment completion order — backs fetch_completed_since
-        self._completed_log: Dict[str, List[str]] = {}
+        #: per-experiment completion order (trial ids, appended on every
+        #: transition INTO completed) — backs fetch_completed_since
+        self._completed_log: Dict[str, _CompletedLog] = {}
         #: instance identity baked into cursors: a cursor minted against
-        #: another instance triggers a full refetch
+        #: another instance triggers a full refetch. Random, not
+        #: pid+counter: a restarted process reuses pids and module counters
+        #: restart, which would alias the old incarnation exactly
         self._epoch = uuid.uuid4().hex
+        #: per-experiment generation (bumped on create): a cursor from a
+        #: DELETED-and-recreated experiment must not alias the new history
+        #: once the new log catches up to the old cursor position
+        self._exp_gen: Dict[str, int] = {}
 
     def create_experiment(self, config: Dict[str, Any]) -> None:
         name = config["name"]
@@ -159,10 +244,14 @@ class MemoryLedger(LedgerBackend):
             if name in self._experiments:
                 raise DuplicateExperimentError(name)
             self._experiments[name] = dict(config)
+            # a fresh experiment must not inherit ghost trials left by a
+            # register that raced a delete_experiment of the same name
             self._trials[name] = {}
+            self._archives.pop(name, None)
             self._status_ids[name] = {}
             self._new_heap[name] = []
-            self._completed_log[name] = []
+            self._completed_log[name] = _CompletedLog()
+            self._exp_gen[name] = next(_MEM_EPOCHS)
 
     def load_experiment(self, name: str) -> Optional[Dict[str, Any]]:
         with self._lock:
@@ -179,31 +268,75 @@ class MemoryLedger(LedgerBackend):
         with self._lock:
             return sorted(self._experiments)
 
+    def delete_experiment(self, name: str) -> bool:
+        with self._lock:
+            existed = name in self._experiments
+            self._experiments.pop(name, None)
+            self._trials.pop(name, None)
+            self._archives.pop(name, None)
+            self._status_ids.pop(name, None)
+            self._new_heap.pop(name, None)
+            self._completed_log.pop(name, None)
+            self._exp_gen.pop(name, None)
+            return existed
+
+    # mtpu: holds(_lock)
+    def _index(self, experiment: str) -> Dict[str, set]:
+        return self._status_ids.setdefault(experiment, {})
+
+    # mtpu: holds(_lock)
+    def _arch(self, experiment: str) -> ExperimentArchive:
+        """Write-path accessor (creates on first completed trial); read
+        paths use ``self._archives.get`` so they never resurrect entries
+        for deleted experiment names."""
+        arch = self._archives.get(experiment)
+        if arch is None:
+            arch = ExperimentArchive(experiment, self._segment_rows)
+            self._archives[experiment] = arch
+        return arch
+
+    # mtpu: holds(_lock)
     def _move(self, experiment: str, tid: str, old: Optional[str],
               new: str) -> None:
-        idx = self._status_ids.setdefault(experiment, {})
+        idx = self._index(experiment)
         if old is not None and old != new:
             idx.get(old, set()).discard(tid)
-        idx.setdefault(new, set()).add(tid)
+        if new == "completed" and self._archive_completed:
+            # the archive's own id index IS the completed index — a
+            # per-id set entry here would duplicate it (~33 bytes/trial
+            # at 1M); count/fetch consult the archive instead
+            pass
+        else:
+            idx.setdefault(new, set()).add(tid)
         if new == "new":
             stored = self._trials.get(experiment, {}).get(tid)
             heapq.heappush(
                 self._new_heap.setdefault(experiment, []),
                 ((stored.submit_time or 0) if stored else 0, tid),
             )
-        if new == "completed" and old != "completed":
-            self._completed_log.setdefault(experiment, []).append(tid)
 
     def register(self, trial: Trial) -> None:
         with self._lock:
             exp = self._trials.setdefault(trial.experiment, {})
-            if trial.id in exp:
+            arch = self._archives.get(trial.experiment)
+            if trial.id in exp or (arch is not None
+                                   and arch.contains(trial.id)):
                 raise DuplicateTrialError(trial.id)
-            exp[trial.id] = trial.clone()
+            if trial.status == "completed" and self._archive_completed:
+                # db load / replay of finished trials: straight to archive
+                self._arch(trial.experiment).append(trial.to_dict())
+            else:
+                exp[trial.id] = trial.clone()
             self._move(trial.experiment, trial.id, None, trial.status)
+            if trial.status == "completed":  # db load of finished trials
+                self._completed_log.setdefault(
+                    trial.experiment, _CompletedLog()
+                ).append(trial.id)
 
     def reserve(self, experiment: str, worker: str) -> Optional[Trial]:
         with self._lock:
+            # .get, not _index(): read paths must not resurrect entries
+            # for deleted/unknown experiment names
             new_ids = self._status_ids.get(experiment, {}).get("new")
             if not new_ids:
                 return None
@@ -211,7 +344,7 @@ class MemoryLedger(LedgerBackend):
             heap = self._new_heap.get(experiment, [])
             while heap:
                 _, tid = heapq.heappop(heap)
-                if tid in new_ids:  # else: stale heap entry
+                if tid in new_ids and tid in exp:  # else: stale heap entry
                     t = exp[tid]
                     t.transition("reserved")
                     t.worker = worker
@@ -229,14 +362,56 @@ class MemoryLedger(LedgerBackend):
             exp = self._trials.get(trial.experiment, {})
             stored = exp.get(trial.id)
             if stored is None:
-                return False
+                return self._update_archived(
+                    trial, expected_status, expected_worker
+                )
             if expected_status is not None and stored.status != expected_status:
                 return False
             if expected_worker is not None and stored.worker != expected_worker:
                 return False
-            exp[trial.id] = trial.clone()
+            if trial.status == "completed" and stored.status != "completed":
+                self._completed_log.setdefault(
+                    trial.experiment, _CompletedLog()
+                ).append(trial.id)
+            if trial.status == "completed" and self._archive_completed:
+                # terminal: seal into the columnar archive, drop the
+                # resident object (the whole point — flat RSS per trial)
+                del exp[trial.id]
+                self._arch(trial.experiment).append(trial.to_dict())
+            else:
+                exp[trial.id] = trial.clone()
             self._move(trial.experiment, trial.id, stored.status, trial.status)
             return True
+
+    # mtpu: holds(_lock)
+    def _update_archived(
+        self,
+        trial: Trial,
+        expected_status: Optional[str],
+        expected_worker: Optional[str],
+    ) -> bool:
+        """``update_trial`` against an archived (completed) document: CAS
+        checks run against the archive's columns; a write that keeps the
+        trial completed re-archives it, anything else (``db set
+        status=new`` revival, replay of an older state) pulls it back to
+        the resident table."""
+        arch = self._archives.get(trial.experiment)
+        if arch is None or not arch.contains(trial.id):
+            return False
+        if expected_status is not None and expected_status != "completed":
+            return False
+        if (expected_worker is not None
+                and arch.worker_of(trial.id) != expected_worker):
+            return False
+        if trial.status == "completed":
+            # stays terminal: no status move, no completed-log append
+            arch.replace(trial.id, trial.to_dict())
+            return True
+        arch.discard(trial.id)
+        self._trials.setdefault(trial.experiment, {})[trial.id] = \
+            trial.clone()
+        self._move(trial.experiment, trial.id, "completed", trial.status)
+        return True
 
     def heartbeat(self, experiment: str, trial_id: str, worker: str) -> bool:
         with self._lock:
@@ -249,46 +424,113 @@ class MemoryLedger(LedgerBackend):
     def get(self, experiment: str, trial_id: str) -> Optional[Trial]:
         with self._lock:
             t = self._trials.get(experiment, {}).get(trial_id)
-            return t.clone() if t is not None else None
+            if t is not None:
+                return t.clone()
+            arch = self._archives.get(experiment)
+            return arch.get_trial(trial_id) if arch is not None else None
 
     def fetch(self, experiment: str, status=None) -> List[Trial]:
         statuses = (status,) if isinstance(status, str) else status
         with self._lock:
             exp = self._trials.get(experiment, {})
+            arch = self._archives.get(experiment)
             if statuses is None:
                 out = [t.clone() for t in exp.values()]
-            else:
+                if arch is not None:
+                    out.extend(Trial.from_dict_trusted(d)
+                               for d in arch.iter_docs())
+            else:  # index: touch only matching trials, not the whole table
                 idx = self._status_ids.get(experiment, {})
-                out = [exp[i].clone() for s in statuses
-                       for i in idx.get(s, ())]
+                ids = set().union(*(idx.get(s, set()) for s in statuses)) \
+                    if statuses else set()
+                out = []
+                for i in ids:
+                    t = exp.get(i)
+                    if t is not None:
+                        out.append(t.clone())
+                    elif arch is not None:
+                        at = arch.get_trial(i)
+                        if at is not None:
+                            out.append(at)
+                if ("completed" in statuses and arch is not None
+                        and self._archive_completed):
+                    # archived ids have no index entries (_move) — the
+                    # archive enumerates them itself
+                    out.extend(Trial.from_dict_trusted(d)
+                               for d in arch.iter_docs())
             out.sort(key=lambda t: (t.submit_time or 0, t.id))
             return out
 
     def count(self, experiment: str, status=None) -> int:
+        # O(1) off the status index — is_done polls count() every workon
+        # cycle, which made the scan version O(n²) over an experiment
         statuses = (status,) if isinstance(status, str) else status
         with self._lock:
             if statuses is None:
-                return len(self._trials.get(experiment, {}))
+                arch = self._archives.get(experiment)
+                return (len(self._trials.get(experiment, {}))
+                        + (len(arch) if arch is not None else 0))
             idx = self._status_ids.get(experiment, {})
-            return sum(len(idx.get(s, ())) for s in statuses)
+            total = sum(len(idx.get(s, ())) for s in statuses)
+            if "completed" in statuses and self._archive_completed:
+                arch = self._archives.get(experiment)
+                if arch is not None:
+                    total += len(arch)
+            return total
+
+    def seal_archive(self, experiment: str) -> None:
+        """Force-seal the archive head (tests; pre-handoff determinism)."""
+        with self._lock:
+            arch = self._archives.get(experiment)
+            if arch is not None:
+                arch.seal()
+
+    def archive_stats(self, experiment: str) -> Dict[str, Any]:
+        with self._lock:
+            arch = self._archives.get(experiment)
+            return arch.stats() if arch is not None else {
+                "live": 0, "segments": 0, "sealed_rows": 0,
+                "dead_rows": 0, "head_rows": 0, "overflow_rows": 0,
+            }
 
     def fetch_completed_since(self, experiment: str, cursor=None):
         with self._lock:
-            log_ = self._completed_log.get(experiment, [])
+            log_ = self._completed_log.get(experiment)
+            log_len = len(log_) if log_ is not None else 0
+            gen = self._exp_gen.get(experiment, 0)
             start = 0
             if (cursor and cursor[0] == self._epoch
-                    and int(cursor[1]) <= len(log_)):
-                start = int(cursor[1])
+                    and int(cursor[1]) == gen
+                    and int(cursor[2]) <= log_len):
+                start = int(cursor[2])
             exp = self._trials.get(experiment, {})
-            out = []
-            for tid in log_[start:]:
+            arch = self._archives.get(experiment)
+            # entries materialize lazily (CompletedBatch): archived rows
+            # travel as (segment, row) refs so the observe path can batch
+            # straight off the columns without a per-trial dict round-trip
+            keyed = []
+            for tid in (log_.iter_from(start) if log_ is not None else ()):
                 t = exp.get(tid)
-                # a revived (completed→new) trial stays in the log; skip it
-                # until it re-completes and re-appends
-                if t is not None and t.status == "completed":
-                    out.append(t.clone())
-            out.sort(key=lambda t: (t.submit_time or 0, t.id))
-            return out, [self._epoch, len(log_)]
+                if t is not None:
+                    # a revived (completed→new) trial stays in the log;
+                    # skip it until it re-completes and re-appends
+                    if t.status == "completed":
+                        keyed.append(((t.submit_time or 0, tid),
+                                      ("t", t.clone())))
+                    continue
+                if arch is None:
+                    continue
+                e = arch.entry(tid)
+                if e is None:
+                    continue
+                if e[0] == "d":
+                    st = e[1].get("submit_time")
+                else:
+                    st = e[1].submit_time_of(e[2])
+                keyed.append(((st or 0, tid), e))
+            keyed.sort(key=lambda p: p[0])
+            batch = CompletedBatch([e for _, e in keyed])
+            return batch, [self._epoch, gen, log_len]
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +654,20 @@ class FileLedger(LedgerBackend):
             if doc and "name" in doc:
                 out.append(doc["name"])
         return sorted(out)
+
+    def delete_experiment(self, name: str) -> bool:
+        import shutil
+
+        with self._locked(name):
+            epath = os.path.join(self._edir(name), "experiment.json")
+            if not os.path.exists(epath):
+                return False
+            # the flock lives in <root>/.locks/, not in this dir, so
+            # removing the dir cannot fork the lock identity under a
+            # blocked waiter; only the (tiny, reusable) lock file persists
+            shutil.rmtree(self._edir(name), ignore_errors=True)
+            self._idx_cache.pop(name, None)
+        return True
 
     # -- trial status index ------------------------------------------------
     # Snapshot + append-only log, maintained inside the SAME flock critical
@@ -834,6 +1090,24 @@ class FileLedger(LedgerBackend):
             doc = self._read_json(self._tpath(experiment, trial_id))
             return Trial.from_dict(doc) if doc else None
 
+    def compact(self, experiment: str) -> int:
+        """Fold the index log into the snapshot; bytes reclaimed.
+
+        Happens automatically past ``_COMPACT_LINES`` appends; the
+        explicit path (``db compact``) exists for parked experiments
+        whose log would otherwise sit at just-under-threshold forever.
+        Epoch is preserved, so held observe cursors stay valid.
+        """
+        with self._locked(experiment):
+            if not os.path.isdir(self._edir(experiment)):
+                return 0
+            idx = self._load_index(experiment)
+            freed = self._compact_locked(experiment, idx)
+            self._idx_cache[experiment] = (
+                *self._index_stamp(experiment), idx
+            )
+        return freed
+
     def fetch(self, experiment: str, status=None) -> List[Trial]:
         statuses = (status,) if isinstance(status, str) else status
         with self._locked(experiment):
@@ -868,63 +1142,94 @@ class FileLedger(LedgerBackend):
 def ledger_from_spec(spec: str) -> LedgerBackend:
     """Build a backend from the user-facing spec string.
 
-    ``"memory"`` | ``"file:<dir>"`` | a bare directory path (see
-    :func:`local_ledger`) — the grammar the CLI's ``--ledger`` accepts.
-    ``"native:<dir>"`` and ``"coord://host:port"`` raise: those backends
-    are not ported yet.
+    ``"memory"`` | a bare directory path (native engine preferred, see
+    :func:`local_ledger`) | ``"native:<dir>"`` | ``"file:<dir>"`` |
+    ``"coord://host:port"`` — the same grammar the CLI's ``--ledger``
+    accepts, shared here so the Python API (client.build_experiment)
+    and the CLI can never diverge. ``coord://`` raises: the coordinator
+    is not ported yet.
     """
     if spec == "memory":
         return make_ledger({"type": "memory"})
     if spec.startswith("coord://"):
         return make_ledger({"type": "coord"})
     if spec.startswith("native:"):
-        return make_ledger({"type": "native"})
+        return make_ledger({"type": "native", "path": spec[len("native:"):]})
     if spec.startswith("file:"):
         return make_ledger({"type": "file", "path": spec[len("file:"):]})
     return local_ledger(spec)
 
 
-def _has_native_store(path: str) -> bool:
-    """True if ``path`` holds an experiment written by the reference's
-    native engine (an experiment dir with a ``store/`` log)."""
+def _has_python_file_store(path: str) -> bool:
+    """True if ``path`` already holds file-backend experiments whose trials
+    live as per-trial JSON documents and no native engine log: opening
+    those with the engine would hide every existing trial from resume.
+
+    The signal is an actual trial document, not a bare ``trials/`` dir —
+    the native backend inherits FileLedger's create_experiment, which
+    makes an (empty) ``trials/`` before the engine's ``store/`` exists; a
+    doc-only experiment must keep resolving to native, or a crash between
+    create and first register would silently flip the directory to the
+    file backend while live native handles keep writing to the engine."""
     try:
         entries = os.listdir(path)
     except OSError:
         return False
-    return any(
-        os.path.isfile(os.path.join(path, name, "experiment.json"))
-        and os.path.exists(os.path.join(path, name, "store"))
-        for name in entries
-    )
+    for name in entries:
+        edir = os.path.join(path, name)
+        if not os.path.isfile(os.path.join(edir, "experiment.json")):
+            continue
+        if os.path.exists(os.path.join(edir, "store")):
+            continue  # engine log present: native territory
+        tdir = os.path.join(edir, "trials")
+        try:
+            has_doc = any(fn.endswith(".json") for fn in os.listdir(tdir))
+        except OSError:
+            has_doc = False
+        if has_doc:
+            return True
+    return False
 
 
 def local_ledger(path: str) -> LedgerBackend:
-    """Backend for a bare local directory: the file backend.
+    """Backend for a bare local directory: native engine preferred.
 
-    The reference prefers its native engine for a bare path and falls back
-    to the file backend where the engine cannot load; the engine is not
-    ported, so the port always takes that fallback. A directory that
-    already holds a native store raises: the file backend cannot see the
-    engine's trials, and resuming there would hide them.
+    The C++ ledgerstore engine (:mod:`metaopt_tpu_torch.native`) runs
+    the trial hot path in one appended record per op where the JSON file
+    backend rewrites a document, so a bare path gets it by default, as
+    in the reference. Falls back to
+    the pure-Python file backend when (a) the directory already holds a
+    file-backend store — its per-trial JSON documents are invisible to
+    the engine and resume must keep working — or (b) the engine cannot
+    compile/load here (no g++). Both fallbacks log the reason; the
+    ``native:<dir>`` / ``file:<dir>`` spec prefixes pin a choice.
     """
-    if _has_native_store(path):
-        raise RuntimeError(
-            f"ledger {path}: holds a native-engine store, which the port "
-            "cannot read (the native engine is not ported yet); pass "
-            "'file:<dir>' for a separate file ledger"
+    if _has_python_file_store(path):
+        log.info(
+            "ledger %s: existing file-backend store found; keeping the "
+            "pure-Python file backend (migrate via 'db dump/load' "
+            "into a 'native:' ledger for the fast engine)", path,
         )
-    log.info("ledger %s: the native engine is not ported; using the file "
-             "backend", path)
-    return make_ledger({"type": "file", "path": path})
+        return make_ledger({"type": "file", "path": path})
+    try:
+        return make_ledger({"type": "native", "path": path})
+    except Exception as exc:
+        log.warning(
+            "ledger %s: native engine unavailable (%s); falling back to "
+            "the pure-Python file backend", path, exc,
+        )
+        return make_ledger({"type": "file", "path": path})
 
 
 def make_ledger(config: Dict[str, Any]) -> LedgerBackend:
     """Build a backend from ``{"type": ..., **kwargs}`` (see ledger_registry)."""
     cfg = dict(config)
     kind = cfg.pop("type", "memory")
-    if kind in ("native", "coord"):
+    if kind == "coord":
         raise NotImplementedError(
-            f"the {kind!r} ledger backend is not ported yet (ROADMAP.md); "
-            "use 'memory' or 'file:<dir>'"
+            "the 'coord' ledger backend is not ported yet (ROADMAP.md); "
+            "use 'memory', 'native:<dir>' or 'file:<dir>'"
         )
+    if kind == "native":  # lazy: only compiles/loads the engine on use
+        from metaopt_tpu_torch.ledger.native import NativeFileLedger  # noqa: F401
     return ledger_registry.get(kind)(**cfg)

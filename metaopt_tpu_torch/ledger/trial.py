@@ -126,7 +126,8 @@ class Trial:
         reserve CAS, the status surfaces, and ``Trial.objective`` (which
         reads the FIRST objective-typed result — a stale one would shadow
         the re-run's) treat it exactly like a fresh registration.
-        Used by ``resume`` and the worker loop's requeue path.
+        Used by ``resume``, the worker loop's requeue path, ``db set --trial
+        status=new`` and ``db release``.
         """
         self.status = "new"
         self.worker = None
@@ -198,6 +199,38 @@ class Trial:
     @classmethod
     def from_dict(cls, doc: Mapping[str, Any]) -> "Trial":
         return cls(**{k: v for k, v in doc.items()})
+
+    @classmethod
+    def from_dict_trusted(cls, doc: Mapping[str, Any]) -> "Trial":
+        """``from_dict`` minus re-validation, for docs the caller KNOWS
+        round-tripped through ``to_dict`` already (the columnar archive's
+        lazy materialization, the native engine's own payloads). Skips
+        ``__post_init__`` — no re-jsonable pass, no id re-mint, no status
+        check — exactly like ``clone()`` skips it. The instance shares the
+        doc's nested params/resources trees: the caller owns the doc and
+        must not alias it elsewhere.
+        """
+        t = object.__new__(cls)
+        d = t.__dict__
+        d["params"] = doc["params"]
+        d["experiment"] = doc.get("experiment", "")
+        d["id"] = doc["id"]
+        d["lineage"] = doc.get("lineage", "")
+        d["status"] = doc.get("status", "new")
+        d["results"] = [
+            r if isinstance(r, Result)
+            else Result(r["name"], r["type"], r["value"])
+            for r in doc.get("results", ())
+        ]
+        d["submit_time"] = doc.get("submit_time")
+        d["start_time"] = doc.get("start_time")
+        d["end_time"] = doc.get("end_time")
+        d["heartbeat"] = doc.get("heartbeat")
+        d["worker"] = doc.get("worker")
+        d["resources"] = doc.get("resources") or {}
+        d["parent"] = doc.get("parent")
+        d["exit_code"] = doc.get("exit_code")
+        return t
 
     def clone(self) -> "Trial":
         """Deep copy, equivalent to ``from_dict(to_dict())`` minus the dict

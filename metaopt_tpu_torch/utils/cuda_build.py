@@ -1,11 +1,18 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's native sources and load them with ``ctypes``.
 
-Each library is compiled at first use into ``metaopt_tpu_torch/_build/``,
-keyed by a hash of its sources and flags, so an edited source rebuilds and
-an unchanged one loads in milliseconds. The sources expose a plain C
-interface: no PyTorch headers, so a build takes seconds, not minutes.
-``nvcc -Xptxas=-v`` output (registers, shared memory, spills per kernel) is
-kept beside each library as ``<name>.log``.
+Two compilers share one hashing and caching scheme: :func:`build` runs
+``nvcc`` over the CUDA sources of ``csrc/``, and :func:`build_host` runs
+``g++`` over host-only C++ (the ledgerstore engine of ``native/``). Each
+library is compiled at first use into ``metaopt_tpu_torch/_build/``, keyed
+by a hash of its sources and flags, so an edited source rebuilds and an
+unchanged one loads in milliseconds. Every build writes a per-process
+temporary file and publishes it with one ``os.replace``, so concurrent
+first uses (test workers, CLI workers) never load half a library. The
+sources expose a plain C interface: no PyTorch headers, so a build takes
+seconds, not minutes. The compiler's output (for ``nvcc``, ``-Xptxas=-v``:
+registers, shared memory, spills per kernel) is kept beside each library
+as ``<name>.log``. This module imports nothing outside the standard
+library.
 """
 
 from __future__ import annotations
@@ -33,6 +40,9 @@ NVCC_FLAGS: List[str] = [
     "--split-compile=0",
 ]
 
+#: host-only C++ (``g++``): the native ledger engine
+HOST_FLAGS: List[str] = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -52,37 +62,69 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str, sources: Sequence[Path]) -> Path:
-    """Where the library for these exact sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+def find_gxx() -> str:
+    """``g++`` from PATH; raises if absent."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the port's native ledger "
+                           "engine is built with it")
+    return gxx
+
+
+def _hashed_path(name: str, flags: Sequence[str], files: Sequence[Path]) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(hdr.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources: Sequence[Path]) -> Path:
-    """Compile ``sources`` into one shared library unless it is built already."""
-    out = library_path(name, sources)
+def library_path(name: str, sources: Sequence[Path]) -> Path:
+    """Where the CUDA library for these exact sources and flags lives."""
+    return _hashed_path(name, NVCC_FLAGS,
+                        [*sources, *sorted(CSRC_DIR.glob("*.cuh"))])
+
+
+def host_library_path(name: str, sources: Sequence[Path]) -> Path:
+    """Where the host (``g++``) library for these exact sources lives."""
+    return _hashed_path(name, HOST_FLAGS, sources)
+
+
+def _compile(name: str, out: Path, cmd_of, timeout=None) -> Path:
+    """Run ``cmd_of(tmp)`` into a per-process temporary file, then publish it."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        cmd = cmd_of(tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    except BaseException:
+        os.unlink(tmp)
+        raise
     out.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed for {name} (exit {proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}"
+            f"{os.path.basename(cmd[0])} failed for {name} (exit "
+            f"{proc.returncode}):\n{proc.stderr[-4000:]}"
         )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def build(name: str, sources: Sequence[Path]) -> Path:
+    """Compile CUDA ``sources`` into one shared library unless it is built already."""
+    return _compile(name, library_path(name, sources), lambda tmp: [
+        find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)])
+
+
+def build_host(name: str, sources: Sequence[Path]) -> Path:
+    """Compile host C++ ``sources`` with ``g++`` unless it is built already."""
+    return _compile(name, host_library_path(name, sources), lambda tmp: [
+        find_gxx(), *HOST_FLAGS, *map(str, sources), "-o", tmp], timeout=120)
 
 
 def load(name: str, sources: Sequence[Path]) -> ctypes.CDLL:

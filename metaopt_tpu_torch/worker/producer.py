@@ -1,12 +1,14 @@
 """Producer: the algorithm-facing pump.
 
 Port of ``metaopt_tpu/worker/producer.py``, trimmed to the local
-:class:`Producer` cycle: fetch completed trials → ``algo.observe()`` →
-``algo.set_pending(reserved)`` for parallel-strategy algorithms →
-``algo.suggest(pool_size)`` → register (the ledger's duplicate detection
-absorbs suggestion races between workers). The reference's warm start,
-transfer priors and EVC branch adaptation, and the coordinator-hosted
-``RemoteProducer``, are not ported yet.
+:class:`Producer` cycle: warm start once (transfer priors from
+``metadata.transfer_from`` through ``observe_prior``, then the EVC branch
+parent through the :class:`~metaopt_tpu_torch.ledger.evc.TrialAdapter`,
+then ``metadata.warm_start`` through the in-space filter) → fetch
+completed trials → ``algo.observe()`` → ``algo.set_pending(reserved)`` for
+parallel-strategy algorithms → ``algo.suggest(pool_size)`` → register (the
+ledger's duplicate detection absorbs suggestion races between workers).
+The coordinator-hosted ``RemoteProducer`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ class Producer:
             "observe_s": 0.0, "suggest_s": 0.0, "cycles": 0, "suggested": 0,
         }
         self.algo_done = False
+        self._warm_started = False
+        #: seconds the one-time warm start took (transfer priors, branch
+        #: parent, warm-start source), also inside ``timings["observe_s"]``
+        self.warm_start_s = 0.0
         #: incremental-observe cursor (fetch_completed_since)
         self._completed_cursor = None
 
@@ -37,6 +43,38 @@ class Producer:
         """One observe→suggest→register cycle; returns #trials registered."""
         exp = self.experiment
         t0 = time.perf_counter()
+        if not self._warm_started:
+            # warm start (lineage EVC role): replay another experiment's
+            # completions into the algorithm once, before first suggest —
+            # the surrogate starts informed, trial identity stays local
+            self._warm_started = True
+            meta = exp.metadata or {}
+            # transfer priors seed FIRST: they must occupy the oldest
+            # observation rows so the algorithm's n_prior discount (TPE
+            # weights / GP subsample) addresses exactly them
+            transfer = meta.get("transfer_from")
+            if transfer:
+                self._seed_transfer_priors(transfer, meta)
+            branch = meta.get("branch")
+            # both can be set at once: the branch parent replays through the
+            # space adapter, an additional warm-start source through the
+            # plain in-space filter — neither may shadow the other
+            sources = []
+            if branch and branch.get("parent") and branch["parent"] != exp.name:
+                sources.append((branch["parent"], branch))
+            warm = meta.get("warm_start")
+            if warm and warm != exp.name and warm != (branch or {}).get("parent"):
+                sources.append((warm, None))
+            for src, src_branch in sources:
+                fetched = exp.ledger.fetch(src, "completed")
+                usable = self._adapt_foreign(fetched, src, src_branch)
+                if usable:
+                    self.algorithm.observe(usable)
+                log.info(
+                    "warm start: observed %d/%d completed trials from %r",
+                    len(usable), len(fetched), src,
+                )
+            self.warm_start_s = time.perf_counter() - t0
         # incremental observe: only the trials completed since the last
         # cycle; the cursor is committed only after observe succeeded
         new_done, next_cursor = exp.fetch_completed_since(
@@ -85,6 +123,74 @@ class Producer:
                 len(trials) - len(kept), len(trials),
             )
         return len(kept)
+
+    def _seed_transfer_priors(self, transfer, meta) -> None:
+        """Seed the algorithm from EVC-admissible ancestors.
+
+        ``metadata.transfer_from`` names ancestor experiments directly
+        (a string or list of names), or the sentinel ``"evc"`` which
+        resolves the branch-parent chain via
+        :func:`metaopt_tpu_torch.ledger.evc.branch_parent`. Each ancestor's
+        completed trials are space-remapped through the same
+        :class:`TrialAdapter` path as branch warm-start (an inadmissible
+        ancestor degrades to the in-space filter, never poisons the fit)
+        and fed to ``observe_prior`` — tagged prior rows the acquisition
+        discounts against locally-measured evidence.
+        """
+        exp = self.experiment
+        items = [transfer] if isinstance(transfer, str) else list(transfer)
+        names = []
+        for item in items:
+            if item == "evc":
+                from metaopt_tpu_torch.ledger.evc import branch_parent
+
+                seen = {exp.name}
+                parent = branch_parent(
+                    {"name": exp.name, "metadata": meta})
+                while parent and parent not in seen and len(names) < 8:
+                    names.append(parent)
+                    seen.add(parent)
+                    doc = exp.ledger.load_experiment(parent)
+                    parent = branch_parent(doc) if doc else None
+            elif item != exp.name and item not in names:
+                names.append(item)
+        for src in names:
+            try:
+                fetched = exp.ledger.fetch(src, "completed")
+            except Exception as err:
+                log.warning("transfer ancestor %r unreadable: %s", src, err)
+                continue
+            usable = self._adapt_foreign(
+                fetched, src, {"defaults": None, "renames": None})
+            usable = [t for t in usable if t.objective is not None]
+            if usable:
+                self.algorithm.observe_prior(usable)
+            log.info(
+                "transfer priors: seeded %d/%d completed trials from %r",
+                len(usable), len(fetched), src,
+            )
+
+    def _adapt_foreign(self, fetched, src, branch):
+        """Fit another experiment's trials to this space (EVC branch path)."""
+        exp = self.experiment
+        if branch and exp.space is not None:
+            from metaopt_tpu_torch.ledger.evc import BranchConflictError, TrialAdapter
+            from metaopt_tpu_torch.space import build_space
+
+            parent_doc = exp.ledger.load_experiment(src)
+            if parent_doc is not None:
+                try:
+                    adapter = TrialAdapter(
+                        build_space(parent_doc["space"]),
+                        exp.space,
+                        branch.get("defaults"),
+                        branch.get("renames"),
+                    )
+                    return [a for a in map(adapter.adapt, fetched) if a]
+                except BranchConflictError as err:
+                    log.warning("branch adapter rejected: %s; filtering", err)
+        return [t for t in fetched
+                if exp.space is None or t.params in exp.space]
 
     def judge(self, trial, partial):
         return self.algorithm.judge(trial, partial)

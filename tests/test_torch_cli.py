@@ -26,7 +26,7 @@ import pytest
 
 from metaopt_tpu.cli import main as ref_main
 from metaopt_tpu_torch.cli import main
-from metaopt_tpu_torch.ledger import FileLedger
+from metaopt_tpu_torch.ledger import FileLedger, ledger_from_spec
 from metaopt_tpu_torch.space import build_space
 
 REPO = Path(__file__).resolve().parents[1]
@@ -98,7 +98,7 @@ def test_broken_trials_marked(tmp_path, quad, capsys):
         "--config", algo_config(tmp_path, {"random": {"seed": 2}}),
         quad, "-x~uniform(-50, 50)", "--fail-above=0"])
     assert rc == 0
-    trials = FileLedger(led).fetch("brk")
+    trials = ledger_from_spec(led).fetch("brk")
     broken = [t for t in trials if t.status == "broken"]
     completed = [t for t in trials if t.status == "completed"]
     assert len(completed) == 6 and out["total"]["broken"] == len(broken) > 0
@@ -114,7 +114,7 @@ def test_n_workers_parallel_trials_no_double_execution(tmp_path, quad, capsys):
     assert rc == 0
     assert out["n_workers"] == 3 and out["failed_workers"] == 0
     assert out["completed_by_worker"] >= 9
-    done = [t for t in FileLedger(led).fetch("par") if t.status == "completed"]
+    done = [t for t in ledger_from_spec(led).fetch("par") if t.status == "completed"]
     assert len(done) >= 9 and len({t.id for t in done}) == len(done)
     assert all(t.worker and "-w" in t.worker for t in done)
 
@@ -140,7 +140,7 @@ def test_init_only_then_insert_then_status_list_info_resume(tmp_path, quad, caps
     assert out["total"] == {"completed": 1, "new": 1} and out["best"]["params"] == {"x": 1.5}
     assert out["best"]["objective"] == 0.25
     # resume flips a parked trial back to new
-    led_ = FileLedger(led)
+    led_ = ledger_from_spec(led)
     (t,) = led_.fetch("pre", "completed")
     t.status = "broken"
     assert led_.update_trial(t)
@@ -179,16 +179,25 @@ def test_on_conflict_fail_and_adopt(tmp_path, quad, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--branch-from", "a"], "--branch-from"),
-    (["--warm-start", "a"], "--warm-start"),
-    (["--on-conflict", "branch"], "--on-conflict branch"),
+    (["--branch-from", "a"], "branch"),
+    (["--warm-start", "a"], "warm_start"),
+    (["--on-conflict", "branch"], "branch"),
 ])
-def test_unported_flags_say_so(tmp_path, quad, flags, what):
-    with pytest.raises(SystemExit, match="not ported yet") as err:
-        main(["hunt", "-n", "np", "--ledger", str(tmp_path / "l")] + flags
-             + [quad, "-x~uniform(-2, 2)"])
-    assert what in str(err.value)
-    for spec in ("native:" + str(tmp_path / "n"), "coord://127.0.0.1:1"):
+def test_ported_evc_flags_run_and_coord_says_so(tmp_path, quad, flags, what, capsys):
+    """The EVC flags are ported: a hunt that names them runs and records
+    them in the child's document; ``coord://`` still raises."""
+    led = str(tmp_path / "l")
+    base = ["--max-trials", "2", "--config", algo_config(tmp_path, {"random": {"seed": 0}})]
+    assert main(["hunt", "-n", "a", "--ledger", led] + base + [quad, "-x~uniform(-2, 2)"]) == 0
+    name = "a" if flags[0] == "--on-conflict" else "np"
+    assert main(["hunt", "-n", name, "--ledger", led] + base + flags
+                + [quad, "-x~uniform(-3, 3)"]) == 0
+    capsys.readouterr()
+    child = "a-v2" if flags[0] == "--on-conflict" else "np"
+    doc = ledger_from_spec(led).load_experiment(child)
+    assert doc["metadata"].get(what), doc["metadata"]
+    assert ledger_from_spec(led).count(child, "completed") == 2
+    for spec in ("coord://127.0.0.1:1",):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             main(["status", "--ledger", spec])
 
@@ -200,8 +209,8 @@ def test_the_coordinator_producer_is_refused_by_workon(tmp_path, quad):
 
 
 def test_an_evc_family_the_reference_wrote_reads_and_joins(tmp_path, quad, capsys):
-    # the port does not branch yet: a version family exists only in a ledger
-    # the reference's CLI wrote (--on-conflict branch makes name-v2)
+    # a version family the reference's CLI wrote (--on-conflict branch
+    # makes name-v2) reads and joins in the port
     led = f"file:{tmp_path / 'l'}"
     for prior, flags in (("-x~uniform(-2, 2)", []), ("-x~uniform(-3, 3)", ["--on-conflict",
                                                                              "branch"])):
@@ -237,7 +246,7 @@ def test_tpe_hunt_on_cpu_reaches_ei(tmp_path, quad, capsys):
                                                     "device": "cpu"}}),
         quad, "-x~uniform(-50, 50)"])
     assert rc == 0 and out["total"] == {"completed": 7}
-    trials = FileLedger(led).fetch("tpe")
+    trials = ledger_from_spec(led).fetch("tpe")
     space = build_space({"x": "uniform(-50, 50)"})
     assert all(t.params in space and math.isfinite(t.objective) for t in trials)
     assert len(ei_suggested(trials, 3)) >= 4
@@ -263,7 +272,7 @@ def test_mlp_hunt_on_cpu(tmp_path, capsys):
     rc, out = run_json(capsys, ["hunt", "-n", "mlp", "--ledger", led, "--max-trials", "2",
                                 MLP, *MLP_PRIORS, "--epochs=1", "--device=cpu"])
     assert rc == 0 and out["total"] == {"completed": 2}
-    for t in FileLedger(led).fetch("mlp"):
+    for t in ledger_from_spec(led).fetch("mlp"):
         stats = {r.name: r.value for r in t.results if r.type == "statistic"}
         assert 0.0 <= t.objective <= 1.0
         assert stats["device"] == "cpu"
@@ -284,7 +293,7 @@ def test_mlp_trial_without_cuda_is_broken_not_rerun(tmp_path, capsys, caplog):
         rc, out = run_json(capsys, ["hunt", "-n", "mlp", "--ledger", led, "--max-trials", "1",
                                     "--exp-max-broken", "1", MLP, *MLP_PRIORS, "--epochs=1"])
     assert rc == 1 and out["total"] == {"broken": 1} and out["best"] is None
-    (t,) = FileLedger(led).fetch("mlp")
+    (t,) = ledger_from_spec(led).fetch("mlp")
     assert t.status == "broken" and t.exit_code == 1 and t.results == []
     assert "CUDA is not available" in caplog.text
 
@@ -411,7 +420,7 @@ def test_resnet_trial_through_the_cli_on_cpu(tmp_path, monkeypatch, capsys):
         "--device=cpu", "--depth=18", "--width=8", "--hw=8", "--n-train=64", "--n-val=32",
         "--batch-size=32"])
     assert rc == 0 and out["total"] == {"completed": 1}
-    (t,) = FileLedger(led).fetch("resnet")
+    (t,) = ledger_from_spec(led).fetch("resnet")
     stats = {r.name: r.value for r in t.results if r.type == "statistic"}
     assert 0.0 <= t.objective <= 1.0 and t.params["epochs"] == 1
     assert stats["device"] == "cpu" and len(stats["epoch_losses"]) == 1
@@ -437,4 +446,4 @@ def test_executor_n_chips_in_the_config_file_pins_trials(tmp_path, quad, capsys,
                                     "--config", str(cfg), quad, "-x~uniform(-2, 2)"])
         assert rc == 0 and out["total"] == {"completed": 2}
         # the defaults' executor.n_chips (1) pins nothing; the file's does
-        assert all(t.resources.get("chips") == want for t in FileLedger(led).fetch(name))
+        assert all(t.resources.get("chips") == want for t in ledger_from_spec(led).fetch(name))

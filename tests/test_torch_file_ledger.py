@@ -5,8 +5,9 @@ The two share the on-disk layout (percent-encoded experiment dirs,
 log, ``<root>/.locks/``), so each must read what the other wrote exactly:
 trial documents, statuses, results, counts and the completed log. Also:
 two OS processes racing ``reserve()`` never get one trial twice, and the
-spec grammar (``memory``, ``file:<dir>``, a bare dir; ``native:`` and
-``coord://`` not ported) with a native store refused.
+spec grammar (``memory``, ``file:<dir>``, ``native:<dir>``, a bare dir on
+the native engine; ``coord://`` not ported) with a native store the
+reference wrote read through a bare path.
 """
 
 import json
@@ -20,9 +21,11 @@ from pathlib import Path
 import pytest
 
 from metaopt_tpu.ledger.backends import FileLedger as RefFileLedger
+from metaopt_tpu.ledger.native import NativeFileLedger as RefNativeFileLedger
 from metaopt_tpu.ledger.experiment import Experiment as RefExperiment
 from metaopt_tpu.space import build_space as ref_build_space
 from metaopt_tpu_torch.ledger import Experiment, FileLedger, MemoryLedger, ledger_from_spec
+from metaopt_tpu_torch.ledger.native import NativeFileLedger
 from metaopt_tpu_torch.space import build_space
 
 REPO = Path(__file__).resolve().parents[1]
@@ -164,22 +167,28 @@ def test_two_processes_racing_reserve_never_share_a_trial(tmp_path):
 
 
 def test_spec_grammar(tmp_path):
+    """``memory``, ``file:<dir>``, ``native:<dir>`` and a bare dir (the
+    native engine, as in the reference); ``coord://`` still raises."""
     assert isinstance(ledger_from_spec("memory"), MemoryLedger)
     led = ledger_from_spec(f"file:{tmp_path / 'a'}")
-    assert isinstance(led, FileLedger) and led.root == str(tmp_path / "a")
+    assert type(led) is FileLedger and led.root == str(tmp_path / "a")
     bare = ledger_from_spec(str(tmp_path / "b"))
-    assert isinstance(bare, FileLedger) and bare.root == str(tmp_path / "b")
-    for spec in (f"native:{tmp_path / 'c'}", "coord://127.0.0.1:5000"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ledger_from_spec(spec)
+    assert isinstance(bare, NativeFileLedger) and bare.root == str(tmp_path / "b")
+    nat = ledger_from_spec(f"native:{tmp_path / 'c'}")
+    assert isinstance(nat, NativeFileLedger) and nat.root == str(tmp_path / "c")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ledger_from_spec("coord://127.0.0.1:5000")
 
 
 def test_a_native_store_is_never_hidden(tmp_path):
+    """A native store the reference's engine wrote is read by the port's
+    engine through a bare path: every trial, status and result."""
     root = tmp_path / "ledger"
-    (root / "exp").mkdir(parents=True)
-    (root / "exp" / "experiment.json").write_text(json.dumps({"name": "exp"}))
-    (root / "exp" / "store").mkdir()
-    with pytest.raises(RuntimeError, match="native"):
-        ledger_from_spec(str(root))
+    ref = RefNativeFileLedger(str(root))
+    populate(RefExperiment, ref, ref_build_space(SPACE), "exp")
+    port = ledger_from_spec(str(root))
+    assert isinstance(port, NativeFileLedger)
+    assert snapshot(port, "exp") == snapshot(ref, "exp")
+    assert port.count("exp", "completed") == 4 and port.count("exp") == 12
     # an explicit file: spec is the user's own choice of backend
-    assert isinstance(ledger_from_spec(f"file:{root}"), FileLedger)
+    assert type(ledger_from_spec(f"file:{root}")) is FileLedger

@@ -8,7 +8,10 @@ the blocked xent among them), runs one CPU ``workon`` of the Transformer,
 two steps of the MoE LM under remat, one ``workon`` of BOHB on PPO, one
 each of GP-BO and CMA-ES, one ``hunt`` of the port's Rosenbrock example
 through ``cli.main`` (its trial processes start outside the wall), the
-batched hunt of the MLP zoo and one ``benchmark`` study.
+batched hunt of the MLP zoo and one ``benchmark`` study, and a hunt and an
+EVC branch on the native engine behind a bare path, whose library must be
+the port's own build under ``metaopt_tpu_torch/_build/`` (never the
+reference's ``libledgerstore.so``).
 """
 
 import ast
@@ -72,7 +75,12 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/benchmark/assessments.py",
                  "metaopt_tpu_torch/benchmark/benchmark.py",
                  "metaopt_tpu_torch/models/objectives.py",
-                 "metaopt_tpu_torch/io/webapi.py"):
+                 "metaopt_tpu_torch/io/webapi.py",
+                 "metaopt_tpu_torch/ledger/archive.py",
+                 "metaopt_tpu_torch/ledger/native.py",
+                 "metaopt_tpu_torch/ledger/evc.py",
+                 "metaopt_tpu_torch/native/__init__.py",
+                 "metaopt_tpu_torch/worker/producer.py"):
         assert must in names
 
 
@@ -99,7 +107,8 @@ for m in mods:
 assert {"metaopt_tpu_torch.models.lm", "metaopt_tpu_torch.models.moe",
         "metaopt_tpu_torch.ops.xent", "metaopt_tpu_torch.executor.batched",
         "metaopt_tpu_torch.benchmark.tasks", "metaopt_tpu_torch.benchmark.benchmark",
-        "metaopt_tpu_torch.benchmark.assessments"} <= set(mods), mods
+        "metaopt_tpu_torch.benchmark.assessments", "metaopt_tpu_torch.ledger.archive",
+        "metaopt_tpu_torch.ledger.native", "metaopt_tpu_torch.native"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 
 from metaopt_tpu_torch import build_experiment
@@ -155,6 +164,24 @@ assert rc == 0, rc
 rc = main(["benchmark", "--algos", "random", "cmaes", "--task", "rastrigin",
            "--max-trials", "6", "--repetitions", "1", "--json"])
 assert rc == 0, rc
+# the native engine behind a bare path, a branch and db test on it
+from metaopt_tpu_torch.ledger.native import NativeFileLedger
+import metaopt_tpu_torch.native as native
+bare = os.path.join(root, "bare")
+cfg = os.path.join(root, "random.json")
+for name, flags, y in (("rosen", [], "-y~uniform(-5, 10)"),
+                       ("child", ["--branch-from", "rosen"], "-y~uniform(-5, 5)")):
+    assert main(["hunt", "-n", name, "--ledger", bare, "--max-trials", "3", "--config", cfg]
+                + flags + [rosen, "-x~uniform(-5, 10)", y]) == 0
+assert main(["db", "test", "--ledger", bare]) == 0
+from metaopt_tpu_torch.ledger.backends import ledger_from_spec
+assert isinstance(ledger_from_spec(bare), NativeFileLedger)
+assert ledger_from_spec(bare).load_experiment("child")["version"] == 2
+build = os.path.join(os.path.dirname(metaopt_tpu_torch.__file__), "_build")
+assert os.path.dirname(str(native.lib_path)) == build, native.lib_path
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert "libledgerstore" in maps and "metaopt_tpu/native" not in maps
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not leaked, leaked
 print("WALL-OK", len(mods))
@@ -207,6 +234,16 @@ assert main(["hunt", "-n", "sgd", "--ledger", led, "--max-trials", "3", "--ckpt-
              os.path.join(os.path.dirname(sgd), "asha.json"), sgd,
              "--lr~loguniform(1e-3, 1.0)", "--steps~fidelity(4, 16, base=2)"]) == 0
 assert main(["status", "-n", "sgd", "--ledger", led, "--rungs", "--json"]) == 0
+# a status from a native ledger behind a bare path loads no torch either
+bare = os.path.join(root, "bare")
+assert main(["hunt", "-n", "sgd", "--ledger", bare, "--max-trials", "2", "--ckpt-root",
+             os.path.join(root, "ckpt2"), "--config",
+             os.path.join(os.path.dirname(sgd), "asha.json"), sgd,
+             "--lr~loguniform(1e-3, 1.0)", "--steps~fidelity(4, 16, base=2)"]) == 0
+from metaopt_tpu_torch.ledger.native import NativeFileLedger
+from metaopt_tpu_torch.ledger.backends import ledger_from_spec
+assert isinstance(ledger_from_spec(bare), NativeFileLedger)
+assert main(["status", "-n", "sgd", "--ledger", bare, "--json"]) == 0
 try:
     main(["benchmark", "--help"])
 except SystemExit as done:
@@ -221,7 +258,8 @@ def test_numpy_algorithms_and_status_load_no_torch():
     """A hunt of a numpy algorithm (ASHA) and ``status --rungs`` run without
     ``import torch`` in the CLI process: the algorithm modules load by name
     (``algo.base.BUILTIN_MODULES``), and only TPE, MOTPE, BOHB and GP-BO
-    import torch."""
+    import torch. The same holds for a hunt and a ``status`` on a native
+    ledger behind a bare path."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])

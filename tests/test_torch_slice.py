@@ -147,7 +147,11 @@ def test_entry_points_never_drift_to_cpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_unported_ledger_specs_raise():
+def test_unported_ledger_specs_raise(tmp_path):
+    """``native:`` is ported (the ledgerstore engine); ``coord://`` raises."""
     with pytest.raises(NotImplementedError, match="memory"):
         metaopt_tpu_torch.build_experiment("x", space=SPACES["smoke"],
-                                           ledger="native:ledger-dir")
+                                           ledger="coord://127.0.0.1:1")
+    exp = metaopt_tpu_torch.build_experiment("x", space=SPACES["smoke"],
+                                             ledger=f"native:{tmp_path / 'l'}")
+    assert type(exp.experiment.ledger).__name__ == "NativeFileLedger"
