@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through sixteen phases and exits non-zero if any fails:
+``metaopt_tpu``) through seventeen phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -62,11 +62,11 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
 8. hunt: the port's CLI, ``python -m metaopt_tpu_torch hunt`` in fresh
    processes with subprocess trials on a ``file:`` ledger in a temp dir:
    (a) BASELINE config 1, random search (seed 0) on
-   ``metaopt_tpu_torch/examples/rosenbrock.py`` with 4 workers and 100
-   trials — all completed, none broken, none run twice, a finite best, and
+   ``metaopt_tpu_torch/examples/rosenbrock.py`` with 4 workers and 50
+   trials (cut from 100 to pay for phase 17) — all completed, none broken, none run twice, a finite best, and
    ``status --json`` from another fresh process agreeing; (b) BASELINE
    config 2, TPE (``examples/tpe.yaml``'s settings, passed as JSON) on
-   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 5 trials, 4 of them
+   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 3 trials, 2 of them
    initial points (cut from 16 and 10 to fit the script's time limit),
    each a fresh process on the card — finite, at least 1 suggested by EI,
    in the space,
@@ -96,10 +96,10 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    card (seed 1 dropped to fit phase 14): the negated return above 50 after 2 iterations and below 5
    after 32; ms per iteration; one traced iteration's CUDA kernels, device
    busy share and device ms by kind; peak memory. (c) EvolutionES
-   (``evolution.json``'s seed 0, with population 4 and pool 2 instead of
-   10 and 5 to fit the script's time limit) on
+   (``evolution.json``'s seed 0, with population 3 and pool 2 instead of
+   10 and 5 to fit the script's time limit; population 4 until PR 13) on
    ``metaopt_tpu_torch/examples/ppo_atari.py`` through ``hunt --n-chips 1``,
-   8 trials (two generations; the example runs 60), each a fresh process
+   6 trials (two generations; the example runs 60), each a fresh process
    on the card — all completed and finite, their points equal to the
    port's EvolutionES replayed on the CPU over the ledger's objectives, the
    GPU registry empty after, ``status --json`` from a fresh process
@@ -180,9 +180,9 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    peak memory, TF32 on against off; one LM step at vocab 32,768, batch 64 x
    512, which must take the blocked route. (e) TPE (``tpe.json``) on
    ``metaopt_tpu_torch/examples/lm_causal.py`` at d_model 512, d_ff 2048,
-   seq 512 with the example's priors through ``hunt --n-chips 1``, 2
-   trials (all random draws: 10 initial points; cut from 4 to fit phase
-   15) — finite, on the card, checkpoints published, the GPU registry
+   seq 512 with the example's priors through ``hunt --n-chips 1``, 1
+   trial (a random draw: 10 initial points; cut from 4 to fit phase 15 and
+   to 1 to pay for phase 17) — finite, on the card, checkpoints published, the GPU registry
    empty; trials per hour and each trial's split. (f) At the LM's attention
    shape (B 32, S 512, H 8, D 64, bf16, causal, dropout 0.1): K1-K3's bound
    and SDPA's forward and backward times.
@@ -210,8 +210,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    (a) ``g++`` builds the port's ledgerstore engine into
    ``metaopt_tpu_torch/_build/`` (its seconds printed); a bare ``--ledger
    DIR`` resolves to ``NativeFileLedger`` on that library, and ``db test``
-   passes on it. (b) BASELINE config 1 (100 Rosenbrock trials, 4 workers)
-   through the CLI on the bare path: 100 completed, none run twice,
+   passes on it. (b) BASELINE config 1 (50 Rosenbrock trials, 4 workers)
+   through the CLI on the bare path: 50 completed, none run twice,
    ``status`` agreeing, its trials/s beside ``[hunt]``'s on ``file:``; then
    4 processes racing one experiment through register -> reserve ->
    heartbeat -> complete cycles, on ``native:`` (250 cycles each) and on
@@ -230,12 +230,38 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    fresh torch-free process: resident bytes per trial and the seconds of
    ``fetch(..., "completed")``; TPE's columnar ``observe`` of the
    ``CompletedBatch``.
+17. coord: the coordinator. (a) ``python -m metaopt_tpu_torch serve --port 0
+   --ledger memory --snapshot S --uds U --fuse-suggest`` in a fresh
+   process, hosting on the card: the seconds from spawn to its ready line
+   and the wire negotiated (JSON where ``msgpack`` is absent). (b) BASELINE
+   config 1's Rosenbrock objective with ``tpe.json``'s TPE (10 initial
+   points) hosted on the coordinator's card: ``hunt --ledger coord://...
+   --producer coord``, 4 workers, 48 trials — each completed once, each
+   objective recomputed from its params, the suggestions from the hosted
+   algorithm (the workers' ``RemoteProducer`` timings, the server's
+   ``produce`` events, its EI suggest calls); trials/s, produce-RPC ms per
+   cycle, RPCs per trial (the server's op count) against the reference's
+   1.06, coalesced cycles. (c) Once 20 trials have completed, ``kill -9``
+   of ``serve`` and a restart on the same snapshot, port and socket; the
+   workers resume through session resumption, and every completion
+   acknowledged before the kill is there after, once, with its objective;
+   the recovery's seconds and the WAL records replayed. (d) In-process,
+   ``CoordServer(device="cuda", fuse_suggest=True)``: 64 hosted TPE
+   experiments on config 2's space with 192-252 completed trials each (one
+   static key, 2 buckets of 32) and 8 hosted GP-BO experiments at n 64-71:
+   the bucket launches against the same members' solo launches (CUDA
+   kernels, host ms, device ms per bucket and per member), each fused row
+   against the member's solo row (winners equal except at f32 ties of
+   1e-5), then one live fuser tick. (e) 4 client threads x 250
+   ``worker_cycle`` round trips over TCP and over the socket, WAL
+   fsync'd: p50 and p99 microseconds.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
 line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
-line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line and, last,
+line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line, a
+``{"coord": {...}}`` line and, last,
 the ``{"ok": true, "device": {...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
@@ -273,10 +299,13 @@ TPE_SPACE = {  # BASELINE config 2: examples/mlp_mnist.py's docstring
 }
 TPE_TRIALS, TPE_INITIAL = 16, 10
 # config 2 through the CLI: cut from 16 trials (10 random, 6 by EI) to 5
-# (4 random, 1 by EI) to fit the script's time limit; the in-process hunt of
-# [tpe] keeps its 16 with tpe.yaml's 10 initial points
-HUNT_TPE_TRIALS, HUNT_TPE_INITIAL = 5, 4
-ROSEN_TRIALS, ROSEN_WORKERS = 100, 4    # BASELINE config 1
+# (4 random, 1 by EI) in PR 11, then to 3 (2 random, 1 by EI) in PR 13 to
+# pay for phase 17; the in-process hunt of [tpe] keeps its 16 with
+# tpe.yaml's 10 initial points
+HUNT_TPE_TRIALS, HUNT_TPE_INITIAL = 3, 2
+# BASELINE config 1 through the CLI ([hunt] on file:, [ledger] on the native
+# engine): cut from 100 trials to 50 in PR 13 to pay for phase 17
+ROSEN_TRIALS, ROSEN_WORKERS = 50, 4
 ROSEN_SPACE = {"x": "uniform(-5, 10)", "y": "uniform(-5, 10)"}
 # a CLI process's deadline: its own start (import torch, ~10 s on the card's
 # host; TPE's CUDA context) plus an allowance per trial and worker, ~3x the
@@ -320,9 +349,10 @@ PPO_SPACE = {  # BASELINE config 5: examples/ppo_atari.py's docstring
     "epochs": "fidelity(2, 32, base=2)",
 }
 # two full generations of evolution.json's EvolutionES (seed 0) at population
-# 4 and pool 2 (cut from 10 and 5 to fit the script's time limit): 4 trials at
-# 2 iterations, then 4 mutants of the top 2 at 4 (the example runs 60)
-EVOLUTION_TRIALS, POPULATION, EVOLUTION_POOL = 8, 4, 2
+# 3 and pool 2 (cut from 10 and 5 to fit the script's time limit, and from
+# population 4 to 3 in PR 13 to pay for phase 17): 3 trials at 2 iterations,
+# then 3 mutants at 4 (the example runs 60)
+EVOLUTION_TRIALS, POPULATION, EVOLUTION_POOL = 6, 3, 2
 # a config-5 trial's wall-clock timeout, and its share of the CLI's deadline
 PPO_TIMEOUT_S, PPO_TRIAL_S = 120, 30
 PPO_TOL = 1e-4          # card against CPU, relative to each tensor's largest entry
@@ -415,8 +445,9 @@ LM_PRIORS = {  # examples/lm_causal.py's docstring
     "dropout": "uniform(0.0, 0.3)",
     "n-layers": "uniform(1, 4, discrete=True)",
 }
-# with 10 initial points, both are TPE's random draws (cut from 4 to fit phase 15)
-LM_CLI_TRIALS, LM_TRIAL_S = 2, 60
+# with 10 initial points, a random draw of TPE's (cut from 4 to 2 to fit phase
+# 15, then to 1 in PR 13 to pay for phase 17)
+LM_CLI_TRIALS, LM_TRIAL_S = 1, 60
 BATCHED_POOLS = (64, 256, 1024)   # pools of the MLP zoo timed through BatchedExecutor
 # the zoo's losses, card against CPU on the same draws (f32, TF32 off), relative,
 # on rows whose training stays bounded (CPU loss <= BATCHED_DIVERGED): past
@@ -3709,6 +3740,475 @@ def ledger_phase(torch, smi: str, hunt_stats):
     return out
 
 
+COORD_TRIALS, COORD_WORKERS, COORD_KILL_AT = 48, 4, 20   # (b), (c)
+COORD_SERVE_S = 90          # spawn -> ready deadline of one `serve`
+COORD_HUNT_S = 240          # the (b) hunt's deadline, the restart included
+# (d): 64 hosted TPE experiments on config 2's space, each with 192-252
+# completed trials: one padding (buffer 256, good/bad pads 64/256), so one
+# static key and 2 full buckets at the default fuse_bucket_max of 32; 8
+# hosted GP-BO experiments at n 64-71 (buffer 128)
+COORD_FLEET, COORD_FLEET_N = 64, (192, 252)
+COORD_GP_FLEET, COORD_GP_N = 8, (64, 71)
+COORD_TIE = 1e-5            # ROADMAP B4's rule: winners equal except at f32 ties
+COORD_SOLO_TIMED = 8        # members whose solo launches are timed and profiled
+COORD_RPC_THREADS, COORD_RPC_CYCLES = 4, 250   # (e), per transport
+
+
+def start_serve(args, root: Path, env, tag: str):
+    """``python -m metaopt_tpu_torch -v serve ARGS`` in a fresh process; a
+    thread drains its output for the rest of its life and stamps the
+    moment its ready line appears. Returns a handle for ``await_serve``."""
+    import threading
+
+    h = {"lines": [], "ready": threading.Event(), "t0": time.perf_counter(), "tag": tag}
+    h["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "metaopt_tpu_torch", "-v", "serve", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+
+    def drain():
+        for line in h["proc"].stdout:
+            h["lines"].append(line)
+            if "coordinator ready at coord://" in line:
+                h["ready_at"] = time.perf_counter()
+                h["ready"].set()
+
+    threading.Thread(target=drain, name=f"serve-{tag}", daemon=True).start()
+    return h
+
+
+def await_serve(h):
+    """(proc, spawn -> ready seconds, port, its output lines) of a
+    ``start_serve`` handle, under ``COORD_SERVE_S``."""
+    if not h["ready"].wait(max(0.0, COORD_SERVE_S - (time.perf_counter() - h["t0"]))):
+        h["proc"].kill()
+        raise AssertionError(f"[coord] serve ({h['tag']}) not ready in {COORD_SERVE_S} s:\n"
+                             + "".join(h["lines"])[-3000:])
+    line = next(l for l in h["lines"] if "coordinator ready" in l)
+    return h["proc"], h["ready_at"] - h["t0"], int(line.strip().rsplit(":", 1)[1]), h["lines"]
+
+
+def stop_serve(proc) -> None:
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)   # snapshots, then exits
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def tpe_scores(P, s, rows):
+    """TPE's EI score of candidate ``rows`` under the snapshot's own fit."""
+    a, sk = s.arrays, s.static_key
+    fit = P._tpe_fit(a["X"], a["y"], a["n"], a["n_choices"], a["gamma"], a["prior_weight"],
+                     a["full_weight_num"], a["n_prior"], a["transfer_discount"],
+                     kmax=sk[4], equal_weight=sk[5], n_good_pad=sk[6], n_bad_pad=sk[7])
+    return P._score_candidates(fit, rows, a["n_choices"], a["cont_mask"])
+
+
+def gp_scores(torch, G, s, rows):
+    """GP-BO's EI of candidate ``rows`` under the snapshot's factor and
+    hyperparameters (``_gp_acquire_body``'s own preparation)."""
+    a = s.arrays
+    X, y, L = a["X"], a["y"], a["L"]
+    live = (torch.arange(X.shape[0], device=X.device) < a["n"]) & torch.isfinite(y)
+    mask = live.to(torch.float32)
+    ys = torch.where(live, (y - a["mu"]) / a["sd"], 0.0)
+    best = torch.min(torch.where(live, ys, torch.inf))
+    alpha = torch.cholesky_solve((ys * mask)[:, None], L)[:, 0]
+    params = {k: a[k] for k in ("log_ls", "log_amp", "log_noise")}
+    return G._expected_improvement(X, mask, L, alpha, best, rows, params)
+
+
+def fleet_compare(torch, score, snaps, fleet_rows, solo_rows):
+    """Fused rows against the members' solo refills on the card: max
+    |fused - solo| of the winners and of their scores under the member's
+    own surrogate, and the winners that differ without an f32 tie
+    (``COORD_TIE``)."""
+    err_w = err_s = 0.0
+    differ = untied = 0
+    for s, f, o in zip(snaps, fleet_rows, solo_rows):
+        err_w = max(err_w, float((f - o).abs().max()))
+        if torch.equal(f, o):
+            continue
+        sf, so = score(s, f), score(s, o)
+        err_s = max(err_s, float((sf - so).abs().max()))
+        rows = (f != o).any(dim=1)
+        differ += int(rows.sum())
+        gap = (sf - so).abs() > COORD_TIE * torch.clamp(so.abs(), min=1.0)
+        untied += int((rows & gap).sum())
+    return {"max_abs_winner_diff": err_w, "max_abs_score_diff": err_s,
+            "winners_differ": differ, "winners_differ_untied": untied}
+
+
+def coord_phase(torch, smi: str):
+    """[coord]: ``serve`` on the card, a hosted TPE hunt through it with a
+    kill -9 and recovery, the fleet-fused plane at full width, the RPC
+    plane's latency."""
+    import threading
+
+    import numpy as np
+
+    from metaopt_tpu_torch.algo import gp_bo as G
+    from metaopt_tpu_torch.coord import CoordLedgerClient, CoordServer
+    from metaopt_tpu_torch.coord.wal import read_records
+    from metaopt_tpu_torch.ledger.trial import Trial
+    from metaopt_tpu_torch.models.objectives import rosenbrock
+    from metaopt_tpu_torch.ops import tpe_math as P
+    from metaopt_tpu_torch.space import build_space
+
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_coord_"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    env["METAOPT_TPU_COORD_RETRY_S"] = "120"   # the workers ride out the restart
+    snap, uds, events = root / "snap.json", root / "coord.sock", root / "events.jsonl"
+    # the in-memory ledger under the snapshot and its WAL (without --ledger,
+    # serve keeps the persistent file ledger under ~/.metaopt_tpu)
+    serve_args = ["--ledger", "memory", "--snapshot", str(snap), "--uds", str(uds),
+                  "--fuse-suggest",
+                  "--event-log", str(events), "--snapshot-interval-s", "3600"]
+    out = {"card": smi}
+    procs = []
+    try:
+        # -- (a) serve on the card; (d) runs in this process while it boots -
+        h = start_serve(["--port", "0", *serve_args], root, env, "first")
+        procs.append(h["proc"])
+        t_part = time.perf_counter()
+        out["fleet"] = fleet_phase(torch, smi, CoordServer, Trial, P, G, build_space, np)
+        fleet_s = time.perf_counter() - t_part
+        srv, spawn_s, port, srv_lines = await_serve(h)
+        cli = CoordLedgerClient("127.0.0.1", port, io_timeout_s=60.0)
+        ping = cli.ping()
+        wire = cli._wire_for(cli._seed)
+        out["serve"] = {"spawn_to_ready_s": spawn_s, "wire": wire, "caps": ping["caps"],
+                        "uds": bool(ping.get("uds_path")), "durable": ping["durable"]}
+        log(f"[coord] (a) serve ready in {spawn_s:.2f} s on port {port} (+ uds); wire "
+            f"negotiated: {wire} (caps {ping['caps']}); durable {ping['durable']}; card {smi}")
+
+        # -- (b) TPE hosted on the card through the CLI, (c) kill -9 -------
+        cfg = root / "tpe.json"   # examples/tpe.json: seed 0, 10 initial points
+        cfg.write_text((examples / "tpe.json").read_text())
+        part_s = {"fleet_while_serve_boots": fleet_s, "serve_spawn_to_ready": spawn_s}
+        t_part = time.perf_counter()
+        ops0 = cli.ping()["ops"]
+        hunt_out = open(root / "hunt.out", "w+")
+        hunt_err = open(root / "hunt.err", "w+")
+        t0 = time.perf_counter()
+        hunt = subprocess.Popen(
+            [sys.executable, "-m", "metaopt_tpu_torch", "hunt", "-n", "rosen-tpe",
+             "--ledger", f"coord://127.0.0.1:{port}", "--producer", "coord",
+             "--n-workers", str(COORD_WORKERS), "--max-trials", str(COORD_TRIALS),
+             "--config", str(cfg), str(examples / "rosenbrock.py")]
+            + [f"-{k}~{v}" for k, v in ROSEN_SPACE.items()],
+            stdout=hunt_out, stderr=hunt_err, env=env, cwd=root)
+        procs.append(hunt)
+        # watch the event log, not the server: a polling RPC would count
+        # among the hunt's RPCs
+        seen, deadline = 0, time.monotonic() + COORD_HUNT_S
+        while seen < COORD_KILL_AT:
+            if time.monotonic() > deadline or hunt.poll() is not None:
+                hunt_err.seek(0)
+                raise AssertionError(f"[coord] (b) {seen} completed before the kill point; "
+                                     f"hunt rc {hunt.poll()}:\n{hunt_err.read()[-3000:]}")
+            seen = sum('"update_trial"' in l and '"completed"' in l
+                       for l in events.read_text().splitlines()) if events.exists() else 0
+            time.sleep(0.05)
+        ops_kill = cli.ping()["ops"]
+        acked = cli.fetch("rosen-tpe", "completed")
+        # a durable op's reply waits for the WAL's fsync of every record
+        # appended before it: all that the fetch read is acknowledged now
+        cli.set_signal("rosen-tpe", "durability-barrier", "none")
+        kill_t = time.perf_counter() - t0
+        before_kill = {t.id: t.objective for t in acked}
+        srv.send_signal(signal.SIGKILL)
+        srv.wait(timeout=30)
+        wal_records = len(read_records(str(snap) + ".wal", truncate_torn=False)[0])
+        srv2, recovery_s, port2, srv2_lines = await_serve(start_serve(
+            ["--port", str(port), *serve_args], root, env, "restart"))
+        procs.append(srv2)
+        replayed = [int(m.group(1)) for m in (re.search(r"replayed (\d+) records", l)
+                                              for l in srv2_lines) if m]
+        out["recovery"] = {"completed_before_kill": len(before_kill), "kill_at_s": kill_t,
+                           "recovery_s": recovery_s, "wal_records_on_disk": wal_records,
+                           "wal_records_replayed": replayed[0] if replayed else None}
+        log(f"[coord] (c) kill -9 at {kill_t:.2f} s with {len(before_kill)} trials completed; "
+            f"restart on the same snapshot, port and uds ready in {recovery_s:.2f} s, "
+            f"{out['recovery']['wal_records_replayed']} WAL records replayed "
+            f"({wal_records} on disk); card {smi}")
+        try:
+            rc = hunt.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        hunt_wall = time.perf_counter() - t0
+        hunt_out.seek(0)
+        hunt_err.seek(0)
+        stdout, stderr = hunt_out.read(), hunt_err.read()
+        if rc != 0:
+            raise AssertionError(f"[coord] (b) hunt exited {rc}:\n{stderr[-3000:]}")
+        summary = json.loads(stdout)
+        cli = CoordLedgerClient("127.0.0.1", port2, io_timeout_s=60.0)
+        ops1 = cli.ping()["ops"]
+        # the hunt's RPCs as the reference's op counter counts them: the
+        # first server's before the kill (less the ping that read it), the
+        # restarted server's (less this ping)
+        rpcs = (ops_kill - ops0 - 1) + (ops1 - 1)
+        done = cli.fetch("rosen-tpe", "completed")
+        ev = [json.loads(l) for l in open(events)]
+        pushes = {}
+        for e in ev:
+            if e["op"] == "update_trial" and e.get("status") == "completed":
+                pushes[e["trial"]] = pushes.get(e["trial"], 0) + 1
+        produce = [e for e in ev if e["op"] == "produce"]
+        tele = cli.tenant_stats()["tenants"]["default"]
+        ei_calls = tele.get("prefetch_hits", 0) + tele.get("prefetch_misses", 0)
+        timings = summary["producer_timings"]
+        problems = []
+        ids = [t.id for t in done]
+        if len(done) != COORD_TRIALS or len(set(ids)) != len(ids):
+            problems.append(f"{len(done)} completed ({len(set(ids))} ids) of {COORD_TRIALS}")
+        if summary["completed_by_worker"] != len(done) or not set(ids) <= set(pushes):
+            problems.append(f"a trial completed twice: {summary['completed_by_worker']} pushes "
+                            f"for {len(done)} completed")
+        bad = [t.id for t in done if t.objective != rosenbrock(t.params)]
+        if bad:
+            problems.append(f"objectives that are not their params' rosenbrock: {bad}")
+        lost = [i for i, obj in before_kill.items()
+                if i not in set(ids) or next(t for t in done if t.id == i).objective != obj]
+        if lost:
+            problems.append(f"completions acked before the kill lost or changed: {lost}")
+        if timings.get("remote") != COORD_WORKERS or not produce \
+                or sum(e["registered"] for e in produce) < COORD_TRIALS:
+            problems.append(f"suggestions not from the hosted algorithm: {timings}, "
+                            f"{len(produce)} produce events")
+        if ei_calls < 5:
+            problems.append(f"{ei_calls} EI suggest calls on the coordinator's card")
+        if problems:
+            raise AssertionError(f"[coord] (b)/(c): {problems}")
+        part_s["hunt_kill_recovery"] = time.perf_counter() - t_part
+        out["hunt"] = {
+            "trials": len(done), "workers": COORD_WORKERS, "wall_s": hunt_wall,
+            "trials_per_s": len(done) / hunt_wall,
+            "trials_per_s_before_kill": len(before_kill) / kill_t,
+            "produce_rpc_ms_per_cycle": timings["produce_rpc_s"] / timings["cycles"] * 1e3,
+            "cycles": timings["cycles"], "coalesced_cycles": timings.get("coalesced", 0),
+            "fused_cycles": timings.get("fused_cycles", 0), "server_ops": rpcs,
+            "rpcs_per_trial": rpcs / len(done),
+            # the first server alone: the hunt's start and steady state,
+            # without the restart's session resumption
+            "rpcs_per_trial_before_kill": (ops_kill - ops0 - 1) / len(before_kill),
+            "produce_events": len(produce),
+            "max_coalesced": max(e["coalesced"] for e in produce),
+            "ei_suggest_calls": ei_calls, "prefetch": tele,
+            "producer_timings": timings, "reference_rpcs_per_trial": 1.06,
+            # completions the event log saw twice: a push the first server
+            # ran but never acknowledged, run again after the restart
+            "pushes_logged_twice": sum(n > 1 for n in pushes.values()),
+        }
+        log(f"[coord] (b) {len(done)} completed, each once, objectives recomputed from params; "
+            f"{COORD_WORKERS} workers in {hunt_wall:.2f} s = {len(done) / hunt_wall:.2f} "
+            f"trials/s with the outage ({len(before_kill) / kill_t:.2f} before the kill); "
+            f"produce RPC {out['hunt']['produce_rpc_ms_per_cycle']:.3f} ms/cycle over "
+            f"{timings['cycles']} cycles, {timings.get('coalesced', 0)} coalesced; "
+            f"{rpcs} server ops = {rpcs / len(done):.3f} RPCs/trial with the restart, "
+            f"{out['hunt']['rpcs_per_trial_before_kill']:.3f} before the kill (the "
+            f"reference's claim: 1.06); {len(produce)} produce events, {ei_calls} EI suggest calls on the card; "
+            f"card {smi}")
+
+        # -- (e) the RPC plane: worker_cycle round-trips, TCP and UDS ------
+        t_part = time.perf_counter()
+        rpc = {}
+        cli.create_experiment({"name": "rpc",
+                               "space": build_space({"x": "uniform(0, 1)"}).configuration,
+                               "algorithm": {"random": {"seed": 0}}, "max_trials": 10 ** 9,
+                               "pool_size": 1, "version": 1})
+        for transport in ("tcp", "uds"):
+            lat, errs = [[] for _ in range(COORD_RPC_THREADS)], []
+
+            def worker(i, transport=transport, lat=lat, errs=errs):
+                try:
+                    c = CoordLedgerClient("127.0.0.1", port2, io_timeout_s=60.0)
+                    c.ping()
+                    if transport == "tcp":
+                        with c._caps_lock:
+                            c._uds_paths.clear()   # dial TCP, not the advertised socket
+                    done_doc = None
+                    for _ in range(COORD_RPC_CYCLES):
+                        comp = None
+                        if done_doc is not None:
+                            comp = {"trial": done_doc, "expected_status": "reserved",
+                                    "expected_worker": f"w{i}"}
+                        t1 = time.perf_counter()
+                        r = c.worker_cycle("rpc", f"w{i}", pool_size=1, complete=comp)
+                        lat[i].append((time.perf_counter() - t1) * 1e6)
+                        t = r["trial"]
+                        t.transition("completed")
+                        t.attach_results([{"name": "o", "type": "objective", "value": 0.0}])
+                        done_doc = t.to_dict()
+                except BaseException as err:  # reported below
+                    errs.append(f"{type(err).__name__}: {err}")
+
+            ths = [threading.Thread(target=worker, args=(i,)) for i in range(COORD_RPC_THREADS)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=120)
+            if errs or any(t.is_alive() for t in ths):
+                raise AssertionError(f"[coord] (e) {transport}: {errs or 'a thread hung'}")
+            us = sorted(x for xs in lat for x in xs)
+            rpc[transport] = {"calls": len(us), "p50_us": us[len(us) // 2],
+                              "p99_us": us[int(len(us) * 0.99)], "mean_us": sum(us) / len(us)}
+            log(f"[coord] (e) {transport}: {COORD_RPC_THREADS} threads x {COORD_RPC_CYCLES} "
+                f"worker_cycle round-trips (complete + produce + reserve, WAL fsync'd): p50 "
+                f"{rpc[transport]['p50_us']:.1f} us, p99 {rpc[transport]['p99_us']:.1f} us; "
+                f"card {smi}")
+        out["rpc"] = rpc
+        for p in procs[1:]:
+            stop_serve(p)
+        part_s["rpc"] = time.perf_counter() - t_part
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+    out["part_s"] = part_s
+    log(f"[coord] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items())
+        + f"; card {smi}")
+    return out
+
+
+def fleet_phase(torch, smi, CoordServer, Trial, P, G, build_space, np):
+    """(d): one fuser tick's bucket launches against the same members'
+    solo refills on the card, TPE (64 members, 2 buckets of 32) and GP-BO
+    (8 members, 1 bucket)."""
+    space = build_space(TPE_SPACE)
+    rng = np.random.default_rng(13)
+    out = {}
+    with CoordServer(device="cuda", fuse_suggest=True, fuse_interval_s=3600.0) as srv:
+        fuser = srv._fuser
+        t0 = time.perf_counter()
+        for family, count, (lo, hi), algo in (
+                ("tpe", COORD_FLEET, COORD_FLEET_N, {"tpe": {"seed": 0}}),
+                ("gp", COORD_GP_FLEET, COORD_GP_N, {"gp": {"seed": 0}})):
+            for i in range(count):
+                name = f"{family}{i:02d}"
+                srv.ledger.create_experiment({"name": name, "space": space.configuration,
+                                              "algorithm": algo, "max_trials": 10 ** 6,
+                                              "pool_size": 1, "version": 1})
+                for p in space.sample(int(rng.integers(lo, hi + 1)), seed=rng):
+                    t = Trial(params=p, experiment=name, status="completed", worker="w",
+                              results=[{"name": "o", "type": "objective",
+                                        "value": float(rng.normal())}])
+                    srv.ledger.register(t)
+                producer, plock, _ = srv._hosted_producer(name)
+                algo_ = producer.algorithm
+                algo_._suggest_ahead_ready = lambda: False   # no refill races the tick
+                with plock:
+                    algo_.observe(srv.ledger.fetch(name, "completed"))
+                if family == "gp":
+                    algo_.suggest(1)       # the cold fit installs factor + params
+                    with algo_._kernel_lock:
+                        algo_._prefetch, algo_._prefetch_n_obs = [], len(algo_._y)
+        torch.cuda.synchronize()
+        out["setup_s"] = time.perf_counter() - t0
+        with srv._producers_guard:
+            members = [(n, e[0].algorithm) for n, e in sorted(srv._producers.items())]
+        for family in ("tpe", "gp"):
+            algos = [(n, a) for n, a in members if n.startswith(family)]
+            for _n, a in algos:
+                a._launch_lock.acquire()
+            try:
+                snaps = [a.fuse_snapshot() for _n, a in algos]
+                if any(s is None for s in snaps):
+                    raise AssertionError(f"[coord] (d) {family}: a member is not fusable")
+                keys = {(s.family,) + tuple(s.static_key) for s in snaps}
+                chunks = [list(zip([n for n, _ in algos], [a for _, a in algos], snaps))[i:i + 32]
+                          for i in range(0, len(snaps), 32)]
+
+                def bucket_launches():
+                    return [fuser._launch_bucket(family, c) for c in chunks]
+
+                def solo_launches(members):
+                    rows = []
+                    for s in members:
+                        a = s.arrays
+                        if family == "tpe":
+                            sk = s.static_key
+                            r = P.tpe_suggest_fused(
+                                a["X"], a["y"], a["n"], a["count"], a["fit_seed"],
+                                a["n_choices"], a["cont_mask"], a["gamma"], a["prior_weight"],
+                                a["full_weight_num"], a["n_prior"], a["transfer_discount"],
+                                n_cand=sk[2], n_out=sk[3], kmax=sk[4], equal_weight=sk[5],
+                                n_good_pad=sk[6], n_bad_pad=sk[7])
+                        else:
+                            r = G.gp_acquire_fused(
+                                a["X"], a["y"], a["L"], a["n"], a["mu"], a["sd"], a["fit_seed"],
+                                a["count"], {k: a[k] for k in ("log_ls", "log_amp", "log_noise")},
+                                n_cand=s.static_key[2], n_out=s.static_key[3], n_pools=1)
+                        rows.append(r.cpu())
+                    return rows
+
+                fused = [torch.from_numpy(r) for out_ in bucket_launches() for r in out_]
+                solo = solo_launches(snaps)
+                b_host, b_dev, b_kern = profile_calls(torch, bucket_launches, n=2)
+                # the solo launches timed over the first COORD_SOLO_TIMED
+                # members (every member's solo row is compared above)
+                s_host, s_dev, s_kern = profile_calls(
+                    torch, lambda: solo_launches(snaps[:COORD_SOLO_TIMED]), n=2)
+                score = ((lambda s, r: tpe_scores(P, s, r)) if family == "tpe"
+                         else (lambda s, r: gp_scores(torch, G, s, r)))
+                dev = snaps[0].arrays["X"].device
+                cmp = fleet_compare(torch, score, snaps, [f.to(dev) for f in fused],
+                                    [o.to(dev) for o in solo])
+                bit_equal = all(torch.equal(f, o) for f, o in zip(fused, solo))
+                n, m = len(snaps), min(len(snaps), COORD_SOLO_TIMED)
+                row = {
+                    "members": n, "buckets": len(chunks), "static_keys": len(keys),
+                    "bucket_launch": {"host_ms": b_host / len(chunks),
+                                      "device_ms": None if b_dev is None else b_dev / len(chunks),
+                                      "cuda_kernels": None if b_kern is None
+                                      else b_kern / len(chunks)},
+                    "per_member_fused": {"host_ms": b_host / n,
+                                         "device_ms": None if b_dev is None else b_dev / n,
+                                         "cuda_kernels": None if b_kern is None else b_kern / n},
+                    "per_member_solo": {"host_ms": s_host / m,
+                                        "device_ms": None if s_dev is None else s_dev / m,
+                                        "cuda_kernels": None if s_kern is None else s_kern / m},
+                    "bit_equal": bit_equal, **cmp,
+                }
+                out[family] = row
+                if len(keys) != 1 or cmp["winners_differ_untied"]:
+                    raise AssertionError(f"[coord] (d) {family}: {row}")
+                log(f"[coord] (d) {family}: {n} members, {len(chunks)} bucket launch(es) of "
+                    f"<= 32 at one static key; per bucket launch {b_host / len(chunks):.3f} ms "
+                    f"host, {row['bucket_launch']['device_ms']} ms device, "
+                    f"{row['bucket_launch']['cuda_kernels']} CUDA kernels; per member fused "
+                    f"{b_host / n:.3f} ms host / {row['per_member_fused']['device_ms']} ms device / "
+                    f"{row['per_member_fused']['cuda_kernels']} kernels against solo "
+                    f"{s_host / m:.3f} / {row['per_member_solo']['device_ms']} / "
+                    f"{row['per_member_solo']['cuda_kernels']}; fused == solo bit for bit: "
+                    f"{bit_equal}; {cmp}; card {smi}")
+                for _n, a, s in (x for c in chunks for x in c):
+                    a.fuse_abort(s)
+            finally:
+                for _n, a in algos:
+                    a._launch_lock.release()
+        # one live tick: every member demands, the fuser serves them all
+        t0 = time.perf_counter()
+        stats = fuser.tick()
+        torch.cuda.synchronize()
+        out["tick"] = {"host_ms": (time.perf_counter() - t0) * 1e3, **stats,
+                       "telemetry": fuser.telemetry()}
+        if stats["fused"] != COORD_FLEET + COORD_GP_FLEET:
+            raise AssertionError(f"[coord] (d) one tick fused {stats}")
+        log(f"[coord] (d) one fuser tick: {stats['launches']} bucket launches served "
+            f"{stats['fused']} members in {out['tick']['host_ms']:.1f} ms; card {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3954,6 +4454,10 @@ def main() -> int:
     # -- 16. the ledger at sweep scale: the native engine, EVC, the archive ----
     ledger_stats = ledger_phase(torch, smi, hunt_stats)
     mark("ledger")
+
+    # -- 17. the coordinator: serve, kill -9 and recovery, the fleet, RPCs ----
+    coord_stats = coord_phase(torch, smi)
+    mark("coord")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -4003,6 +4507,7 @@ def main() -> int:
     print(json.dumps({"lm": lm_stats}), flush=True)
     print(json.dumps({"batched": batched_stats}), flush=True)
     print(json.dumps({"ledger": ledger_stats}), flush=True)
+    print(json.dumps({"coord": coord_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

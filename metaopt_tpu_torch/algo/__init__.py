@@ -10,8 +10,9 @@ UnitCube), :class:`GradientDescent` (the gradient-result protocol),
 :class:`BOHB`, :class:`EvolutionES`, :class:`PBT` (exploit/explore with
 checkpoint lineage), :class:`DEHB`, :class:`CMAES`, :class:`GPBO` (GP-EI
 with the incremental Cholesky factor on the card) and :class:`MOTPE`
-(NSGA-II ordering fed to TPE). Not ported yet: the coordinator's
-fleet-fused hooks.
+(NSGA-II ordering fed to TPE). TPE and GP-BO implement the fleet-fused
+hooks (``fuse_snapshot`` / ``fuse_commit`` / ``fuse_abort``) the
+coordinator's fuser drives.
 
 The algorithm modules load on first use: a class imported from here, or a
 name built by :func:`make_algorithm`. Only TPE, MOTPE, BOHB and GP-BO (and

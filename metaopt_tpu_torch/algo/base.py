@@ -5,10 +5,11 @@ hooks, transfer priors (``observe_prior`` / ``n_prior``), the
 parallel-strategy ``set_pending``, ``is_done``, ``score``, the ``judge``
 early-stop hook, ``seed_rng``, ``configuration``, the
 ``state_dict`` snapshots, the ``cohort_size`` hook, ``should_suspend``, the
-registry and :func:`make_algorithm`; and the suggest-ahead mixin
-(:class:`SuggestAhead`) with its atexit drain. Not ported yet: the
-fleet-fused hooks (``FuseSnapshot``, ``fuse_*``), which serve the
-coordinator.
+registry and :func:`make_algorithm`; the suggest-ahead mixin
+(:class:`SuggestAhead`) with its atexit drain; and the fleet-fused hooks
+(:class:`FuseSnapshot`, ``fuse_snapshot`` / ``fuse_commit`` /
+``fuse_abort``) that the coordinator's
+:class:`~metaopt_tpu_torch.coord.fuser.SuggestFuser` drives.
 
 ``observe`` takes :class:`~metaopt_tpu_torch.ledger.trial.Trial` objects
 (they carry params, objective, fidelity, status, and lineage in one value
@@ -18,11 +19,13 @@ object) instead of parallel points/results lists.
 from __future__ import annotations
 
 import atexit
+import dataclasses
+import inspect
 import logging
 import threading
 import weakref
 from abc import ABC, abstractmethod
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -172,6 +175,33 @@ class SuggestAhead:
             }
 
 
+@dataclasses.dataclass
+class FuseSnapshot:
+    """One experiment's frozen acquisition inputs, ready to be stacked
+    into a fleet-fused bucket launch (coord/fuser.py).
+
+    Taken by :meth:`BaseAlgorithm.fuse_snapshot` with the algorithm's
+    launch lock HELD (the fuser holds it from snapshot through commit, so
+    the captured device buffers cannot be replaced by a concurrent refill
+    and the allocated pool index cannot be raced). ``static_key`` carries
+    every shape the batched body fixes, and the device — two experiments
+    share a bucket iff their ``(family, static_key)`` match exactly;
+    ``arrays`` holds the per-experiment inputs the fuser stacks along a
+    new leading axis. ``count`` is the PRNG pool index this snapshot
+    allocated from the experiment's own stream: the fused launch draws
+    pool ``count`` from the generator seeded by (kernel seed, n_obs,
+    count), exactly as a solo launch at that stream position would,
+    which is the whole bit-identity contract.
+    """
+
+    family: str                 # kernel family: "tpe" | "gp"
+    static_key: Tuple           # bucket statics (pads, widths, flags)
+    arrays: Dict[str, Any]      # per-experiment traced inputs (stackable)
+    count: int                  # allocated PRNG pool index (first pool)
+    fit_id: Tuple               # (n_obs, pending fp) — commit-time guard
+    n_pools: int = 1
+
+
 class BaseAlgorithm(ABC):
     """Pluggable optimizer over a :class:`Space`.
 
@@ -304,6 +334,42 @@ class BaseAlgorithm(ABC):
         running it (``resume`` flips it back to ``new``)."""
         return False
 
+    # -- fleet-fused suggest plane (coord/fuser.py) ------------------------
+    def fuse_snapshot(self) -> Optional[FuseSnapshot]:
+        """Freeze this instance's next acquisition launch for fusion.
+
+        Returns None when the instance is ineligible — random/warm-up
+        phase, no demand (prefetch pool already fresh), surrogate not
+        current (GP mid-refit), or the algorithm simply doesn't
+        participate (this default). A None is the per-experiment
+        FALLBACK: the ordinary SuggestAhead path keeps serving exactly
+        as before. Caller MUST hold the algorithm's launch lock (see
+        :class:`FuseSnapshot`) across snapshot → launch → commit.
+        """
+        return None
+
+    def fuse_commit(self, snapshot: FuseSnapshot, rows: Any) -> bool:
+        """Fan one bucket-launch result slice back into the prefetch pool.
+
+        ``rows`` is this experiment's slice of the fleet launch's output
+        (unit-cube points). Returns True when the points were banked;
+        False when the fit moved between snapshot and commit and the
+        slice was discarded (burned pool indices — explicitly safe under
+        the (n_obs, pool_idx) stream keying).
+        """
+        return False
+
+    def fuse_abort(self, snapshot: FuseSnapshot) -> None:
+        """Hand an unused snapshot back (singleton bucket, launch error).
+
+        Implementations un-allocate the pool index taken by
+        ``fuse_snapshot`` when — and only when — nothing else has
+        allocated behind it, so a skipped fusion leaves the suggestion
+        stream exactly where a never-attempted one would. Caller still
+        holds the launch lock. Default: no-op (burned index, still
+        correct under the stream doctrine, just a wasted draw seed).
+        """
+
     # -- reproducibility / persistence ------------------------------------
     def seed_rng(self, seed: Optional[int]) -> None:
         self.rng = np.random.default_rng(seed)
@@ -372,17 +438,28 @@ def _load_builtin(name: str) -> None:
         importlib.import_module(f"metaopt_tpu_torch.algo.{mod}")
 
 
+def algorithm_class(name: str) -> type:
+    """The registered class of algorithm ``name`` (built-in modules and
+    plugins load on first use)."""
+    if name not in algo_registry:
+        _load_builtin(name)
+    try:
+        return algo_registry.get(name)
+    except KeyError:
+        if not _load_plugin(name):
+            raise
+        return algo_registry.get(name)
+
+
+def accepts_device(name: str) -> bool:
+    """Does algorithm ``name``'s constructor take a ``device``? (TPE, BOHB,
+    MOTPE and GP-BO do: their device work runs where the caller says.)"""
+    return "device" in inspect.signature(algorithm_class(name).__init__).parameters
+
+
 def make_algorithm(space: Space, config: Dict[str, Any]) -> BaseAlgorithm:
     """Build from ``{"asha": {...}}``-style config (single key = algo name)."""
     if len(config) != 1:
         raise ValueError(f"algorithm config must have exactly one key, got {config}")
     (name, kwargs), = config.items()
-    if name not in algo_registry:
-        _load_builtin(name)
-    try:
-        cls = algo_registry.get(name)
-    except KeyError:
-        if not _load_plugin(name):
-            raise
-        cls = algo_registry.get(name)
-    return cls(space, **(kwargs or {}))
+    return algorithm_class(name)(space, **(kwargs or {}))

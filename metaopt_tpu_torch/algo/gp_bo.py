@@ -48,10 +48,19 @@ Config surface and defaults are the reference's: ``n_initial_points``,
 ``parallel_strategy``, ``incremental``, ``reanchor_every``,
 ``refit_iters``, ``drift_threshold``, ``suggest_prefetch_depth``,
 ``transfer_max_prior``, ``seed``; ``device`` is the port's own and is kept
-out of ``configuration``. Not ported yet: the fleet path
-(``gp_acquire_fleet``, ``fuse_snapshot`` / ``fuse_commit`` /
-``fuse_abort``), and the analysis helpers ``partial_dependence`` and
-``ard_importance`` with their fits.
+out of ``configuration``.
+
+The fleet path: the steady-state acquisition takes the surrogate as an
+input (resident factor + fitted hyperparameters), so one body with a
+leading member axis serves a single experiment (:func:`gp_acquire_fused`,
+the B = 1 case) and a bucket of experiments with equal-cap factors
+(:func:`gp_acquire_fleet`, the coordinator's fuser), as the reference
+vmaps one traced body for both. The standardization mean and spread reach
+the device as (B,) float32 rows in both paths, so a fused row equals the
+member's solo launch bit for bit on the CPU. ``fuse_snapshot`` /
+``fuse_commit`` / ``fuse_abort`` feed the fuser. Not ported yet: the
+analysis helpers ``partial_dependence`` and ``ard_importance`` with their
+fits.
 """
 
 from __future__ import annotations
@@ -70,7 +79,8 @@ from metaopt_tpu_torch.algo.obs_buffer import (
     _chol_grow,
 )
 from metaopt_tpu_torch.ledger.trial import Trial
-from metaopt_tpu_torch.ops.tpe_math import _splitmix64, pad_pow2, stream_seed
+from metaopt_tpu_torch.ops.tpe_math import (_splitmix64, _stacked, _to_device, pad_pow2,
+                                             stream_seed)
 from metaopt_tpu_torch.space import Space, UnitCube
 from metaopt_tpu_torch.utils.device import resolve_device
 
@@ -81,17 +91,19 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
 def _kernel(x1, x2, log_ls, log_amp):
-    """ARD RBF: amp·exp(−½ Σ_d (Δ_d / ls_d)²);  x1 (N,d), x2 (M,d).
+    """ARD RBF: amp·exp(−½ Σ_d (Δ_d / ls_d)²);  x1 (..., N, d), x2 (..., M, d),
+    log_ls (..., d), log_amp (...) with the same leading axes (none for one
+    experiment, the member axis in a bucket).
 
     The reference's expansion ‖z1‖² + ‖z2‖² − 2·z1·z2ᵀ, with the cross
     term summed elementwise (never a TF32 matrix product)."""
-    ls = torch.exp(log_ls)
-    z1 = x1 / ls[None, :]
-    z2 = x2 / ls[None, :]
-    cross = torch.sum(z1[:, None, :] * z2[None, :, :], dim=-1)
-    d2 = (torch.sum(z1 * z1, -1)[:, None] + torch.sum(z2 * z2, -1)[None, :]
+    ls = torch.exp(log_ls)[..., None, :]
+    z1 = x1 / ls
+    z2 = x2 / ls
+    cross = torch.sum(z1[..., :, None, :] * z2[..., None, :, :], dim=-1)
+    d2 = (torch.sum(z1 * z1, -1)[..., :, None] + torch.sum(z2 * z2, -1)[..., None, :]
           - 2.0 * cross)
-    return torch.exp(log_amp) * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
+    return torch.exp(log_amp)[..., None, None] * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
 
 
 def _masked_gram(X, mask, log_ls, log_amp, log_noise):
@@ -254,19 +266,24 @@ def _row(X, idx):
 
 
 def _candidates(incumbent, draws):
+    """Candidates (..., C, d): the uniforms, then Gaussian perturbations of
+    the incumbent (..., d), clipped into the cube."""
     u, z = draws
-    cand_p = torch.clamp(incumbent[None, :] + 0.1 * z, 1e-6, 1 - 1e-6)
-    return torch.cat([u, cand_p], 0)
+    cand_p = torch.clamp(incumbent[..., None, :] + 0.1 * z, 1e-6, 1 - 1e-6)
+    return torch.cat([u, cand_p], -2)
 
 
 def _expected_improvement(X, mask, L, alpha, best_y, cand, params):
-    """EI for MINIMIZATION, E[max(best_y − f, 0)], at each row of ``cand``."""
-    Ks = _kernel(X, cand, params["log_ls"], params["log_amp"]) * mask[:, None]
-    mu_q = torch.sum(Ks * alpha[:, None], dim=0)
-    w = _cho_solve(L, Ks)
-    var = torch.exp(params["log_amp"]) - torch.sum(Ks * w, dim=0)
+    """EI for MINIMIZATION, E[max(best_y − f, 0)], at each row of ``cand``.
+
+    X (..., N, d), mask and alpha (..., N), L (..., N, N), best_y (...),
+    cand (..., M, d); returns (..., M)."""
+    Ks = _kernel(X, cand, params["log_ls"], params["log_amp"]) * mask[..., :, None]
+    mu_q = torch.sum(Ks * alpha[..., :, None], dim=-2)
+    w = torch.cholesky_solve(Ks, L)
+    var = torch.exp(params["log_amp"])[..., None] - torch.sum(Ks * w, dim=-2)
     sigma = torch.sqrt(torch.clamp(var, min=1e-12))
-    gamma = (best_y - mu_q) / sigma
+    gamma = (best_y[..., None] - mu_q) / sigma
     pdf = torch.exp(-0.5 * gamma * gamma) * _INV_SQRT_2PI
     return sigma * (gamma * torch.special.ndtr(gamma) + pdf)
 
@@ -305,38 +322,94 @@ def gp_suggest_fused(X, y_raw, n: int, mu: float, sd: float, fit_seed: int, fit_
     return cand[_top(ei, n_out)]
 
 
+def _gp_acquire_rows(X, y_raw, L, n, mu, sd, draws, params, *, n_cand: int, n_out: int):
+    """EI top-``n_out`` over ``len(draws)`` candidate pools for every
+    member of a bucket: the body every acquisition runs, solo (B = 1) or
+    fused.
+
+    X (B, N, d), y_raw (B, N) raw objectives (inf padding; NaN/inf rows
+    drop out of the mask), L (B, N, N) resident factors, ``n`` (B, 1) live
+    counts, ``mu``/``sd`` (B, 1) the standardization, ``draws`` one
+    (uniforms (B, C/2, d), normals (B, C − C/2, d)) pair per pool,
+    ``params`` log_ls (B, d), log_amp and log_noise (B,). The surrogate fit
+    is an INPUT here, so the steady-state suggest pays one O(n²·c)
+    acquisition instead of the O(n³) fit+factor+acquire. Returns
+    (B, len(draws) * n_out, d).
+    """
+    B, npad, d = X.shape
+    idx = torch.arange(npad, device=X.device)
+    live = (idx[None, :] < n) & torch.isfinite(y_raw)
+    mask = live.to(torch.float32)
+    y = torch.where(live, (y_raw - mu) / sd, 0.0)
+    masked_y = torch.where(live, y, torch.inf)
+    best_y = torch.amin(masked_y, dim=1)
+    alpha = torch.cholesky_solve((y * mask)[:, :, None], L)[:, :, 0]
+    best_idx = torch.argmin(masked_y, dim=1)
+    incumbent = torch.gather(X, 1, best_idx[:, None, None].expand(B, 1, d))[:, 0]
+    n_pools = len(draws)
+    cand = torch.stack([_candidates(incumbent, dr) for dr in draws], dim=1)  # (B, P, C, d)
+    ei = _expected_improvement(X, mask, L, alpha, best_y,
+                               cand.reshape(B, n_pools * n_cand, d), params)
+    top = _top(ei.reshape(B, n_pools, n_cand), n_out)                  # (B, P, n_out)
+    picked = torch.gather(cand, 2, top[..., None].expand(B, n_pools, n_out, d))
+    return picked.reshape(B, n_pools * n_out, d)
+
+
+def _host_rows(vals, dtype, device) -> torch.Tensor:
+    """(B, 1) host scalars on ``device``, copied without a device sync."""
+    return _to_device(np.asarray(vals, dtype=dtype).reshape(-1, 1), dtype, device)
+
+
+def gp_acquire_fleet(X, y_raw, L, n, mu, sd, fit_seed, count, params, *, n_cand: int,
+                     n_out: int, n_pools: int = 1,
+                     draws: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None):
+    """``gp_acquire_fused`` for a BUCKET of experiments in one sequence of
+    batched launches.
+
+    The device columns ``X``, ``y_raw``, ``L`` and each ``params`` leaf
+    are a sequence of B per-member tensors (stacked here, one kernel each)
+    or an already stacked (B, ...) tensor, the factors at one equal cap;
+    ``n``, ``mu``, ``sd``, ``fit_seed`` and ``count`` are sequences of B
+    host numbers. Member b's pool p draws from ``gp_pool_draws(fit_seed[b],
+    count[b] + p, ...)``, its own stream, so row b equals the member's solo
+    ``gp_acquire_fused``. ``draws``, when given, replaces the generated
+    draws (one (B, ...) pair per pool). Returns (B, n_pools * n_out, d).
+    """
+    Xs = _stacked(X)
+    B, _, d = Xs.shape
+    dev = Xs.device
+    if draws is None:
+        draws = []
+        for p in range(n_pools):
+            per = [gp_pool_draws(fit_seed[b], count[b] + p, n_cand, d, dev) for b in range(B)]
+            draws.append(tuple(torch.stack([m[k] for m in per]) for k in range(2)))
+    return _gp_acquire_rows(
+        Xs, _stacked(y_raw), _stacked(L), _host_rows(n, np.int64, dev),
+        _host_rows(mu, np.float32, dev), _host_rows(sd, np.float32, dev), draws,
+        {k: _stacked(v) for k, v in params.items()}, n_cand=n_cand, n_out=n_out)
+
+
 def _gp_acquire_body(X, y_raw, L, n: int, mu: float, sd: float,
                      draws: Sequence[Tuple[torch.Tensor, torch.Tensor]], params, *,
                      n_cand: int, n_out: int):
-    """EI top-``n_out`` over ``len(draws)`` candidate pools in one call.
-
-    The surrogate fit is an INPUT here (resident factor + params), so the
-    steady-state suggest pays one O(n²·c) acquisition instead of the O(n³)
-    fit+factor+acquire. Returns (len(draws) * n_out, d).
-    """
-    d = X.shape[1]
-    mask, live = _live(X, y_raw, n)
-    y = torch.where(live, (y_raw - mu) / sd, 0.0)
-    masked_y = torch.where(live, y, torch.inf)
-    best_y = torch.min(masked_y)
-    alpha = _cho_solve(L, y * mask)
-    incumbent = _row(X, torch.argmin(masked_y))
-    n_pools = len(draws)
-    cand = torch.stack([_candidates(incumbent, dr) for dr in draws])   # (P, C, d)
-    ei = _expected_improvement(X, mask, L, alpha, best_y,
-                               cand.reshape(n_pools * n_cand, d), params)
-    top = _top(ei.reshape(n_pools, n_cand), n_out)                     # (P, n_out)
-    picked = torch.gather(cand, 1, top[:, :, None].expand(n_pools, n_out, d))
-    return picked.reshape(n_pools * n_out, d)
+    """:func:`_gp_acquire_rows` for one experiment. Returns
+    (len(draws) * n_out, d)."""
+    dev = X.device
+    return _gp_acquire_rows(
+        X[None], y_raw[None], L[None], _host_rows([n], np.int64, dev),
+        _host_rows([mu], np.float32, dev), _host_rows([sd], np.float32, dev),
+        [tuple(t[None] for t in dr) for dr in draws],
+        {k: v[None] for k, v in params.items()}, n_cand=n_cand, n_out=n_out)[0]
 
 
 def gp_acquire_fused(X, y_raw, L, n: int, mu: float, sd: float, fit_seed: int, count: int,
                      params, *, n_cand: int, n_out: int, n_pools: int,
                      draws: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None):
-    """Acquisition over ``n_pools`` pools; pool p draws from
-    ``gp_pool_draws(fit_seed, count + p, ...)``, exactly the stream p
-    sequential single-pool calls would use. ``draws``, when given,
-    replaces the generated draws (one (uniforms, normals) pair per pool)."""
+    """Acquisition over ``n_pools`` pools of one experiment: the B = 1 case
+    of :func:`gp_acquire_fleet`. Pool p draws from ``gp_pool_draws(fit_seed,
+    count + p, ...)``, exactly the stream p sequential single-pool calls
+    would use. ``draws``, when given, replaces the generated draws (one
+    (uniforms, normals) pair per pool)."""
     if draws is None:
         d = X.shape[1]
         draws = [gp_pool_draws(fit_seed, count + p, n_cand, d, X.device)
@@ -439,6 +512,9 @@ class GPBO(SuggestAhead, BaseAlgorithm):
         self._kernel_lock = threading.RLock()
         self._launch_lock = threading.RLock()
         self._ei_active = False
+        # fleet-fused plane (coord/fuser.py) counters, as TPE's
+        self._fused_commits = 0
+        self._fused_discards = 0
         self._init_suggest_ahead(suggest_prefetch_depth)
         # transfer warm-start: the factor is O(n³) in resident rows, so a
         # large ancestor history is subsampled to its best points
@@ -614,6 +690,109 @@ class GPBO(SuggestAhead, BaseAlgorithm):
             pts.append(pt)
         return pts
 
+    # -- fleet-fused suggest plane (coord/fuser.py) ------------------------
+    def fuse_snapshot(self):
+        """Freeze one steady-state acquisition launch for a fleet bucket.
+
+        Fused GP acquisition is surrogate-as-INPUT: it only engages when
+        the resident factor is already current through ``n`` at the
+        buffer's capacity with no re-anchor due — i.e. when
+        ``_ensure_factor`` would be a complete no-op, so the fused and
+        per-experiment paths consume identical (L, params). A cold start,
+        a pending grow/append, a due re-anchor, or an unreplayed restore
+        trace all return None: the per-experiment path owns every O(n³)
+        regime (GP mid-refit is not fused). Caller holds ``_launch_lock``
+        through ``fuse_commit``.
+        """
+        from metaopt_tpu_torch.algo.base import FuseSnapshot
+
+        with self._kernel_lock:
+            n = len(self._y)
+            if n < self.n_initial_points:
+                return None
+            if self._prefetch_n_obs == n and self._prefetch:
+                return None  # no demand
+            y_fin = [v for v in self._y if np.isfinite(v)]
+            if not y_fin:
+                return None  # uniform-explore regime
+            if self._restore_trace is not None or self._params is None:
+                return None
+            self._buf.sync(self._X, self._y)
+            if not self._factor.current(n, self._buf.cap):
+                return None  # factor maintenance owed — not fused
+            if (not self.incremental
+                    or (n - self._factor.anchor_n) >= self.reanchor_every):
+                return None  # re-anchor due — not fused
+            if self._pool_n != n:
+                self._pool_n, self._pool_idx = n, 0
+            pool_w = pad_pow2(self.pool_prefetch, minimum=1)
+            count = self._pool_idx
+            self._pool_idx += 1
+            fit_seed = stream_seed(self._kernel_seed, n)
+            pending = (list(self._pending_X)
+                       if (self._pending_X
+                           and self.parallel_strategy is not None
+                           and n > 0)
+                       else [])
+            pending_fp = self._pending_fp
+            mu_o = float(np.mean(y_fin))
+            stats = list(y_fin)
+            lie = None
+            if pending:
+                lie = (mu_o if self.parallel_strategy == "mean"
+                       else float(np.max(y_fin)))
+                stats += [lie] * len(pending)
+            stats_arr = np.asarray(stats, np.float32)
+            mu_a, sd_a = float(stats_arr.mean()), float(stats_arr.std() + 1e-8)
+        # overlay factor composition outside the kernel lock, exactly like
+        # _launch_ei (the caller's _launch_lock serializes factor readers)
+        Xq, yq, n_eff, L = self._buf.Xdev, self._buf.ydev, n, self._factor.L
+        if pending and lie is not None and np.isfinite(lie):
+            Xq, yq, n_eff, L = self._aug_factor(pending, lie, n, pending_fp)
+        return FuseSnapshot(
+            family="gp",
+            static_key=(
+                int(Xq.shape[0]), self.cube.n_dims,
+                pad_pow2(self.n_candidates), pool_w, str(self.device),
+            ),
+            arrays={
+                "X": Xq, "y": yq, "L": L, "n": n_eff,
+                "mu": mu_a, "sd": sd_a, "fit_seed": fit_seed, "count": count,
+                "log_ls": self._params["log_ls"],
+                "log_amp": self._params["log_amp"],
+                "log_noise": self._params["log_noise"],
+            },
+            count=count,
+            fit_id=(n, pending_fp),
+        )
+
+    def fuse_commit(self, snapshot, rows) -> bool:
+        """Bank one bucket-launch slice (same protocol as TPE's)."""
+        fid = self.space.fidelity
+        pts = []
+        for row in np.asarray(rows):
+            pt = self.cube.untransform(np.asarray(row))
+            if fid is not None:
+                pt[fid.name] = fid.high
+            pts.append(pt)
+        with self._kernel_lock:
+            if (len(self._y), self._pending_fp) != snapshot.fit_id:
+                self._fused_discards += 1
+                return False
+            if self._prefetch_n_obs != len(self._y):
+                self._prefetch = []
+                self._prefetch_n_obs = len(self._y)
+            self._prefetch.extend(pts)
+            self._fused_commits += 1
+            return True
+
+    def fuse_abort(self, snapshot) -> None:
+        """Un-allocate the snapshot's pool index (see TPE.fuse_abort)."""
+        with self._kernel_lock:
+            if (self._pool_n == snapshot.fit_id[0]
+                    and self._pool_idx == snapshot.count + 1):
+                self._pool_idx = snapshot.count
+
     # -- incremental factor maintenance ------------------------------------
     def _ensure_factor(self, n: int, mu: float, sd: float) -> None:
         """Bring (params, factor) current through observation ``n``.
@@ -728,6 +907,8 @@ class GPBO(SuggestAhead, BaseAlgorithm):
             "bulk_uploads": self._buf.bulk_uploads,
             "reallocs": self._buf.reallocs,
             "kernel_launches": self._launches,
+            "fused_commits": self._fused_commits,
+            "fused_discards": self._fused_discards,
             **self._factor.telemetry(),
             **self.suggest_ahead_telemetry(),
         }

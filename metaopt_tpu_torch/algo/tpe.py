@@ -20,8 +20,11 @@ reference's for the same seed. The EI phase runs
 :func:`~metaopt_tpu_torch.ops.tpe_math.tpe_suggest_fused` on the device
 over the pow2-padded observation buffer; its draws are keyed by
 (kernel seed, observation count, pool index), as the reference's are.
-Not ported yet: ``fuse_snapshot`` / ``fuse_commit`` / ``fuse_abort`` (the
-coordinator's fleet-fused plane).
+``fuse_snapshot`` / ``fuse_commit`` / ``fuse_abort`` hand one pool refill
+to the coordinator's fleet-fused plane, which serves a bucket of
+experiments with one :func:`~metaopt_tpu_torch.ops.tpe_math.tpe_suggest_fleet`
+launch; a fused pool is bit for bit the one the member's own refill would
+have drawn.
 """
 
 from __future__ import annotations
@@ -161,6 +164,10 @@ class TPE(SuggestAhead, BaseAlgorithm):
         self._kernel_lock = threading.RLock()
         self._launch_lock = threading.RLock()
         self._ei_active = False
+        # fleet-fused plane (coord/fuser.py): pools banked from a bucket
+        # launch, and fused slices discarded because the fit moved
+        self._fused_commits = 0
+        self._fused_discards = 0
         self._init_suggest_ahead(suggest_prefetch_depth)
 
     # -- observe -----------------------------------------------------------
@@ -423,6 +430,8 @@ class TPE(SuggestAhead, BaseAlgorithm):
             "bulk_uploads": b.bulk_uploads,
             "reallocs": b.reallocs,
             "kernel_launches": self._launches,
+            "fused_commits": self._fused_commits,
+            "fused_discards": self._fused_discards,
             **self.suggest_ahead_telemetry(),
         }
 
@@ -532,6 +541,120 @@ class TPE(SuggestAhead, BaseAlgorithm):
                 pt[fid.name] = fid.high
             out.append(pt)
         return out
+
+    # -- fleet-fused suggest plane (coord/fuser.py) ------------------------
+    def fuse_snapshot(self):
+        """Freeze one pool-refill launch for a fleet bucket.
+
+        Mirrors ``_launch_ei``'s snapshot phase EXACTLY (buffer sync,
+        pending-lie overlay, pad computation, pool-index allocation, draw
+        seed) for a single pool of width ``pad_pow2(pool_prefetch)`` — the
+        refill SuggestAhead would have paid. Caller holds ``_launch_lock``
+        from here through ``fuse_commit``, so the captured device buffers
+        cannot be replaced by a concurrent sync and the allocated pool
+        index cannot be reordered. Returns None (per-experiment path) in
+        the random phase or when the prefetch pool is already fresh and
+        non-empty (no demand).
+        """
+        from metaopt_tpu_torch.algo.base import FuseSnapshot
+
+        with self._kernel_lock:
+            n = len(self._y)
+            if n < self.n_initial_points:
+                return None
+            if self._prefetch_n_obs == n and self._prefetch:
+                return None  # no demand: the banked pool is still fresh
+            if self._n_choices_dev is None:
+                self._n_choices_dev = torch.as_tensor(
+                    self.cube.n_choices.astype(np.int32), device=self.device)
+                self._cont_mask_dev = torch.as_tensor(
+                    ~self.cube.categorical_mask, device=self.device)
+            self._buf.sync(self._X, self._y)
+            if self._pool_n != n:
+                self._pool_n, self._pool_idx = n, 0
+            pool_w = pad_pow2(self.pool_prefetch, minimum=1)
+            count = self._pool_idx
+            self._pool_idx += 1
+            fit_seed = stream_seed(self._kernel_seed, n)
+            X_dev, y_dev, n_eff = self._buf.Xdev, self._buf.ydev, n
+            if (self._pending_X and self.parallel_strategy is not None
+                    and n > 0):
+                lie = (float(np.nanmean(self._y))
+                       if self.parallel_strategy == "mean"
+                       else float(np.nanmax(self._y)))
+                if np.isfinite(lie):
+                    aug_key = (n, self._pending_fp)
+                    if self._aug_key != aug_key:
+                        Xa, ya, ntot = self._buf.overlay(
+                            self._pending_X, lie)
+                        self._aug_key = aug_key
+                        self._aug_X, self._aug_y = Xa, ya
+                        self._aug_n = ntot
+                    X_dev, y_dev = self._aug_X, self._aug_y
+                    n_eff = self._aug_n
+            g_pad, b_pad = split_pads(n_eff, self.gamma)
+            return FuseSnapshot(
+                family="tpe",
+                static_key=(
+                    int(X_dev.shape[0]), self.cube.n_dims,
+                    self.n_ei_candidates, pool_w, self._kmax,
+                    bool(self.equal_weight), g_pad, b_pad, str(self.device),
+                ),
+                arrays={
+                    "X": X_dev, "y": y_dev, "n": n_eff, "count": count,
+                    "fit_seed": fit_seed,
+                    "n_choices": self._n_choices_dev,
+                    "cont_mask": self._cont_mask_dev,
+                    "gamma": self.gamma,
+                    "prior_weight": self.prior_weight,
+                    "full_weight_num": self.full_weight_num,
+                    "n_prior": self._n_prior,
+                    "transfer_discount": self.transfer_discount,
+                },
+                count=count,
+                fit_id=(n, self._pending_fp),
+            )
+
+    def fuse_commit(self, snapshot, rows) -> bool:
+        """Bank one bucket-launch slice into the prefetch pool.
+
+        Same commit protocol as ``_refill_pool``: discard if the fit moved
+        between snapshot and launch (the pool index is burned — safe under
+        (n_obs, pool_idx) keying). Caller still holds ``_launch_lock``, so
+        no other launch can have allocated indices behind our back: a
+        committed slice lands in the exact stream position a solo refill
+        at ``snapshot.count`` would have.
+        """
+        fid = self.space.fidelity
+        pts = []
+        for row in np.asarray(rows):
+            pt = self.cube.untransform(row)
+            if fid is not None:
+                pt[fid.name] = fid.high
+            pts.append(pt)
+        with self._kernel_lock:
+            if (len(self._y), self._pending_fp) != snapshot.fit_id:
+                self._fused_discards += 1
+                return False
+            if self._prefetch_n_obs != len(self._y):
+                self._prefetch = []
+                self._prefetch_n_obs = len(self._y)
+            self._prefetch.extend(pts)
+            self._fused_commits += 1
+            return True
+
+    def fuse_abort(self, snapshot) -> None:
+        """Un-allocate the snapshot's pool index (singleton bucket).
+
+        Safe because the caller still holds ``_launch_lock`` — the only
+        other allocator — so ``_pool_idx`` can only have moved if the fit
+        changed (pool reset), in which case we leave it alone and the
+        index is burned (still correct, just a wasted draw seed).
+        """
+        with self._kernel_lock:
+            if (self._pool_n == snapshot.fit_id[0]
+                    and self._pool_idx == snapshot.count + 1):
+                self._pool_idx = snapshot.count
 
     def score(self, point: Dict[str, Any]) -> float:
         """EI score of an arbitrary point under the current l/g fit."""

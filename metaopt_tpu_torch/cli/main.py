@@ -25,9 +25,17 @@ of N GPUs (:class:`~metaopt_tpu_torch.executor.GPUExecutor`), and ``status
 no trial process, pools of trials evaluated in-process by a
 :class:`~metaopt_tpu_torch.executor.BatchedExecutor` on ``cuda``, or on the
 device that ``executor.device`` in the config file names (the CPU tests
-pass ``"cpu"``; the key never enters the stored experiment). The
-coordinator (``--producer coord``, ``coord://``) is not ported yet: those
-raise a clear "not ported yet".
+pass ``"cpu"``; the key never enters the stored experiment).
+
+The coordinator: ``serve`` runs a single-process
+:class:`~metaopt_tpu_torch.coord.server.CoordServer` that owns the ledger
+and hosts each experiment's algorithm on ``cuda`` (or the device that
+``coordinator.device`` in the config file names; without CUDA it raises),
+printing ``coordinator ready at coord://HOST:PORT``. ``--ledger
+coord://HOST:PORT`` points any subcommand at it, ``hunt --producer coord``
+delegates suggestion to the hosted algorithm, and ``tenants`` prints its
+multi-tenant service stats. ``serve --shards`` (sharded serving) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -75,7 +83,7 @@ def fsync_dir(path: str) -> None:
         os.close(fd)
 
 LEDGER_HELP = ("ledger spec: 'memory', a dir path (native engine preferred), "
-               "'native:<dir>' or 'file:<dir>' ('coord://' is not ported yet)")
+               "'native:<dir>', 'file:<dir>', or 'coord://host:port'")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -142,7 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                            "dimension NEW (repeatable)")
     hunt.add_argument("--producer", default=None, choices=["local", "coord"],
                       help="where suggestion runs: 'local' fits the algorithm "
-                           "in this worker ('coord' is not ported yet)")
+                           "in this worker; 'coord' delegates to the "
+                           "coordinator's single hosted instance "
+                           "(coord:// ledger only)")
     hunt.add_argument("--profile-dir", default=None,
                       help="capture per-trial torch.profiler traces here "
                            "(scripts opt in with `with client.profiled():`)")
@@ -255,6 +265,108 @@ def build_parser() -> argparse.ArgumentParser:
                     help="test: emit the check report as JSON")
     db.add_argument("--config", help="framework config YAML (or JSON)")
     db.add_argument("--ledger", help=LEDGER_HELP)
+
+    tn = sub.add_parser(
+        "tenants",
+        help="multi-tenant service stats from a coordinator: per-tenant "
+             "produce grants/denials and weights, fleet residency "
+             "(resident/evicted/hydrations), and optionally per-"
+             "experiment status counts — evicted experiments answered "
+             "from their stub index, never hydrated",
+    )
+    tn.add_argument("--config", help="framework config YAML (or JSON)")
+    tn.add_argument("--ledger", help="coord://host:port of the deployment")
+    tn.add_argument("--experiments", action="store_true",
+                    help="include per-experiment status counts")
+    tn.add_argument("--json", action="store_true", dest="as_json")
+
+    srv = sub.add_parser(
+        "serve", help="run the pod coordinator (single-writer ledger service)"
+    )
+    srv.add_argument("--config", help="framework config YAML (or JSON); "
+                     "coordinator.device places the hosted algorithms")
+    srv.add_argument("--host", default=None,
+                     help="bind address (default: config coordinator.host)")
+    srv.add_argument("--port", type=int, default=None,
+                     help="0 binds an ephemeral port (printed at startup)")
+    srv.add_argument("--ledger", default=None,
+                     help="inner backing store: 'memory' or a directory path")
+    srv.add_argument("--snapshot", dest="snapshot_path", default=None,
+                     help="snapshot file for crash/resume")
+    srv.add_argument("--snapshot-interval-s", type=float, default=30.0)
+    srv.add_argument("--snapshot-full", dest="snapshot_full",
+                     action="store_true",
+                     help="force full (v1) snapshots: every experiment's "
+                          "whole doc set reserialized each time, no "
+                          "segment files (default: incremental v2 "
+                          "manifests — sealed archive segments written "
+                          "once under <snapshot>.segments/, only dirty "
+                          "experiments re-captured)")
+    srv.add_argument("--archive-segment-rows", dest="archive_segment_rows",
+                     type=int, default=None, metavar="N",
+                     help="completed-trial archive segment size: completed "
+                          "trials seal into immutable columnar segments "
+                          "of N rows (default 4096) — flat RSS per trial "
+                          "and O(dirty) incremental snapshots at "
+                          "million-trial scale")
+    srv.add_argument("--no-trial-archive", dest="trial_archive",
+                     action="store_false", default=True,
+                     help="keep completed trials as resident Trial "
+                          "objects instead of sealing them into the "
+                          "columnar archive (debugging escape hatch; "
+                          "RSS grows with every completion)")
+    srv.add_argument("--stale-timeout-s", type=float, default=120.0,
+                     help="pacemaker: re-free reservations idle this long")
+    srv.add_argument("--event-log", dest="event_log_path", default=None,
+                     help="JSONL event log path")
+    srv.add_argument("--suggest-prefetch-depth", dest="suggest_prefetch_depth",
+                     type=int, default=None,
+                     help="speculative pools hosted algorithms keep banked "
+                          "so produce legs answer from memory (default 1 = "
+                          "refill-when-stale)")
+    srv.add_argument("--uds", dest="uds_path", default=None, metavar="PATH",
+                     help="also listen on a Unix domain socket at PATH — "
+                          "the same-host fast path; the ping reply "
+                          "advertises it and pod-local clients prefer it "
+                          "over TCP automatically")
+    srv.add_argument("--shards", type=int, default=None, metavar="N",
+                     help="sharded serving (not ported yet)")
+    srv.add_argument("--max-experiments", type=int, default=None,
+                     help="admission control: reject register_experiment "
+                          "past this fleet-wide count (per shard when "
+                          "--shards is set)")
+    srv.add_argument("--max-experiments-per-tenant", type=int, default=None,
+                     help="admission control: per-tenant experiment quota "
+                          "(experiments carry a 'tenant' config key; "
+                          "unset = 'default')")
+    srv.add_argument("--evict-idle-s", type=float, default=None,
+                     help="evict experiments idle this long to crash-"
+                          "atomic evict files (stub stays resident: "
+                          "status counts served without hydration; first "
+                          "touch restores bit-identically)")
+    srv.add_argument("--max-resident", type=int, default=None,
+                     help="LRU residency budget: keep at most this many "
+                          "experiments hydrated (requires --snapshot "
+                          "for the evict directory)")
+    srv.add_argument("--tenant-weights", default=None, metavar="JSON",
+                     help="fair produce scheduling weights, e.g. "
+                          '\'{"acme": 3, "batch": 1}\' — deficit '
+                          "round-robin shares of produce capacity "
+                          "(unlisted tenants weigh 1.0)")
+    srv.add_argument("--fuse-suggest", dest="fuse_suggest",
+                     action="store_true", default=None,
+                     help="fleet-fused suggest plane: batch compatible "
+                          "resident experiments' acquisition launches "
+                          "into ONE batched launch per shape bucket each "
+                          "tick, feeding their prefetch pools off the "
+                          "reply path (suggestions stay bit-identical "
+                          "to the per-experiment path on the CPU)")
+    srv.add_argument("--fuse-bucket-max", dest="fuse_bucket_max",
+                     type=int, default=None, metavar="N",
+                     help="max experiments fused into one bucket launch "
+                          "(rounded down to a power of two; default 32 "
+                          "— bounds worst-case launch latency and "
+                          "per-bucket device memory)")
 
     bm = sub.add_parser(
         "benchmark",
@@ -644,20 +756,32 @@ def _cmd_hunt(args, cfg: Dict[str, Any]) -> int:
         # N full produce/reserve/execute loops in this process: trials are
         # subprocesses, so N run concurrently. Every loop shares the one
         # (thread-safe) ledger — the memory backend especially must not
-        # give each thread a private universe — and has its own Experiment
+        # give each thread a private universe — except on a coordinator,
+        # where each gets its own client; each has its own Experiment
         # handle, algorithm and executor (the batched hunt's threads share
         # its one executor); the ledger's atomic reserve arbitrates exactly
         # as it does between separate worker processes.
         import threading
 
+        from metaopt_tpu_torch.coord.client_backend import CoordLedgerClient
+
         results: Dict[int, Any] = {}
         errors: Dict[int, str] = {}
         stop = threading.Event()
+        shared_ledger = not isinstance(exp.ledger, CoordLedgerClient)
 
         def run(i: int) -> None:
             try:
-                w_exp = Experiment(exp.name, exp.ledger).configure()
-                ex = make_executor(template)
+                if shared_ledger:
+                    w_exp = Experiment(exp.name, exp.ledger).configure()
+                    w_template = template
+                else:
+                    # a coordinator worker gets its own client (its own
+                    # reservations to re-assert after a restart)
+                    w_exp, w_template = _experiment_from_args(
+                        args, cfg, need_cmd=False
+                    )
+                ex = make_executor(w_template)
                 try:
                     results[i] = workon(
                         w_exp, ex, worker_id=f"{worker_id}-w{i}",
@@ -1389,6 +1513,139 @@ def _cmd_benchmark(args, cfg) -> int:
     return 0
 
 
+def _cmd_tenants(args, cfg: Dict[str, Any]) -> int:
+    """``tenants``: the coordinator's multi-tenant service stats."""
+    ledger = _make_ledger_from_spec(args.ledger, cfg)
+    stats_fn = getattr(ledger, "tenant_stats", None)
+    if stats_fn is None:
+        print("tenants needs a coordinator ledger (coord://host:port)",
+              file=sys.stderr)
+        return 2
+    stats = stats_fn(include_experiments=args.experiments)
+    if args.as_json:
+        print(json.dumps(stats, indent=2))
+        return 0
+    print(f"residency: {stats.get('resident', 0)} resident, "
+          f"{stats.get('evicted', 0)} evicted "
+          f"({stats.get('evictions', 0)} evictions, "
+          f"{stats.get('hydrations', 0)} hydrations)")
+    tenants = stats.get("tenants") or {}
+    fuser = stats.get("fuser")
+    if fuser:
+        print(f"fused suggest: {fuser.get('bucket_launches', 0)} bucket "
+              f"launches, {fuser.get('fused_experiments', 0)} fused / "
+              f"{fuser.get('fallback_experiments', 0)} fallback; last tick "
+              f"{fuser.get('last_buckets', 0)} buckets, occupancy "
+              f"{fuser.get('last_occupancy', 0.0):g}")
+    for tenant in sorted(tenants):
+        row = tenants[tenant]
+        line = (f"  {tenant}: {row.get('experiments', 0)} experiments "
+                f"({row.get('evicted', 0)} evicted), weight "
+                f"{row.get('weight', 1.0):g}, produce "
+                f"{row.get('granted', 0)} granted / "
+                f"{row.get('denied', 0)} denied")
+        if "suggest_hit_rate" in row:
+            line += (f", suggest hit rate {row['suggest_hit_rate']:.0%}"
+                     f" (fused {row.get('fused_commits', 0)} / discarded "
+                     f"{row.get('fused_discards', 0)})")
+        print(line)
+    if args.experiments:
+        per = stats.get("experiments") or {}
+        for name in sorted(per):
+            row = per[name]
+            counts = ", ".join(f"{k}={v}" for k, v in
+                               sorted((row.get("counts") or {}).items()))
+            tag = " [evicted]" if row.get("evicted") else ""
+            print(f"    {name} ({row.get('tenant', 'default')}){tag}: "
+                  f"{counts or 'no trials'}")
+    return 0
+
+
+def _cmd_serve(args, cfg: Dict[str, Any]) -> int:
+    from metaopt_tpu_torch.coord.server import CoordServer, serve_forever
+
+    coord_cfg_early = cfg.get("coordinator") or {}
+    shards = (args.shards if args.shards is not None
+              else coord_cfg_early.get("shards"))
+    if shards:
+        print("serve --shards: sharded serving is not ported yet",
+              file=sys.stderr)
+        return 2
+    # CLI flags > config file (`ledger:`/`coordinator:` sections) > defaults
+    inner = None
+    inner_spec = args.ledger
+    if inner_spec is None:
+        lcfg = cfg.get("ledger") or {}
+        if lcfg.get("type", "memory") == "file":
+            inner_spec = lcfg.get("path") or os.path.expanduser(
+                "~/.metaopt_tpu/ledger"
+            )
+    if inner_spec and inner_spec != "memory":
+        from metaopt_tpu_torch.ledger.backends import make_ledger as _ml
+
+        inner = _ml({"type": "file", "path": inner_spec})
+    coord_cfg = cfg.get("coordinator") or {}
+    server = CoordServer(
+        inner=inner,
+        host=args.host if args.host is not None
+        else coord_cfg.get("host", "127.0.0.1"),
+        port=args.port if args.port is not None else coord_cfg.get("port", 0),
+        snapshot_path=args.snapshot_path,
+        snapshot_interval_s=args.snapshot_interval_s,
+        snapshot_incremental=not getattr(args, "snapshot_full", False),
+        archive_segment_rows=(
+            args.archive_segment_rows
+            if getattr(args, "archive_segment_rows", None) is not None
+            else coord_cfg.get("archive_segment_rows")),
+        archive_completed=getattr(args, "trial_archive", True),
+        stale_timeout_s=args.stale_timeout_s,
+        event_log_path=args.event_log_path,
+        suggest_prefetch_depth=(
+            args.suggest_prefetch_depth
+            if args.suggest_prefetch_depth is not None
+            else coord_cfg.get("suggest_prefetch_depth", 1)),
+        uds_path=args.uds_path or coord_cfg.get("uds_path"),
+        max_experiments=(args.max_experiments
+                         if args.max_experiments is not None
+                         else coord_cfg.get("max_experiments")),
+        max_experiments_per_tenant=(
+            args.max_experiments_per_tenant
+            if args.max_experiments_per_tenant is not None
+            else coord_cfg.get("max_experiments_per_tenant")),
+        evict_idle_s=(args.evict_idle_s if args.evict_idle_s is not None
+                      else coord_cfg.get("evict_idle_s")),
+        max_resident=(args.max_resident if args.max_resident is not None
+                      else coord_cfg.get("max_resident")),
+        tenant_weights=_tenant_weights(args, coord_cfg),
+        fuse_suggest=(args.fuse_suggest
+                      if args.fuse_suggest is not None
+                      else bool(coord_cfg.get("fuse_suggest", False))),
+        fuse_bucket_max=(args.fuse_bucket_max
+                         if args.fuse_bucket_max is not None
+                         else coord_cfg.get("fuse_bucket_max", 32)),
+        # the hosted algorithms' device: cuda unless the config file's
+        # coordinator section names another (never stored with an
+        # experiment)
+        device=coord_cfg.get("device"),
+    )
+    serve_forever(server)
+    return 0
+
+
+def _tenant_weights(args, coord_cfg: Dict[str, Any]):
+    """--tenant-weights JSON > the config file's coordinator section."""
+    if getattr(args, "tenant_weights", None):
+        import json as _json
+
+        weights = _json.loads(args.tenant_weights)
+        if not isinstance(weights, dict):
+            raise SystemExit("--tenant-weights must be a JSON object "
+                             "mapping tenant -> weight")
+        return {str(k): float(v) for k, v in weights.items()}
+    return coord_cfg.get("tenant_weights")
+
+
+
 _COMMANDS = {
     "hunt": _cmd_hunt,
     "benchmark": _cmd_benchmark,
@@ -1398,7 +1655,9 @@ _COMMANDS = {
     "info": _cmd_info,
     "list": _cmd_list,
     "resume": _cmd_resume,
+    "serve": _cmd_serve,
     "status": _cmd_status,
+    "tenants": _cmd_tenants,
 }
 
 

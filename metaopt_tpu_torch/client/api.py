@@ -213,8 +213,10 @@ def build_experiment(
     ``space`` maps names to ``~prior`` expressions (``{"x": "uniform(-5,
     5)"}``); ``algorithm`` is the one-key config (``{"tpe": {...}}``,
     default random); ``ledger`` is a backend instance or a spec string —
-    ``"memory"``, ``"file:<dir>"`` or a bare directory (the CLI's
-    ``--ledger`` grammar). Re-calling
+    ``"memory"``, a directory path, ``"native:<dir>"``, ``"file:<dir>"``
+    or ``"coord://host:port"`` (the CLI's ``--ledger`` grammar; a
+    coordinator's ``workon(fn, producer_mode="coord")`` delegates
+    suggestion to its hosted algorithm). Re-calling
     with the same name on the same ledger ADOPTS the stored
     configuration, exactly like re-running ``hunt`` (resume semantics).
     """

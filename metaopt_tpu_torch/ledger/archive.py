@@ -1,7 +1,8 @@
 """Columnar archive for completed trials — flat RSS at millions of trials.
 
-Port of ``metaopt_tpu/ledger/archive.py`` (numpy only, no torch), without
-the snapshot-manifest exports that only the coordinator reads.
+Port of ``metaopt_tpu/ledger/archive.py`` (numpy only, no torch), with
+the snapshot-manifest exports that the coordinator's incremental snapshots
+read.
 
 ``completed`` is a terminal status (ledger/trial.py ``_TRANSITIONS``): once
 a trial lands there the only thing that ever touches it again is a read
@@ -33,9 +34,9 @@ mutated. This module stores them structure-of-arrays instead:
 * **revival** is a liveness flip, not a rewrite: ``discard`` removes the
   id from the position index and marks the row dead; a re-completion
   appends a fresh row. Segment columns are append-only and immutable,
-  which is what lets a snapshot manifest reference sealed segments by id
-  and write each segment file exactly once (the reference coordinator's
-  incremental snapshots; the port's coordinator is a later slice).
+  which is what lets the snapshot manifest reference sealed segments by
+  id and write each segment file exactly once (coord/server.py
+  incremental snapshots).
 
 Locking: every public method takes the internal segment lock; the owning
 :class:`MemoryLedger` additionally serializes callers under its own
@@ -453,6 +454,33 @@ class ExperimentArchive:
                     yield seg.decode(row)
         for d in head:
             yield _copy_json_tree(d)
+
+    # -- snapshot manifest support ----------------------------------------
+    def segment_refs(self) -> List[Dict[str, Any]]:
+        """Manifest entries for sealed segments: id, row count, and the
+        (monotonically growing) dead-row list. Segment content is
+        immutable, so a file written once per ``seg`` id stays valid; only
+        this ref list is reserialized per snapshot."""
+        with self._seg_lock:
+            return [{"seg": seg.seg_id, "rows": seg.count,
+                     "dead": sorted(seg.dead)} for seg in self._segments]
+
+    def export_segment_docs(self, seg_id: str) -> List[Dict[str, Any]]:
+        """ALL rows of one sealed segment (dead ones included — the
+        manifest's dead list is what excludes them at restore), decoded to
+        docs. Written to the segment file exactly once."""
+        with self._seg_lock:
+            seg = next((s for s in self._segments if s.seg_id == seg_id),
+                       None)
+        if seg is None:
+            raise KeyError(f"unknown segment {seg_id!r}")
+        return [seg.decode(row) for row in range(seg.count)]
+
+    def head_docs(self) -> List[Dict[str, Any]]:
+        """Fresh docs for the unsealed head rows (the mutable part a
+        snapshot must reserialize every time)."""
+        with self._seg_lock:
+            return [_copy_json_tree(d) for d in self._head if d is not None]
 
     def stats(self) -> Dict[str, Any]:
         with self._seg_lock:

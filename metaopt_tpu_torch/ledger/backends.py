@@ -14,8 +14,9 @@ is :mod:`metaopt_tpu_torch.ledger.native`). The contract kept:
 :class:`MemoryLedger` seals completed trials into the columnar archive
 (:mod:`metaopt_tpu_torch.ledger.archive`), as the reference's does.
 :class:`FileLedger` keeps the reference's on-disk layout exactly, so either
-package reads the other's file ledgers. The coordinator backend
-(``coord://``) is not ported yet: its spec raises.
+package reads the other's file ledgers. The coordinator RPC client
+(:mod:`metaopt_tpu_torch.coord.client_backend`) is registered under
+``"coord"``; ``coord://host:port`` names it.
 """
 
 from __future__ import annotations
@@ -54,6 +55,13 @@ class DuplicateTrialError(RuntimeError):
 
 class DuplicateExperimentError(RuntimeError):
     """Raised when two creators race on the same experiment name."""
+
+
+class AdmissionError(RuntimeError):
+    """Raised when a multi-tenant coordinator refuses ``create_experiment``
+    past its configured limits (``max_experiments`` /
+    ``max_experiments_per_tenant``) — the admission-control gate. Not a
+    retryable race: the caller must shed load or raise its quota."""
 
 
 class LedgerBackend(ABC):
@@ -124,6 +132,15 @@ class LedgerBackend(ABC):
         """
         return self.fetch(experiment, "completed"), None
 
+    def export_docs(self, experiment: str) -> List[Dict[str, Any]]:
+        """Raw trial documents — the snapshot/archive path.
+
+        Backends that store documents directly override this to skip the
+        Trial round-trip (MemoryLedger does one conversion instead of
+        three); the default is correct everywhere.
+        """
+        return [t.to_dict() for t in self.fetch(experiment)]
+
     def delete_experiment(self, name: str) -> bool:
         """Remove an experiment and its trials; False if unsupported.
 
@@ -150,6 +167,22 @@ class LedgerBackend(ABC):
                 ):
                     released.append(t)
         return released
+
+    def put_trial(self, trial: Trial) -> None:
+        """Upsert: register if absent, else overwrite unconditionally.
+
+        The redo-replay primitive behind the coordinator's WAL recovery
+        (:mod:`metaopt_tpu_torch.coord.wal`): nondeterministic mutations
+        (``reserve``, ``release_stale``) journal their RESULTING document
+        state, and replaying that state must be idempotent — applying the
+        same record twice, or over a snapshot that already reflects it,
+        lands on the identical document. Not part of the client-facing
+        contract (workers keep using the CAS-guarded ``update_trial``).
+        """
+        try:
+            self.register(trial)
+        except DuplicateTrialError:
+            self.update_trial(trial)
 
 
 class _CompletedLog:
@@ -477,6 +510,55 @@ class MemoryLedger(LedgerBackend):
                 if arch is not None:
                     total += len(arch)
             return total
+
+    def export_docs(self, experiment: str) -> List[Dict[str, Any]]:
+        """Raw trial documents, one conversion each — the snapshot path.
+
+        ``fetch`` deep-copies through from_dict(to_dict(...)) and the
+        snapshot then calls to_dict again: three conversions per trial
+        under the coordinator's global lock. This does one. Archived
+        trials decode from their columns — evict/hand-off capture stays
+        bit-identical to the all-resident path.
+        """
+        with self._lock:
+            out = [t.to_dict() for t in
+                   self._trials.get(experiment, {}).values()]
+            arch = self._archives.get(experiment)
+            if arch is not None:
+                out.extend(arch.iter_docs())
+            return out
+
+    def export_mutable_docs(self, experiment: str) -> List[Dict[str, Any]]:
+        """Docs NOT covered by sealed segments: resident trials plus the
+        archive's unsealed head — the part an incremental snapshot must
+        reserialize every time (everything else is referenced by segment
+        id; see :meth:`archive_segment_refs`)."""
+        with self._lock:
+            out = [t.to_dict() for t in
+                   self._trials.get(experiment, {}).values()]
+            arch = self._archives.get(experiment)
+            if arch is not None:
+                out.extend(arch.head_docs())
+            return out
+
+    def archive_segment_refs(self, experiment: str) -> List[Dict[str, Any]]:
+        """Sealed-segment manifest entries (id, rows, dead list) for the
+        incremental snapshot; empty when nothing sealed."""
+        with self._lock:
+            arch = self._archives.get(experiment)
+            return arch.segment_refs() if arch is not None else []
+
+    def export_archive_segment(
+        self, experiment: str, seg_id: str
+    ) -> List[Dict[str, Any]]:
+        """All rows of one sealed segment (including dead ones — the
+        manifest's dead list filters at restore). Immutable: written to
+        its snapshot file exactly once."""
+        with self._lock:
+            arch = self._archives.get(experiment)
+            if arch is None:
+                raise KeyError(f"no archive for experiment {experiment!r}")
+            return arch.export_segment_docs(seg_id)
 
     def seal_archive(self, experiment: str) -> None:
         """Force-seal the archive head (tests; pre-handoff determinism)."""
@@ -1146,13 +1228,15 @@ def ledger_from_spec(spec: str) -> LedgerBackend:
     :func:`local_ledger`) | ``"native:<dir>"`` | ``"file:<dir>"`` |
     ``"coord://host:port"`` — the same grammar the CLI's ``--ledger``
     accepts, shared here so the Python API (client.build_experiment)
-    and the CLI can never diverge. ``coord://`` raises: the coordinator
-    is not ported yet.
+    and the CLI can never diverge.
     """
     if spec == "memory":
         return make_ledger({"type": "memory"})
     if spec.startswith("coord://"):
-        return make_ledger({"type": "coord"})
+        host, _, port = spec[len("coord://"):].partition(":")
+        return make_ledger(
+            {"type": "coord", "host": host, "port": int(port or 0)}
+        )
     if spec.startswith("native:"):
         return make_ledger({"type": "native", "path": spec[len("native:"):]})
     if spec.startswith("file:"):
@@ -1225,11 +1309,8 @@ def make_ledger(config: Dict[str, Any]) -> LedgerBackend:
     """Build a backend from ``{"type": ..., **kwargs}`` (see ledger_registry)."""
     cfg = dict(config)
     kind = cfg.pop("type", "memory")
-    if kind == "coord":
-        raise NotImplementedError(
-            "the 'coord' ledger backend is not ported yet (ROADMAP.md); "
-            "use 'memory', 'native:<dir>' or 'file:<dir>'"
-        )
-    if kind == "native":  # lazy: only compiles/loads the engine on use
+    if kind == "coord":  # lazy import to avoid a cycle
+        from metaopt_tpu_torch.coord.client_backend import CoordLedgerClient  # noqa: F401
+    elif kind == "native":  # lazy: only compiles/loads the engine on use
         from metaopt_tpu_torch.ledger.native import NativeFileLedger  # noqa: F401
     return ledger_registry.get(kind)(**cfg)

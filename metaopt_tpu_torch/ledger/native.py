@@ -87,6 +87,22 @@ class NativeFileLedger(FileLedger):
                 self._handles[key] = ent
             return ent
 
+    def release_handle(self, experiment: str) -> None:
+        """Close this process's engine handle for ``experiment``, if open.
+
+        The eviction plane calls this when an idle experiment is moved
+        to its snapshot file: the flock fd (and the engine's in-memory
+        index) is the resident cost a native-backed ledger can actually
+        shed. The next touch simply re-opens via ``_handle``.
+        """
+        key = (os.getpid(), experiment)
+        with self._hlock:
+            ent = self._handles.pop(key, None)
+        if ent is not None:
+            h, lk = ent
+            with lk:
+                self._lib.ls_close(h)
+
     def create_experiment(self, config: Dict[str, Any]) -> None:
         """FileLedger's create + an engine-ghost heal.
 

@@ -8,14 +8,15 @@ then ``metadata.warm_start`` through the in-space filter) → fetch
 completed trials → ``algo.observe()`` → ``algo.set_pending(reserved)`` for
 parallel-strategy algorithms → ``algo.suggest(pool_size)`` → register (the
 ledger's duplicate detection absorbs suggestion races between workers).
-The coordinator-hosted ``RemoteProducer`` is not ported yet.
+:class:`RemoteProducer` is the coordinator-hosted facade: the cycle runs
+on the coordinator's single algorithm instance (``coord://`` ledgers).
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 from metaopt_tpu_torch.algo.base import BaseAlgorithm
 from metaopt_tpu_torch.ledger.experiment import Experiment
@@ -197,3 +198,103 @@ class Producer:
 
     def should_suspend(self, trial) -> bool:
         return self.algorithm.should_suspend(trial)
+
+
+class RemoteProducer:
+    """Producer facade that delegates the cycle to the coordinator.
+
+    The coordinator owns ONE algorithm instance per experiment, on its
+    device (see
+    ``CoordServer._hosted_producer``); workers just ask it to produce and
+    then reserve as usual. N workers therefore share one fitted surrogate —
+    no redundant per-worker re-fits, no divergent suggestion streams — while
+    the decentralized :class:`Producer` remains the fallback for ledger
+    backends with no coordinator (memory/file/native).
+
+    Concurrent produce RPCs from different workers may be COALESCED by the
+    server into one combined cycle (one fused suggest launch serves every
+    request in the window). The reply's ``registered`` is then the combined
+    cycle's total — correct for this facade's only consumer, the workon
+    loop, which reads it purely as a progress/idle signal; the
+    ``coalesced`` reply field is surfaced in ``timings["coalesced"]`` (how
+    many of this worker's cycles shared a launch with at least one other
+    request).
+    """
+
+    def __init__(self, experiment: Experiment, worker: Optional[str] = None):
+        ledger = experiment.ledger
+        if not hasattr(ledger, "produce"):
+            raise ValueError(
+                "coordinator-hosted suggestion needs the coord:// ledger "
+                f"backend (got {type(ledger).__name__})"
+            )
+        self.experiment = experiment
+        self.worker = worker
+        self.timings: Dict[str, float] = {
+            "produce_rpc_s": 0.0, "cycles": 0, "suggested": 0, "remote": 1,
+            "coalesced": 0,
+        }
+        self.algo_done = False
+
+    def produce(self, pool_size: Optional[int] = None) -> int:
+        t0 = time.perf_counter()
+        out = self.experiment.ledger.produce(
+            self.experiment.name,
+            pool_size or self.experiment.pool_size,
+            worker=self.worker,
+        )
+        self.timings["produce_rpc_s"] += time.perf_counter() - t0
+        self.timings["cycles"] += 1
+        self.timings["suggested"] += out["registered"]
+        if int(out.get("coalesced", 1)) > 1:
+            self.timings["coalesced"] += 1
+        self.algo_done = bool(out.get("algo_done"))
+        return out["registered"]
+
+    def cycle(
+        self,
+        pool_size: Optional[int] = None,
+        stale_timeout_s: Optional[float] = None,
+        produce: bool = True,
+        complete: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """One fused worker cycle (push→sweep→produce→reserve→counts) in a
+        single round-trip — see ``CoordLedgerClient.worker_cycle``. The
+        produce leg rides the server's shared coalescer, so the registered
+        suggestion stream is bit-identical to :meth:`produce` + reserve
+        served serially; against a pre-``worker_cycle`` coordinator the
+        client composes the same reply from the serial RPCs.
+
+        ``produce=False`` skips the produce leg (the workon loop sends it
+        when the registration budget is provably exhausted — a no-op cycle
+        not worth a fit-lock round-trip); ``complete`` carries the
+        previous trial's deferred terminal update."""
+        t0 = time.perf_counter()
+        out = self.experiment.ledger.worker_cycle(
+            self.experiment.name,
+            self.worker or "worker",
+            pool_size=pool_size or self.experiment.pool_size,
+            stale_timeout_s=stale_timeout_s,
+            produce=produce,
+            complete=complete,
+        )
+        self.timings["produce_rpc_s"] += time.perf_counter() - t0
+        self.timings["cycles"] += 1
+        self.timings["suggested"] += out["registered"]
+        if int(out.get("coalesced", 1)) > 1:
+            self.timings["coalesced"] += 1
+        if out.get("fused"):
+            self.timings["fused_cycles"] = (
+                self.timings.get("fused_cycles", 0) + 1
+            )
+        if produce:
+            self.algo_done = bool(out.get("algo_done"))
+        return out
+
+    def judge(self, trial, partial):
+        return self.experiment.ledger.judge(self.experiment.name, trial, partial)
+
+    def should_suspend(self, trial) -> bool:
+        return bool(self.experiment.ledger.should_suspend(
+            self.experiment.name, trial
+        ))

@@ -185,7 +185,8 @@ def test_on_conflict_fail_and_adopt(tmp_path, quad, capsys):
 ])
 def test_ported_evc_flags_run_and_coord_says_so(tmp_path, quad, flags, what, capsys):
     """The EVC flags are ported: a hunt that names them runs and records
-    them in the child's document; ``coord://`` still raises."""
+    them in the child's document; ``coord://`` names a coordinator, and
+    with none listening the CLI raises the reference's typed error."""
     led = str(tmp_path / "l")
     base = ["--max-trials", "2", "--config", algo_config(tmp_path, {"random": {"seed": 0}})]
     assert main(["hunt", "-n", "a", "--ledger", led] + base + [quad, "-x~uniform(-2, 2)"]) == 0
@@ -197,13 +198,17 @@ def test_ported_evc_flags_run_and_coord_says_so(tmp_path, quad, flags, what, cap
     doc = ledger_from_spec(led).load_experiment(child)
     assert doc["metadata"].get(what), doc["metadata"]
     assert ledger_from_spec(led).count(child, "completed") == 2
+    from metaopt_tpu_torch.coord.client_backend import CoordUnavailableError
+
     for spec in ("coord://127.0.0.1:1",):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(CoordUnavailableError, match="127.0.0.1:1 unreachable"):
             main(["status", "--ledger", spec])
 
 
 def test_the_coordinator_producer_is_refused_by_workon(tmp_path, quad):
-    with pytest.raises(NotImplementedError, match="'coord': coordinator producer not ported"):
+    """``--producer coord`` needs a ``coord://`` ledger, as in the
+    reference: on a local ledger ``workon`` refuses it."""
+    with pytest.raises(ValueError, match="needs the coord:// ledger backend"):
         main(["hunt", "-n", "pc", "--ledger", str(tmp_path / "l"), "--producer", "coord",
               quad, "-x~uniform(-2, 2)"])
 

@@ -168,7 +168,8 @@ def test_two_processes_racing_reserve_never_share_a_trial(tmp_path):
 
 def test_spec_grammar(tmp_path):
     """``memory``, ``file:<dir>``, ``native:<dir>`` and a bare dir (the
-    native engine, as in the reference); ``coord://`` still raises."""
+    native engine, as in the reference); ``coord://host:port`` is the
+    coordinator's client, which connects on its first call."""
     assert isinstance(ledger_from_spec("memory"), MemoryLedger)
     led = ledger_from_spec(f"file:{tmp_path / 'a'}")
     assert type(led) is FileLedger and led.root == str(tmp_path / "a")
@@ -176,8 +177,11 @@ def test_spec_grammar(tmp_path):
     assert isinstance(bare, NativeFileLedger) and bare.root == str(tmp_path / "b")
     nat = ledger_from_spec(f"native:{tmp_path / 'c'}")
     assert isinstance(nat, NativeFileLedger) and nat.root == str(tmp_path / "c")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ledger_from_spec("coord://127.0.0.1:5000")
+    from metaopt_tpu_torch.coord import CoordLedgerClient
+
+    coord = ledger_from_spec("coord://127.0.0.1:5000")
+    assert isinstance(coord, CoordLedgerClient)
+    assert (coord.host, coord.port) == ("127.0.0.1", 5000)
 
 
 def test_a_native_store_is_never_hidden(tmp_path):

@@ -11,7 +11,9 @@ through ``cli.main`` (its trial processes start outside the wall), the
 batched hunt of the MLP zoo and one ``benchmark`` study, and a hunt and an
 EVC branch on the native engine behind a bare path, whose library must be
 the port's own build under ``metaopt_tpu_torch/_build/`` (never the
-reference's ``libledgerstore.so``).
+reference's ``libledgerstore.so``), and a hosted TPE hunt through the
+coordinator that ``serve`` runs (``hunt --producer coord``, two workers,
+the fleet-fused plane on).
 """
 
 import ast
@@ -80,7 +82,16 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/ledger/native.py",
                  "metaopt_tpu_torch/ledger/evc.py",
                  "metaopt_tpu_torch/native/__init__.py",
-                 "metaopt_tpu_torch/worker/producer.py"):
+                 "metaopt_tpu_torch/worker/producer.py",
+                 "metaopt_tpu_torch/utils/fsjournal.py",
+                 "metaopt_tpu_torch/coord/__init__.py",
+                 "metaopt_tpu_torch/coord/protocol.py",
+                 "metaopt_tpu_torch/coord/wal.py",
+                 "metaopt_tpu_torch/coord/tenancy.py",
+                 "metaopt_tpu_torch/coord/shards.py",
+                 "metaopt_tpu_torch/coord/fuser.py",
+                 "metaopt_tpu_torch/coord/server.py",
+                 "metaopt_tpu_torch/coord/client_backend.py"):
         assert must in names
 
 
@@ -108,7 +119,12 @@ assert {"metaopt_tpu_torch.models.lm", "metaopt_tpu_torch.models.moe",
         "metaopt_tpu_torch.ops.xent", "metaopt_tpu_torch.executor.batched",
         "metaopt_tpu_torch.benchmark.tasks", "metaopt_tpu_torch.benchmark.benchmark",
         "metaopt_tpu_torch.benchmark.assessments", "metaopt_tpu_torch.ledger.archive",
-        "metaopt_tpu_torch.ledger.native", "metaopt_tpu_torch.native"} <= set(mods), mods
+        "metaopt_tpu_torch.ledger.native", "metaopt_tpu_torch.native",
+        "metaopt_tpu_torch.utils.fsjournal", "metaopt_tpu_torch.coord.protocol",
+        "metaopt_tpu_torch.coord.wal", "metaopt_tpu_torch.coord.tenancy",
+        "metaopt_tpu_torch.coord.shards", "metaopt_tpu_torch.coord.fuser",
+        "metaopt_tpu_torch.coord.server",
+        "metaopt_tpu_torch.coord.client_backend"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 
 from metaopt_tpu_torch import build_experiment
@@ -182,6 +198,19 @@ assert os.path.dirname(str(native.lib_path)) == build, native.lib_path
 with open("/proc/self/maps") as f:
     maps = f.read()
 assert "libledgerstore" in maps and "metaopt_tpu/native" not in maps
+# a hosted TPE hunt through the coordinator that `serve` runs, two workers
+from metaopt_tpu_torch.coord import CoordLedgerClient, CoordServer
+with CoordServer(device="cpu", snapshot_path=os.path.join(root, "snap.json"),
+                 fuse_suggest=True) as srv:
+    host, port = srv.address
+    rc = main(["hunt", "-n", "hosted", "--ledger", f"coord://{host}:{port}",
+               "--producer", "coord", "--n-workers", "2", "--max-trials", "8",
+               "--algo", "tpe", rosen, "-x~uniform(-5, 10)", "-y~uniform(-5, 10)"])
+    assert rc == 0, rc
+    cli = CoordLedgerClient(host, port)
+    assert cli.count("hosted", "completed") == 8
+    algo = srv._producers["hosted"][0].algorithm
+    assert type(algo).__name__ == "TPE" and str(algo.device) == "cpu"
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not leaked, leaked
 print("WALL-OK", len(mods))

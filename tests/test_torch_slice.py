@@ -148,8 +148,12 @@ def test_entry_points_never_drift_to_cpu(monkeypatch):
 
 
 def test_unported_ledger_specs_raise(tmp_path):
-    """``native:`` is ported (the ledgerstore engine); ``coord://`` raises."""
-    with pytest.raises(NotImplementedError, match="memory"):
+    """``native:`` is ported (the ledgerstore engine); ``coord://`` names a
+    coordinator, and with none listening the reference's typed error is
+    raised."""
+    from metaopt_tpu_torch.coord.client_backend import CoordUnavailableError
+
+    with pytest.raises(CoordUnavailableError, match="unreachable"):
         metaopt_tpu_torch.build_experiment("x", space=SPACES["smoke"],
                                            ledger="coord://127.0.0.1:1")
     exp = metaopt_tpu_torch.build_experiment("x", space=SPACES["smoke"],

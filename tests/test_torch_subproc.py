@@ -311,7 +311,9 @@ def test_requeue_budget_binds_per_trial(tmp_path):
 
 def test_workon_refuses_the_coordinator_producer(tmp_path):
     exp, _ = experiment(tmp_path, "pm", ["t.py", "-x~uniform(0, 1)"], {"random": {"seed": 0}}, 1)
-    with pytest.raises(NotImplementedError, match="coordinator producer not ported yet"):
+    # the coordinator producer is ported: on a local ledger it is refused
+    # as in the reference (it needs a coord:// ledger)
+    with pytest.raises(ValueError, match="needs the coord:// ledger backend"):
         workon(exp, Requeuer(), producer_mode="coord")
 
 
