@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through seventeen phases and exits non-zero if any fails:
+``metaopt_tpu``) through eighteen phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -62,8 +62,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
 8. hunt: the port's CLI, ``python -m metaopt_tpu_torch hunt`` in fresh
    processes with subprocess trials on a ``file:`` ledger in a temp dir:
    (a) BASELINE config 1, random search (seed 0) on
-   ``metaopt_tpu_torch/examples/rosenbrock.py`` with 4 workers and 50
-   trials (cut from 100 to pay for phase 17) — all completed, none broken, none run twice, a finite best, and
+   ``metaopt_tpu_torch/examples/rosenbrock.py`` with 4 workers and 32
+   trials (cut from 100 to 50 to pay for phase 17, to 32 for phase 18) — all completed, none broken, none run twice, a finite best, and
    ``status --json`` from another fresh process agreeing; (b) BASELINE
    config 2, TPE (``examples/tpe.yaml``'s settings, passed as JSON) on
    ``metaopt_tpu_torch/examples/mlp_mnist.py``, 3 trials, 2 of them
@@ -129,8 +129,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    step, every launch with dropout. (f) Hyperband (``hyperband.json``) on
    ``metaopt_tpu_torch/examples/transformer_wmt.py --tp 1`` at full width
    through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 3, base=3)`` (cut
-   from 1-9: 6 trials instead of 22) at 10 steps per epoch (cut from 50 to
-   fit phase 14) — all completed and finite on the
+   from 1-9: 6 trials instead of 22) at 5 steps per epoch (cut from 50 to
+   10 to fit phase 14, to 5 for phase 18) — all completed and finite on the
    card, the rung table equal to Hyperband replayed over the ledger and to
    ``status --rungs --json`` from a fresh process, every trial's checkpoint
    published and none half-written, no ``torch._dynamo`` in a trial
@@ -210,8 +210,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    (a) ``g++`` builds the port's ledgerstore engine into
    ``metaopt_tpu_torch/_build/`` (its seconds printed); a bare ``--ledger
    DIR`` resolves to ``NativeFileLedger`` on that library, and ``db test``
-   passes on it. (b) BASELINE config 1 (50 Rosenbrock trials, 4 workers)
-   through the CLI on the bare path: 50 completed, none run twice,
+   passes on it. (b) BASELINE config 1 (32 Rosenbrock trials, 4 workers)
+   through the CLI on the bare path: 32 completed, none run twice,
    ``status`` agreeing, its trials/s beside ``[hunt]``'s on ``file:``; then
    4 processes racing one experiment through register -> reserve ->
    heartbeat -> complete cycles, on ``native:`` (250 cycles each) and on
@@ -236,12 +236,12 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    and the wire negotiated (JSON where ``msgpack`` is absent). (b) BASELINE
    config 1's Rosenbrock objective with ``tpe.json``'s TPE (10 initial
    points) hosted on the coordinator's card: ``hunt --ledger coord://...
-   --producer coord``, 4 workers, 48 trials — each completed once, each
+   --producer coord``, 4 workers, 32 trials (cut from 48 for phase 18) — each completed once, each
    objective recomputed from its params, the suggestions from the hosted
    algorithm (the workers' ``RemoteProducer`` timings, the server's
    ``produce`` events, its EI suggest calls); trials/s, produce-RPC ms per
    cycle, RPCs per trial (the server's op count) against the reference's
-   1.06, coalesced cycles. (c) Once 20 trials have completed, ``kill -9``
+   1.06, coalesced cycles. (c) Once 14 trials have completed, ``kill -9``
    of ``serve`` and a restart on the same snapshot, port and socket; the
    workers resume through session resumption, and every completion
    acknowledged before the kill is there after, once, with its objective;
@@ -252,16 +252,45 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    the bucket launches against the same members' solo launches (CUDA
    kernels, host ms, device ms per bucket and per member), each fused row
    against the member's solo row (winners equal except at f32 ties of
-   1e-5), then one live fuser tick. (e) 4 client threads x 250
+   1e-5), then one live fuser tick. (e) 4 client threads x 125
    ``worker_cycle`` round trips over TCP and over the socket, WAL
    fsync'd: p50 and p99 microseconds.
+18. shards: sharded serving. (a) ``python -m metaopt_tpu_torch -v serve
+   --shards 2 --snapshot DIR --event-log DIR --fuse-suggest`` with
+   ``coordinator.device: cuda``: the seconds from spawn to the ready line
+   of the supervisor and of each shard, each shard's pid and device from
+   its own ping; after (b) the card's contexts (``nvidia-smi
+   --query-compute-apps``): one for each shard and this script, none for
+   the supervisor. (b) Two hosted TPE hunts (config 1's Rosenbrock,
+   ``tpe.json``), 24 trials and 2 workers each, ``hunt --producer coord``
+   under a shim that counts the client's RPCs by address: A on s0 with the
+   port's client (every ``worker_cycle`` straight to its shard), B on s1
+   as an old client that never reads the ``shard_map`` cap (every RPC
+   through the router); trials/s, RPCs a trial, RPCs by route and op, the
+   slowest RPCs, each shard's ``produce`` events. (c) Once 10 of A's
+   trials have completed, ``python -m metaopt_tpu_torch rebalance`` moves
+   A to s1 while its workers go on: every completion acknowledged before
+   the move on s1 once, s0 answering ``WrongShardError`` for A, A's hunt
+   finishing its 24, s1's TPE holding every shipped completion at its
+   first suggest; the hand-off's prepare / apply / commit ms. (d)
+   In-process, ``ShardSupervisor(2, failover=True)`` with its shards on
+   the card (booted beside (a)): ``kill -9`` of s0 under 4 worker threads
+   once 24 of its experiment's completions are acknowledged; no
+   acknowledged completion lost, the survivor answering its own
+   experiment's calls during the redistribution, ``failover_times``. (e)
+   While (a) and (d) boot, ``simulate --workers 1000 --algos asha
+   hyperband tpe --seed 0 --json`` twice (the default faults: two
+   coordinator crashes), TPE hosted on the card: certified both times,
+   wall seconds, events, recovery seconds per 10k WAL records, the two
+   digests side by side (the first diverging event if they differ); then
+   a TPE-only simulation that reaches EI on the card.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
 line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
 line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line, a
-``{"coord": {...}}`` line and, last,
+``{"coord": {...}}`` line, a ``{"shards": {...}}`` line and, last,
 the ``{"ok": true, "device": {...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
@@ -304,8 +333,9 @@ TPE_TRIALS, TPE_INITIAL = 16, 10
 # tpe.yaml's 10 initial points
 HUNT_TPE_TRIALS, HUNT_TPE_INITIAL = 3, 2
 # BASELINE config 1 through the CLI ([hunt] on file:, [ledger] on the native
-# engine): cut from 100 trials to 50 in PR 13 to pay for phase 17
-ROSEN_TRIALS, ROSEN_WORKERS = 50, 4
+# engine): cut from 100 trials to 50 to pay for phase 17, and to 32 to pay
+# for phase 18
+ROSEN_TRIALS, ROSEN_WORKERS = 32, 4
 ROSEN_SPACE = {"x": "uniform(-5, 10)", "y": "uniform(-5, 10)"}
 # a CLI process's deadline: its own start (import torch, ~10 s on the card's
 # host; TPE's CUDA context) plus an allowance per trial and worker, ~3x the
@@ -384,8 +414,9 @@ WMT_PRIORS = {  # BASELINE config 4: examples/transformer_wmt.py's docstring
 # fidelity(1, 3, base=3): bracket 0 runs 3 trials at 1 epoch and promotes 1
 # to 3, bracket 1 runs 2 at 3 epochs; (bracket, budget, capacity) below
 WMT_CLI_FIDELITY, WMT_CLI_TABLE = "fidelity(1, 3, base=3)", [(0, 1, 3), (0, 3, 1), (1, 3, 2)]
-# ... and from 50 steps per epoch to 10, to fit the [lm] phase
-WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 10
+# ... and from 50 steps per epoch to 10, to fit the [lm] phase, then to 5 to
+# pay for phase 18
+WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 5
 # a config-4 trial's wall-clock timeout, and its share of the CLI's deadline
 WMT_TIMEOUT_S, WMT_TRIAL_S = 300, 60
 # BOHB in-process: the example's fidelity, one repetition of 22 trials (cut
@@ -3740,7 +3771,9 @@ def ledger_phase(torch, smi: str, hunt_stats):
     return out
 
 
-COORD_TRIALS, COORD_WORKERS, COORD_KILL_AT = 48, 4, 20   # (b), (c)
+# (b), (c): cut from 48 trials killed at 20 to pay for phase 18 (the
+# kill still after TPE's 10 initial points, 18 trials by EI after it)
+COORD_TRIALS, COORD_WORKERS, COORD_KILL_AT = 32, 4, 14
 COORD_SERVE_S = 90          # spawn -> ready deadline of one `serve`
 COORD_HUNT_S = 240          # the (b) hunt's deadline, the restart included
 # (d): 64 hosted TPE experiments on config 2's space, each with 192-252
@@ -3751,19 +3784,24 @@ COORD_FLEET, COORD_FLEET_N = 64, (192, 252)
 COORD_GP_FLEET, COORD_GP_N = 8, (64, 71)
 COORD_TIE = 1e-5            # ROADMAP B4's rule: winners equal except at f32 ties
 COORD_SOLO_TIMED = 8        # members whose solo launches are timed and profiled
-COORD_RPC_THREADS, COORD_RPC_CYCLES = 4, 250   # (e), per transport
+# (e), per transport: cut from 250 cycles a thread to 125 to pay for phase
+# 18
+COORD_RPC_THREADS, COORD_RPC_CYCLES = 4, 125
 
 
-def start_serve(args, root: Path, env, tag: str):
+def start_serve(args, root: Path, env, tag: str, group: bool = False):
     """``python -m metaopt_tpu_torch -v serve ARGS`` in a fresh process; a
     thread drains its output for the rest of its life and stamps the
-    moment its ready line appears. Returns a handle for ``await_serve``."""
+    moment its ready line appears. Returns a handle for ``await_serve``.
+    ``group``: the process leads a process group of its own (with its
+    shard processes), for ``stop_group``."""
     import threading
 
     h = {"lines": [], "ready": threading.Event(), "t0": time.perf_counter(), "tag": tag}
     h["proc"] = subprocess.Popen(
         [sys.executable, "-m", "metaopt_tpu_torch", "-v", "serve", *args],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=root,
+        start_new_session=group)
 
     def drain():
         for line in h["proc"].stdout:
@@ -3784,7 +3822,8 @@ def await_serve(h):
         raise AssertionError(f"[coord] serve ({h['tag']}) not ready in {COORD_SERVE_S} s:\n"
                              + "".join(h["lines"])[-3000:])
     line = next(l for l in h["lines"] if "coordinator ready" in l)
-    return h["proc"], h["ready_at"] - h["t0"], int(line.strip().rsplit(":", 1)[1]), h["lines"]
+    port = int(re.search(r"coordinator ready at coord://[^:\s]+:(\d+)", line).group(1))
+    return h["proc"], h["ready_at"] - h["t0"], port, h["lines"]
 
 
 def stop_serve(proc) -> None:
@@ -3795,6 +3834,17 @@ def stop_serve(proc) -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+
+
+def stop_group(proc) -> None:
+    """Stop a ``start_serve(..., group=True)`` process as ``stop_serve``
+    does, then kill whatever of its group is left (a supervisor killed
+    before it stopped its shards leaves them running)."""
+    stop_serve(proc)
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
 
 
 def tpe_scores(P, s, rows):
@@ -4209,6 +4259,611 @@ def fleet_phase(torch, smi, CoordServer, Trial, P, G, build_space, np):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: sharded serving — serve --shards, rebalance, failover, simulate
+
+SHARDS_TRIALS, SHARDS_WORKERS, SHARDS_MOVE_AT = 24, 2, 10   # (b), (c): per hunt
+SHARDS_HUNT_S = 240        # each (b) hunt's deadline, the move included
+# (d): the dead shard's experiment's budget, and its completions at the kill
+# (past TPE's 10 initial points on both shards, so no first EI launch
+# coincides with the failover)
+FO_TRIALS, FO_KILL_AT = 48, 24
+FO_THREADS = 4             # (d): 2 on the dead shard's experiment, 2 on the survivor's
+FO_WAIT_S = 60             # (d): kill -9 -> failover done deadline
+SIM_ARGS = ["simulate", "--workers", "1000", "--algos", "asha", "hyperband", "tpe",
+            "--seed", "0", "--json"]   # (e), with the default fault schedule
+# at 1000 workers every experiment registers its 64 trials before TPE has
+# its 20 initial points, so TPE never launches EI there (nor in the
+# reference); two workers with pools of one carry a TPE past them, 12 of
+# its 32 suggestions by EI on the card, through one coordinator crash
+SIM_TPE_ARGS = ["simulate", "--workers", "2", "--tenants", "1", "--experiments-per-tenant",
+                "1", "--algos", "tpe", "--trials", "32", "--pool-size", "1", "--seed", "0",
+                "--faults", "sim_crash_server:1@30", "--json"]
+
+# (c)'s ``python -m metaopt_tpu_torch rebalance`` starts before the move
+# point and waits for the trigger file argv[1] (its process start, seconds
+# on the card's host, would otherwise land the move after A's last
+# suggestion); the rest of argv is the CLI's
+REBALANCE_SHIM = r"""
+import os, runpy, sys, time
+import metaopt_tpu_torch.cli.main  # noqa: F401  (the CLI loaded before the trigger)
+
+trigger = sys.argv[1]
+while not os.path.exists(trigger):
+    time.sleep(0.005)
+sys.argv = ["metaopt_tpu_torch"] + sys.argv[2:]
+runpy.run_module("metaopt_tpu_torch", run_name="__main__")
+"""
+
+# the (b) hunts run the CLI in a process under this shim: it counts the
+# client's RPCs by the address each went to, written as JSON to argv[1], and
+# with argv[2] == "old" it plays a client from before the shard map, which
+# never reads the ``shard_map`` cap (every RPC goes to the address it was
+# given: the router)
+SHARDS_CLI_SHIM = r"""
+import atexit, collections, json, runpy, sys, time
+from metaopt_tpu_torch.coord import client_backend as cb
+
+out_path, mode = sys.argv[1], sys.argv[2]
+rpcs, slowest = collections.Counter(), []
+real_exchange, real_absorb = cb.CoordLedgerClient._exchange, cb.CoordLedgerClient._absorb_ping
+
+
+def exchange(self, msg, addr):
+    key = "%s:%d %s" % (addr[0], addr[1], msg.get("op"))
+    rpcs[key] += 1
+    t0 = time.time()
+    try:
+        return real_exchange(self, msg, addr)
+    finally:
+        slowest.append(((time.time() - t0) * 1e3, t0, key))
+        slowest.sort(reverse=True)
+        del slowest[3:]
+
+
+def absorb_old(self, addr, r):
+    r = dict(r)
+    r["caps"] = [c for c in r.get("caps") or () if c != "shard_map"]
+    r.pop("shard_map", None)
+    return real_absorb(self, addr, r)
+
+
+def dump():
+    with open(out_path, "w") as f:
+        json.dump({"rpcs": dict(rpcs), "slowest": slowest}, f)
+
+
+cb.CoordLedgerClient._exchange = exchange
+if mode == "old":
+    cb.CoordLedgerClient._absorb_ping = absorb_old
+atexit.register(dump)
+sys.argv = ["metaopt_tpu_torch"] + sys.argv[3:]
+runpy.run_module("metaopt_tpu_torch", run_name="__main__")
+"""
+
+
+def compute_apps():
+    """(pid, MiB) of every process holding a context on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout
+    apps = []
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps.append((int(parts[0]), float(parts[1]) if parts[1].replace(".", "").isdigit()
+                         else None))
+    return apps
+
+
+def raw_call(addr, msg):
+    import socket
+
+    from metaopt_tpu_torch.coord.protocol import recv_msg, send_msg
+
+    with socket.create_connection(addr, timeout=30) as s:
+        send_msg(s, msg)
+        return recv_msg(s)
+
+
+def completions_logged(path: Path, name: str) -> int:
+    """Completions of ``name`` in a shard's event log (read from disk: a
+    polling RPC would count among the hunts' RPCs)."""
+    if not path.exists():
+        return 0
+    n = 0
+    for line in path.read_text().splitlines():
+        if '"update_trial"' in line and '"completed"' in line and f'"{name}"' in line:
+            n += 1
+    return n
+
+
+def simulate_twice(torch, smi: str, cfg: Path, root: Path):
+    """(e): ``simulate`` through the CLI in this process, twice with one seed,
+    its coordinator hosting TPE on the card, then once with a TPE that
+    reaches EI; each run's report, wall seconds and hosted algorithms (read
+    at the end of the run)."""
+    import contextlib
+    import io
+    import logging
+
+    from metaopt_tpu_torch.cli.main import main as cli_main
+    from metaopt_tpu_torch.sim import engine
+
+    hosted = []
+    real_finalize = engine.Simulation._finalize
+
+    def finalize(self):
+        for name, entry in sorted(self.server._producers.items()):
+            algo = entry[0].algorithm
+            tele = algo.telemetry() if hasattr(algo, "telemetry") else {}
+            hosted.append({"experiment": name, "algo": type(algo).__name__,
+                           "device": str(getattr(algo, "device", None)),
+                           "observed": algo.n_observed,
+                           "ei_launches": tele.get("kernel_launches")})
+        return real_finalize(self)
+
+    faults_log = logging.getLogger("metaopt_tpu_torch.executor.faults")
+    level = faults_log.level
+    faults_log.setLevel(logging.ERROR)   # a warning a fired fault: thousands
+    engine.Simulation._finalize = finalize
+    runs = []
+    try:
+        for i, args in enumerate((SIM_ARGS, SIM_ARGS, SIM_TPE_ARGS)):
+            hosted.clear()
+            buf, ev = io.StringIO(), root / f"sim-{i}.jsonl"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(args + ["--event-log", str(ev), "--config", str(cfg)])
+            wall = time.perf_counter() - t0
+            rep = json.loads(buf.getvalue())
+            problems = []
+            if rc != 0 or not rep["ok"]:
+                problems.append(f"rc {rc}, ok {rep['ok']}")
+            for key in ("promotion_violations", "acked_write_losses",
+                        "exactly_once_violations"):
+                if rep[key]:
+                    problems.append(f"{key}: {rep[key][:5]}")
+            crashes = 1 if args is SIM_TPE_ARGS else 2
+            if rep["crashes"] != crashes or len(rep["recoveries"]) != crashes:
+                problems.append(f"{rep['crashes']} coordinator crashes of {crashes}")
+            tpes = [h for h in hosted if h["algo"] == "TPE"]
+            if not tpes or any(not h["device"].startswith("cuda") for h in tpes):
+                problems.append(f"TPE not hosted on the card: {hosted}")
+            if args is SIM_TPE_ARGS and not all((h["ei_launches"] or 0) > 0 for h in tpes):
+                problems.append(f"no EI launch on the card: {tpes}")
+            if problems:
+                raise AssertionError(f"[shards] (e) simulate run {i}: {problems}")
+            runs.append({"wall_s": wall, "report_wall_s": rep["wall_s"],
+                         "events": rep["event_lines"], "digest": rep["event_log_sha256"],
+                         "dispatches": rep["dispatches"],
+                         "acked_completions": rep["acked_completions"],
+                         "virtual_s": rep["virtual_s"], "crashes": rep["crashes"],
+                         "recoveries": rep["recoveries"],
+                         "recovery_s_per_10k_wal": rep["recovery_s_per_10k_wal"],
+                         "hosted": list(hosted)})
+    finally:
+        engine.Simulation._finalize = real_finalize
+        faults_log.setLevel(level)
+    first_diff = None
+    if runs[0]["digest"] != runs[1]["digest"]:
+        a = (root / "sim-0.jsonl").read_text().splitlines()
+        b = (root / "sim-1.jsonl").read_text().splitlines()
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        first_diff = {"line": k, "run0": a[k] if k < len(a) else None,
+                      "run1": b[k] if k < len(b) else None}
+    tpe_run = runs.pop()
+    log(f"[shards] (e) simulate, 2 workers, TPE alone, pools of 1, one crash: certified in "
+        f"{tpe_run['wall_s']:.2f} s wall; TPE on {tpe_run['hosted'][0]['device']} with "
+        f"{tpe_run['hosted'][0]['ei_launches']} EI launches over "
+        f"{tpe_run['hosted'][0]['observed']} observations; card {smi}")
+    for i, r in enumerate(runs):
+        tpe_launches = sum(h["ei_launches"] or 0 for h in r["hosted"] if h["algo"] == "TPE")
+        log(f"[shards] (e) simulate run {i}: 1000 workers, asha + hyperband + tpe, default "
+            f"faults ({tpe_launches} EI launches on the card): certified in "
+            f"{r['wall_s']:.2f} s wall ({r['events']} events, "
+            f"{r['dispatches']} dispatches, {r['acked_completions']} acked completions, "
+            f"{r['crashes']} crashes, recovery {r['recovery_s_per_10k_wal']} s per 10k WAL "
+            f"records); digest {r['digest']}; card {smi}")
+    log(f"[shards] (e) same seed, two digests: {runs[0]['digest']} / {runs[1]['digest']} "
+        f"({'equal' if first_diff is None else 'DIFFER at ' + json.dumps(first_diff)})")
+    return {"runs": runs, "digests_equal": first_diff is None, "first_diff": first_diff,
+            "tpe_run": tpe_run}
+
+
+def shards_phase(torch, smi: str):
+    """[shards]: ``serve --shards 2`` on the card, two hosted hunts (a new
+    client direct, an old one through the router), a live ``rebalance``,
+    failover after ``kill -9`` of a shard, and ``simulate`` twice."""
+    import threading
+
+    from metaopt_tpu_torch.coord import CoordLedgerClient, ShardSupervisor
+    from metaopt_tpu_torch.coord.shards import RoutingTable, ring_of
+    from metaopt_tpu_torch.ledger import Experiment
+    from metaopt_tpu_torch.models.objectives import rosenbrock
+    from metaopt_tpu_torch.space import build_space
+
+    repo = Path(__file__).resolve().parent
+    examples = repo / "metaopt_tpu_torch" / "examples"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_shards_"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    cfg = root / "coord.json"   # the shards' device: the card, said out loud
+    cfg.write_text(json.dumps({"coordinator": {"device": "cuda"}}))
+    tpe_cfg = root / "tpe.json"   # examples/tpe.json: seed 0, 10 initial points
+    tpe_cfg.write_text((examples / "tpe.json").read_text())
+    tpe_algo = json.loads(tpe_cfg.read_text())["algorithm"]
+    (root / "shim.py").write_text(SHARDS_CLI_SHIM)
+    (root / "rebalance.py").write_text(REBALANCE_SHIM)
+    snap, events = root / "snap", root / "events"
+    snap.mkdir()
+    events.mkdir()
+    out, part_s, procs = {"card": smi}, {}, []
+    sup_d, d_boot = None, {}
+    try:
+        # -- (a) the deployment; (d)'s boots beside it; (e) runs meanwhile ---
+        t_phase = time.perf_counter()
+        h = start_serve(["--shards", "2", "--port", "0", "--ledger", "memory", "--snapshot",
+                         str(snap), "--event-log", str(events), "--fuse-suggest",
+                         "--snapshot-interval-s", "3600", "--config", str(cfg)], root, env,
+                        "shards", group=True)
+        procs.append(h["proc"])
+        sup_d = ShardSupervisor(2, snapshot_dir=str(root / "failover"), failover=True,
+                                fuse_suggest=True, device="cuda")
+
+        def boot_d():
+            t0 = time.perf_counter()
+            try:
+                sup_d.start()
+                d_boot["s"] = time.perf_counter() - t0
+            except BaseException as err:  # raised below
+                d_boot["err"] = err
+
+        booting = threading.Thread(target=boot_d, name="shards-failover-boot")
+        booting.start()
+        out["simulate"] = simulate_twice(torch, smi, cfg, root)
+        part_s["simulate_while_shards_boot"] = time.perf_counter() - t_phase
+        sup_proc, spawn_s, port, lines = await_serve(h)
+        router = ("127.0.0.1", port)
+        shard_ready = {int(m.group(1)): float(m.group(2)) for m in (
+            re.search(r"shard process (\d+) ready in ([\d.]+) s", l) for l in lines) if m}
+        cli = CoordLedgerClient(*router, io_timeout_s=60.0)
+        ping = cli.ping()
+        smap = ping["shard_map"]
+        addrs = {s["id"]: (s["host"], s["port"]) for s in smap["shards"]}
+        pings = {sid: CoordLedgerClient(*a, io_timeout_s=60.0).ping() for sid, a in addrs.items()}
+        shards = {sid: {"pid": p["pid"], "device": p["device"],
+                        "spawn_to_ready_s": shard_ready.get(p["pid"])}
+                  for sid, p in pings.items()}
+        problems = []
+        if ("shard_map" not in ping["caps"] or "shard_id" in ping
+                or sorted(addrs) != ["s0", "s1"]):
+            problems.append(f"the router's ping: {ping}")
+        if any(v["device"] != "cuda" for v in shards.values()):
+            problems.append(f"a shard not on the card: {shards}")
+        if len({v["pid"] for v in shards.values()} | {sup_proc.pid}) != 3:
+            problems.append(f"shard pids {shards} and supervisor {sup_proc.pid}")
+        if any(v["spawn_to_ready_s"] is None for v in shards.values()):
+            problems.append(f"no ready time for a shard: {shard_ready}")
+        if problems:
+            raise AssertionError(f"[shards] (a): {problems}")
+        out["serve"] = {"spawn_to_ready_s": spawn_s, "supervisor_pid": sup_proc.pid,
+                        "shards": shards, "wire": cli._wire_for(cli._seed)}
+        log(f"[shards] (a) serve --shards 2 ready in {spawn_s:.2f} s (supervisor pid "
+            f"{sup_proc.pid}); " + ", ".join(
+                f"{sid} pid {v['pid']} on {v['device']} ready in {v['spawn_to_ready_s']:.2f} s"
+                for sid, v in sorted(shards.items())) + f"; card {smi}")
+
+        # -- (b) two hosted TPE hunts, one per shard -----------------------
+        t_part = time.perf_counter()
+        ring = ring_of(smap)
+        names = {}
+        for i in range(1000):
+            names.setdefault(ring.owner(f"shards-{i}"), f"shards-{i}")
+        name_a, name_b = names["s0"], names["s1"]
+        hunts = {}
+        for tag, nm, mode in (("new", name_a, "new"), ("old", name_b, "old")):
+            so, se = open(root / f"{tag}.out", "w+"), open(root / f"{tag}.err", "w+")
+            hunts[tag] = {"name": nm, "out": so, "err": se, "rpcs": root / f"rpcs-{tag}.json",
+                          "t0": time.perf_counter()}
+            hunts[tag]["proc"] = subprocess.Popen(
+                [sys.executable, str(root / "shim.py"), str(hunts[tag]["rpcs"]), mode,
+                 "hunt", "-n", nm, "--ledger", f"coord://127.0.0.1:{port}", "--producer",
+                 "coord", "--n-workers", str(SHARDS_WORKERS), "--max-trials",
+                 str(SHARDS_TRIALS), "--config", str(tpe_cfg), str(examples / "rosenbrock.py")]
+                + [f"-{k}~{v}" for k, v in ROSEN_SPACE.items()],
+                stdout=so, stderr=se, env=env, cwd=root)
+            procs.append(hunts[tag]["proc"])
+
+        # -- (c) once 10 of A's trials completed: rebalance A to s1, live --
+        trigger = root / "move-now"
+        reb = subprocess.Popen(
+            [sys.executable, str(root / "rebalance.py"), str(trigger), "-v", "rebalance",
+             "--coord", f"127.0.0.1:{port}", "--experiment", name_a, "--dest", "s1",
+             "--window-s", "30"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+        procs.append(reb)
+        deadline = time.monotonic() + SHARDS_HUNT_S
+        ev0, ev1 = events / "shard-0.events.jsonl", events / "shard-1.events.jsonl"
+        while completions_logged(ev0, name_a) < SHARDS_MOVE_AT:
+            if time.monotonic() > deadline or hunts["new"]["proc"].poll() is not None:
+                hunts["new"]["err"].seek(0)
+                raise AssertionError(f"[shards] (b) A: {completions_logged(ev0, name_a)} "
+                                     f"completed before the move point; rc "
+                                     f"{hunts['new']['proc'].poll()}:\n"
+                                     f"{hunts['new']['err'].read()[-3000:]}")
+            time.sleep(0.05)
+        a0 = CoordLedgerClient(*addrs["s0"], io_timeout_s=60.0)
+        acked = a0.fetch(name_a, "completed")
+        # a durable op's reply waits for the WAL's fsync of every record
+        # appended before it: all that the fetch read is acknowledged now
+        a0.set_signal(name_a, "durability-barrier", "none")
+        before = {t.id: t.objective for t in acked}
+        t0 = time.perf_counter()
+        trigger.touch()
+        try:
+            reb_out, reb_err = reb.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            reb.kill()
+            reb_out, reb_err = reb.communicate()
+        reb_wall = time.perf_counter() - t0
+        if reb.returncode != 0:
+            raise AssertionError(f"[shards] (c) rebalance rc {reb.returncode}:\n"
+                                 f"{reb_err[-3000:]}")
+        said = re.search(r"s0 -> s1 \((\d+) trials, (\d+) cached replies, map v(\d+)\)",
+                         reb_out)
+        split = re.search(r"prepare ([\d.]+) ms, apply ([\d.]+) ms, commit ([\d.]+) ms, "
+                          r"(\d+) trials shipped", reb_err)
+        if not said or not split:
+            raise AssertionError(f"[shards] (c) rebalance said:\n{reb_out}\n"
+                                 f"{reb_err[-3000:]}")
+        handoff = {"completed_at_move": len(before), "shipped_trials": int(said.group(1)),
+                   "cached_replies": int(said.group(2)), "map_version": int(said.group(3)),
+                   "prepare_ms": float(split.group(1)), "apply_ms": float(split.group(2)),
+                   "commit_ms": float(split.group(3)), "trigger_to_exit_s": reb_wall}
+        handoff["handoff_ms"] = (handoff["prepare_ms"] + handoff["apply_ms"]
+                                 + handoff["commit_ms"])
+        log(f"[shards] (c) rebalance of A ({name_a}) s0 -> s1 with {len(before)} completed: "
+            f"hand-off {handoff['handoff_ms']:.2f} ms (prepare {handoff['prepare_ms']:.2f}, "
+            f"apply {handoff['apply_ms']:.2f}, commit {handoff['commit_ms']:.2f}), "
+            f"{handoff['shipped_trials']} trials and {handoff['cached_replies']} cached replies "
+            f"shipped, map v{handoff['map_version']}; trigger -> rebalance exit {reb_wall:.2f} s; "
+            f"card {smi}")
+
+        hunt_stats = {}
+        for tag, hd in hunts.items():
+            try:
+                rc = hd["proc"].wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            wall = time.perf_counter() - hd["t0"]
+            hd["out"].seek(0)
+            hd["err"].seek(0)
+            if rc != 0:
+                raise AssertionError(f"[shards] (b) hunt {tag} rc {rc}:\n"
+                                     f"{hd['err'].read()[-3000:]}")
+            summary = json.loads(hd["out"].read())
+            shim = json.loads(hd["rpcs"].read_text())
+            rpcs = shim["rpcs"]
+            hunt_stats[tag] = {"experiment": hd["name"], "wall_s": wall,
+                               "trials_per_s": SHARDS_TRIALS / wall,
+                               "rpcs": sum(rpcs.values()),
+                               "rpcs_per_trial": sum(rpcs.values()) / SHARDS_TRIALS,
+                               "producer_timings": summary["producer_timings"],
+                               # (ms, wall time at its start, "addr op")
+                               "slowest_rpcs": shim["slowest"],
+                               "rpcs_by_route": {}}
+            label = {f"127.0.0.1:{port}": "router",
+                     **{f"{a[0]}:{a[1]}": sid for sid, a in addrs.items()}}
+            by_op = {}
+            for key, n in rpcs.items():
+                addr, op = key.split(" ", 1)
+                route = label.get(addr, addr)
+                hunt_stats[tag]["rpcs_by_route"][route] = (
+                    hunt_stats[tag]["rpcs_by_route"].get(route, 0) + n)
+                by_op.setdefault(route, {})[op] = n
+            hunt_stats[tag]["rpcs_by_route_and_op"] = by_op
+        s1 = CoordLedgerClient(*addrs["s1"], io_timeout_s=60.0)
+        done_a, done_b = s1.fetch(name_a, "completed"), s1.fetch(name_b, "completed")
+        ids_a = [t.id for t in done_a]
+        miss = raw_call(addrs["s0"], {"op": "count", "args": {"experiment": name_a}})
+        produce_a = [json.loads(l) for l in ev1.read_text().splitlines()
+                     if '"produce"' in l and f'"{name_a}"' in l]
+        routes_new = hunt_stats["new"]["rpcs_by_route"]
+        routes_old = hunt_stats["old"]["rpcs_by_route"]
+        if len(done_a) != SHARDS_TRIALS or len(set(ids_a)) != len(ids_a):
+            problems.append(f"A: {len(done_a)} completed on s1 ({len(set(ids_a))} ids)")
+        lost = [i for i, obj in before.items()
+                if ids_a.count(i) != 1 or next(t for t in done_a if t.id == i).objective != obj]
+        if lost:
+            problems.append(f"completions acked before the move lost or changed: {lost}")
+        if len(done_b) != SHARDS_TRIALS:
+            problems.append(f"B: {len(done_b)} completed of {SHARDS_TRIALS}")
+        bad = [t.id for t in done_a + done_b if t.objective != rosenbrock(t.params)]
+        if bad:
+            problems.append(f"objectives that are not their params' rosenbrock: {bad}")
+        if (miss or {}).get("error") != "WrongShardError":
+            problems.append(f"s0 answered {miss} for A after the move")
+        if handoff["shipped_trials"] < len(before):
+            problems.append(f"shipped {handoff['shipped_trials']} < {len(before)} completed")
+        if not produce_a or (produce_a[0].get("observed") or 0) < len(before):
+            problems.append(f"s1's first produce for A: {produce_a[:1]} (want >= "
+                            f"{len(before)} observations)")
+        if set(routes_old) != {"router"}:
+            problems.append(f"the old client left the router: {routes_old}")
+        # the hot path direct: every worker_cycle to a shard (the hunt's
+        # setup ops go through the router until its workers' first ping)
+        ops_new = hunt_stats["new"]["rpcs_by_route_and_op"]
+        if (ops_new.get("router", {}).get("worker_cycle", 0)
+                or sum(ops_new.get(sid, {}).get("worker_cycle", 0)
+                       for sid in ("s0", "s1")) < SHARDS_TRIALS):
+            problems.append(f"the new client did not go direct: "
+                            f"{hunt_stats['new']['rpcs_by_route_and_op']}")
+        # one context per shard on the card, none in the supervisor
+        apps = compute_apps()
+        pids = {p for p, _ in apps}
+        shard_pids = {v["pid"] for v in shards.values()}
+        if os.getpid() in pids:   # this process' pid namespace is the card's
+            if not shard_pids <= pids or sup_proc.pid in pids:
+                problems.append(f"contexts {apps}: shards {shard_pids}, supervisor "
+                                f"{sup_proc.pid}")
+        elif len(apps) != 3:      # this script, s0, s1
+            problems.append(f"contexts {apps}: want 3 (this script and two shards)")
+        if problems:
+            raise AssertionError(f"[shards] (b)/(c): {problems}")
+        out["contexts"] = {"apps": apps, "same_pid_namespace": os.getpid() in pids}
+        # each shard's produce events (wall time, experiment, observations
+        # the fit held, trials registered): the slow RPCs above line up
+        # against these
+        out["produce_events"] = {
+            sid: [(e["ts"], e["experiment"], e.get("observed"), e["registered"])
+                  for e in map(json.loads, path.read_text().splitlines())
+                  if e["op"] == "produce"]
+            for sid, path in (("s0", ev0), ("s1", ev1))}
+        out["hunts"] = hunt_stats
+        out["handoff"] = {**handoff, "first_produce_on_dest": produce_a[0]}
+        for tag, st in hunt_stats.items():
+            log(f"[shards] (b) hunt {tag} client ({st['experiment']}): {SHARDS_TRIALS} trials, "
+                f"{SHARDS_WORKERS} workers in {st['wall_s']:.2f} s = {st['trials_per_s']:.2f} "
+                f"trials/s; {st['rpcs']} RPCs = {st['rpcs_per_trial']:.3f} a trial, by route "
+                f"{st['rpcs_by_route']}; slowest RPCs (ms, start, route op) "
+                f"{[(round(ms, 1), round(t, 3), k) for ms, t, k in st['slowest_rpcs']]}; "
+                f"card {smi}")
+        log(f"[shards] (c) every completion acked before the move on s1 once; s0 answers "
+            f"WrongShardError for A; s1's TPE held {produce_a[0]['observed']} observations at "
+            f"its first suggest (>= {len(before)}); contexts on the card {apps} (supervisor "
+            f"pid {sup_proc.pid} holds none); card {smi}")
+        stop_group(sup_proc)
+        part_s["serve_hunts_rebalance"] = time.perf_counter() - t_part
+
+        # -- (d) failover: kill -9 of a shard under load -------------------
+        t_part = time.perf_counter()
+        booting.join(timeout=COORD_SERVE_S)
+        if "err" in d_boot or "s" not in d_boot:
+            raise AssertionError(f"[shards] (d) supervisor start: {d_boot}")
+        table = RoutingTable(sup_d.shard_map)
+        fo = {}
+        for i in range(1000):
+            fo.setdefault(table.owner(f"failover-{i}"), f"failover-{i}")
+        name_x, name_y = fo["s0"], fo["s1"]
+        c = CoordLedgerClient(*sup_d.address, io_timeout_s=60.0, reconnect_window_s=60.0)
+        c.ping()
+        for nm, budget in ((name_x, FO_TRIALS), (name_y, 10 ** 6)):
+            Experiment(nm, c, space=build_space(ROSEN_SPACE), max_trials=budget,
+                       pool_size=2, algorithm=tpe_algo).configure()
+        acked_fo = {name_x: [], name_y: []}
+        y_calls, errors, stop = [], [], threading.Event()
+        lock = threading.Lock()
+
+        def worker(nm, wid):
+            cw = CoordLedgerClient(*sup_d.address, io_timeout_s=60.0, reconnect_window_s=60.0)
+            done = None
+            try:
+                while not stop.is_set():
+                    t1 = time.perf_counter()
+                    r = cw.worker_cycle(nm, wid, pool_size=2, complete=done)
+                    t2 = time.perf_counter()
+                    with lock:
+                        if nm == name_y:
+                            y_calls.append((t1, t2, len(acked_fo[name_y])))
+                        if done is not None and r.get("completed_ok"):
+                            acked_fo[nm].append(done["trial"]["id"])
+                    done = None
+                    t = r["trial"]
+                    if t is None:
+                        if nm == name_x and r["counts"]["completed"] >= FO_TRIALS:
+                            return
+                        time.sleep(0.01)
+                        continue
+                    t.attach_results([{"name": "objective", "type": "objective",
+                                       "value": rosenbrock(t.params)}])
+                    t.transition("completed")
+                    done = {"trial": t.to_dict(), "expected_status": "reserved",
+                            "expected_worker": wid}
+            except BaseException as err:  # reported below
+                errors.append(f"{wid}: {type(err).__name__}: {err}")
+
+        threads = [threading.Thread(target=worker, args=(nm, f"{nm}-w{j}"))
+                   for nm in (name_x, name_y) for j in range(FO_THREADS // 2)]
+        for t in threads:
+            t.start()
+        t_dead = time.monotonic() + 120
+        while len(acked_fo[name_x]) < FO_KILL_AT and time.monotonic() < t_dead and not errors:
+            time.sleep(0.01)
+        with lock:
+            x_before = list(acked_fo[name_x])
+        t_kill = time.perf_counter()
+        sup_d.kill_shard(0)
+        t_dead = time.monotonic() + FO_WAIT_S
+        while not sup_d.failover_times and time.monotonic() < t_dead:
+            time.sleep(0.01)
+        t_over = time.perf_counter()
+        for t in threads[: FO_THREADS // 2]:
+            t.join(timeout=120)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        x_docs = {t.id: t for t in c.fetch(name_x, "completed")}
+        with lock:
+            during = [(a, b) for a, b, _ in y_calls if t_kill <= b <= t_over]
+            y_max_ms = max(((b - a) * 1e3 for a, b, _ in y_calls if b >= t_kill and a <= t_over),
+                           default=None)
+            # Y's slowest call of the whole run: ms, its start from the kill
+            # (s), Y's completions acked before it
+            a, b, k = max(y_calls, key=lambda c: c[1] - c[0])
+            y_slowest = [(b - a) * 1e3, a - t_kill, k]
+            x_acked = list(acked_fo[name_x])
+        problems = []
+        if errors or any(t.is_alive() for t in threads):
+            problems.append(f"workers: {errors or 'a thread hung'}")
+        if len(x_before) < FO_KILL_AT:
+            problems.append(f"{len(x_before)} completions of X before the kill")
+        if not sup_d.failover_times:
+            problems.append(f"no failover in {FO_WAIT_S} s")
+        lost = [i for i in x_acked if i not in x_docs]
+        if lost:
+            problems.append(f"acked completions of X lost in the failover: {lost}")
+        if len(x_docs) != FO_TRIALS:
+            problems.append(f"X: {len(x_docs)} completed of {FO_TRIALS}")
+        if sup_d.crashes() != 1 or any(s["id"] == "s0" for s in sup_d.shard_map["shards"]):
+            problems.append(f"crashes {sup_d.crashes()}, map {sup_d.shard_map}")
+        if not during:
+            problems.append("the survivor answered no call of its own experiment during "
+                            "the redistribution")
+        if problems:
+            raise AssertionError(f"[shards] (d): {problems}")
+        out["failover"] = {"failover_times": list(sup_d.failover_times),
+                           "kill_to_done_s": t_over - t_kill, "boot_s": d_boot["s"],
+                           "x_acked_before_kill": len(x_before), "x_acked": len(x_acked),
+                           "x_completed": len(x_docs),
+                           "survivor_calls_during": len(during),
+                           "survivor_max_call_ms_during": y_max_ms,
+                           "survivor_slowest_call": y_slowest,
+                           "y_acked": len(acked_fo[name_y])}
+        log(f"[shards] (d) kill -9 of s0 with {len(x_before)} of X's completions acked: "
+            f"failover_times {sup_d.failover_times} (kill -> done {t_over - t_kill:.3f} s); "
+            f"X {len(x_docs)}/{FO_TRIALS} completed on the survivor, none of {len(x_acked)} "
+            f"acked lost; the survivor answered {len(during)} calls of Y during it (slowest "
+            f"{y_max_ms if y_max_ms is None else round(y_max_ms, 2)} ms); boot {d_boot['s']:.2f} "
+            f"s beside (a); card {smi}")
+        sup_d.stop()
+        part_s["failover"] = time.perf_counter() - t_part
+    finally:
+        if procs:
+            stop_group(procs[0])   # the supervisor first: it stops its shards
+        for p in procs[1:]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if sup_d is not None:
+            sup_d.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    out["part_s"] = part_s
+    log(f"[shards] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items())
+        + f"; card {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4458,6 +5113,10 @@ def main() -> int:
     # -- 17. the coordinator: serve, kill -9 and recovery, the fleet, RPCs ----
     coord_stats = coord_phase(torch, smi)
     mark("coord")
+
+    # -- 18. sharded serving: serve --shards, rebalance, failover, simulate ---
+    shards_stats = shards_phase(torch, smi)
+    mark("shards")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -4508,6 +5167,7 @@ def main() -> int:
     print(json.dumps({"batched": batched_stats}), flush=True)
     print(json.dumps({"ledger": ledger_stats}), flush=True)
     print(json.dumps({"coord": coord_stats}), flush=True)
+    print(json.dumps({"shards": shards_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

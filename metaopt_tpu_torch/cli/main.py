@@ -34,8 +34,12 @@ and hosts each experiment's algorithm on ``cuda`` (or the device that
 printing ``coordinator ready at coord://HOST:PORT``. ``--ledger
 coord://HOST:PORT`` points any subcommand at it, ``hunt --producer coord``
 delegates suggestion to the hosted algorithm, and ``tenants`` prints its
-multi-tenant service stats. ``serve --shards`` (sharded serving) is not
-ported yet.
+multi-tenant service stats. ``serve --shards N`` runs N such servers as
+shard processes behind a router (each shard resolves the same device in
+its own process; the supervisor never touches CUDA), ``rebalance`` moves
+one experiment between shards live, and ``simulate`` drives a
+coordinator with thousands of simulated workers on a virtual clock,
+hosting its algorithms on the same device as ``serve``.
 """
 
 from __future__ import annotations
@@ -330,7 +334,11 @@ def build_parser() -> argparse.ArgumentParser:
                           "advertises it and pod-local clients prefer it "
                           "over TCP automatically")
     srv.add_argument("--shards", type=int, default=None, metavar="N",
-                     help="sharded serving (not ported yet)")
+                     help="sharded serving: run N coordinator shard "
+                          "subprocesses (consistent-hash ownership by "
+                          "experiment, one WAL+snapshot each) behind a "
+                          "router on the public port; --snapshot then "
+                          "names a DIRECTORY (one snapshot+WAL per shard)")
     srv.add_argument("--max-experiments", type=int, default=None,
                      help="admission control: reject register_experiment "
                           "past this fleet-wide count (per shard when "
@@ -367,6 +375,73 @@ def build_parser() -> argparse.ArgumentParser:
                           "(rounded down to a power of two; default 32 "
                           "— bounds worst-case launch latency and "
                           "per-bucket device memory)")
+
+    reb = sub.add_parser(
+        "rebalance",
+        help="live-migrate one experiment to another coordinator shard "
+             "(zero acked-write loss; the hand-off protocol of "
+             "coord/handoff.py)",
+    )
+    reb.add_argument("--coord", required=True, metavar="HOST:PORT",
+                     help="any address of the sharded deployment (the "
+                          "public/router address or any shard) — the "
+                          "shard map is learned from its ping")
+    reb.add_argument("--experiment", required=True,
+                     help="experiment to move")
+    reb.add_argument("--dest", required=True, metavar="SHARD_ID",
+                     help="destination shard id (e.g. s1)")
+    reb.add_argument("--drain-timeout-s", type=float, default=10.0,
+                     help="max wait for the experiment's in-flight ops "
+                          "to drain on the source")
+    reb.add_argument("--window-s", type=float, default=30.0,
+                     help="per-step retry window through shard restarts")
+
+    sim = sub.add_parser(
+        "simulate",
+        help="discrete-event scale certification: drive the real "
+             "coordinator (WAL, snapshots, hosted ASHA/hyperband, fair "
+             "scheduler) with N simulated workers on a virtual clock and "
+             "certify promotion invariants, zero acked-write loss, and "
+             "tenant fairness under an injected fault schedule",
+    )
+    sim.add_argument("--workers", type=int, default=1000,
+                     help="simulated worker count (100000 = the pod-scale "
+                          "certification run)")
+    sim.add_argument("--seed", type=int, default=0,
+                     help="master seed: same seed → byte-identical event "
+                          "log (the digest is printed for comparison)")
+    sim.add_argument("--faults", default=None, metavar="SPEC",
+                     help="fault schedule, executor/faults.py syntax: "
+                          "deterministic 'kind:times@skip' and seeded "
+                          "probabilistic 'kind:p=0.01@seed' rules, comma-"
+                          "separated. Kinds: sim_worker_death, "
+                          "sim_lost_heartbeat, sim_delay, sim_crash_server. "
+                          "Default: light chaos + two coordinator crashes; "
+                          "'' (empty) disables faults")
+    sim.add_argument("--tenants", type=int, default=4)
+    sim.add_argument("--experiments-per-tenant", type=int, default=2)
+    sim.add_argument("--algos", nargs="+", default=["asha"],
+                     help="algorithms rotated across experiments, e.g. "
+                          "--algos asha hyperband tpe")
+    sim.add_argument("--task", default="sphere",
+                     help="benchmark objective the simulated trials score")
+    sim.add_argument("--trials", dest="sim_max_trials", type=int, default=64,
+                     help="max_trials per experiment")
+    sim.add_argument("--pool-size", dest="sim_pool_size", type=int, default=8)
+    sim.add_argument("--stale-timeout-s", dest="sim_stale_timeout_s",
+                     type=float, default=45.0,
+                     help="coordinator pacemaker for the simulated fleet")
+    sim.add_argument("--max-virtual-s", type=float, default=7200.0,
+                     help="virtual-time budget before the run is cut off")
+    sim.add_argument("--event-log", dest="sim_event_log", default=None,
+                     metavar="PATH",
+                     help="write the deterministic JSONL event log here")
+    sim.add_argument("--json", dest="as_json", action="store_true",
+                     help="emit the full report as JSON on stdout")
+    sim.add_argument("--config", default=None,
+                     help="framework config YAML (or JSON); its "
+                          "coordinator.device places the hosted "
+                          "algorithms (default cuda)")
 
     bm = sub.add_parser(
         "benchmark",
@@ -1568,9 +1643,11 @@ def _cmd_serve(args, cfg: Dict[str, Any]) -> int:
     shards = (args.shards if args.shards is not None
               else coord_cfg_early.get("shards"))
     if shards:
-        print("serve --shards: sharded serving is not ported yet",
-              file=sys.stderr)
-        return 2
+        if getattr(args, "uds_path", None):
+            print("--uds applies to single-process serving; sharded "
+                  "deployments route by TCP shard map", file=sys.stderr)
+            return 2
+        return _serve_sharded(args, coord_cfg_early, int(shards))
     # CLI flags > config file (`ledger:`/`coordinator:` sections) > defaults
     inner = None
     inner_spec = args.ledger
@@ -1646,6 +1723,204 @@ def _tenant_weights(args, coord_cfg: Dict[str, Any]):
 
 
 
+def _serve_sharded(args, coord_cfg: Dict[str, Any], n_shards: int) -> int:
+    """``serve --shards N``: supervisor + router until SIGINT/SIGTERM.
+
+    Each shard is a subprocess CoordServer with its own snapshot + WAL
+    under the ``--snapshot`` DIRECTORY; the public port serves old
+    clients through the router while new clients learn the shard map
+    from any ping and route directly. Each shard resolves
+    ``coordinator.device`` (``cuda`` by default) in its own process and
+    holds its own CUDA context; this process never initializes CUDA.
+    """
+    import signal
+    import threading
+
+    from metaopt_tpu_torch.coord.shards import ShardSupervisor
+
+    if args.ledger and args.ledger != "memory":
+        print("--shards serves the in-memory inner ledger only; per-shard "
+              "durability comes from the --snapshot directory (one "
+              "snapshot+WAL per shard), not a shared file ledger",
+              file=sys.stderr)
+        return 2
+    sup = ShardSupervisor(
+        n_shards,
+        host=args.host if args.host is not None
+        else coord_cfg.get("host", "127.0.0.1"),
+        port=args.port if args.port is not None
+        else coord_cfg.get("port", 0),
+        snapshot_dir=args.snapshot_path,
+        snapshot_interval_s=args.snapshot_interval_s,
+        stale_timeout_s=args.stale_timeout_s,
+        suggest_prefetch_depth=(
+            args.suggest_prefetch_depth
+            if args.suggest_prefetch_depth is not None
+            else coord_cfg.get("suggest_prefetch_depth", 1)),
+        event_log_dir=args.event_log_path,
+        max_experiments=(args.max_experiments
+                         if args.max_experiments is not None
+                         else coord_cfg.get("max_experiments")),
+        max_experiments_per_tenant=(
+            args.max_experiments_per_tenant
+            if args.max_experiments_per_tenant is not None
+            else coord_cfg.get("max_experiments_per_tenant")),
+        evict_idle_s=(args.evict_idle_s if args.evict_idle_s is not None
+                      else coord_cfg.get("evict_idle_s")),
+        max_resident=(args.max_resident if args.max_resident is not None
+                      else coord_cfg.get("max_resident")),
+        tenant_weights=_tenant_weights(args, coord_cfg),
+        fuse_suggest=(args.fuse_suggest
+                      if args.fuse_suggest is not None
+                      else bool(coord_cfg.get("fuse_suggest", False))),
+        fuse_bucket_max=(args.fuse_bucket_max
+                         if args.fuse_bucket_max is not None
+                         else coord_cfg.get("fuse_bucket_max")),
+        device=coord_cfg.get("device"),
+    )
+    stop = threading.Event()
+    prev = signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    sup.start()
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        # one context per shard: the supervisor and router relay bytes only
+        sup.stop()
+        raise RuntimeError("the shard supervisor initialized CUDA")
+    host, port = sup.address
+    members = ", ".join(f"{sid}=coord://{h}:{p}"
+                        for sid, (h, p) in sup.shard_addresses().items())
+    print(f"coordinator ready at coord://{host}:{port} "
+          f"({n_shards} shards: {members})", flush=True)
+    try:
+        while not stop.wait(1.0):
+            pass
+    except KeyboardInterrupt:
+        pass
+    finally:
+        sup.stop()
+        signal.signal(signal.SIGTERM, prev)
+    return 0
+
+
+def _cmd_rebalance(args, cfg: Dict[str, Any]) -> int:
+    """``rebalance``: live-migrate one experiment between shards.
+
+    Learns the shard map from any address's ping, computes the
+    version-bumped map pinning the experiment to ``--dest``, and drives
+    the prepare→ship→apply→commit protocol from this process — the same
+    primitive supervisor failover uses.
+    """
+    from metaopt_tpu_torch.coord.handoff import (
+        HandoffError, call_admin, migrate_experiment,
+    )
+    from metaopt_tpu_torch.coord.shards import RoutingTable, with_override
+
+    host, _, port = args.coord.rpartition(":")
+    if not host or not port.isdigit():
+        print(f"--coord must be HOST:PORT, got {args.coord!r}",
+              file=sys.stderr)
+        return 2
+    seed = (host, int(port))
+    try:
+        reply = call_admin(seed, "ping", {}, window_s=args.window_s)
+    except HandoffError as err:
+        print(err, file=sys.stderr)
+        return 1
+    smap = (reply.get("result") or {}).get("shard_map") \
+        if reply.get("ok") else None
+    if not smap:
+        print(f"{args.coord} does not advertise a shard map — not a "
+              "sharded deployment?", file=sys.stderr)
+        return 2
+    table = RoutingTable(smap)
+    if args.dest not in table.addrs:
+        print(f"unknown destination shard {args.dest!r}; map has: "
+              f"{', '.join(sorted(table.addrs))}", file=sys.stderr)
+        return 2
+    source = table.owner(args.experiment)
+    if source == args.dest:
+        print(f"{args.experiment} already lives on {args.dest}; nothing "
+              "to do")
+        return 0
+    new_map = with_override(smap, args.experiment, args.dest)
+    try:
+        result = migrate_experiment(
+            args.experiment, table.addrs[source], table.addrs[args.dest],
+            args.dest, new_map,
+            other_addrs=[a for sid, a in table.addrs.items()
+                         if sid not in (source, args.dest)],
+            drain_timeout_s=args.drain_timeout_s, window_s=args.window_s)
+    except HandoffError as err:
+        print(f"rebalance failed: {err}", file=sys.stderr)
+        return 1
+    print(f"{args.experiment}: {source} -> {args.dest} "
+          f"({result.get('trials', 0)} trials, "
+          f"{result.get('replies', 0)} cached replies, "
+          f"map v{result.get('map_version')})")
+    return 0
+
+
+def _cmd_simulate(args: argparse.Namespace, cfg: Dict[str, Any]) -> int:
+    """``simulate``: run one scale-certification scenario.
+
+    Exit code 0 = certified (no promotion violations, no acked-write
+    loss, no exactly-once violations); 1 = certification failed. The
+    coordinator hosts its algorithms on ``coordinator.device`` of the
+    config file, ``cuda`` by default, as ``serve`` does.
+    """
+    from metaopt_tpu_torch.sim.engine import (
+        DEFAULT_FAULTS, SimConfig, Simulation,
+    )
+
+    sim_cfg = SimConfig(
+        workers=args.workers,
+        tenants=args.tenants,
+        experiments_per_tenant=args.experiments_per_tenant,
+        algos=tuple(args.algos),
+        task=args.task,
+        max_trials=args.sim_max_trials,
+        pool_size=args.sim_pool_size,
+        seed=args.seed,
+        faults=DEFAULT_FAULTS if args.faults is None else args.faults,
+        stale_timeout_s=args.sim_stale_timeout_s,
+        max_virtual_s=args.max_virtual_s,
+        event_log=args.sim_event_log,
+    )
+    coord_cfg = cfg.get("coordinator") or {}
+    report = Simulation(sim_cfg, device=coord_cfg.get("device")).run()
+    if args.as_json:
+        print(json.dumps(report.to_dict(), indent=2, sort_keys=True))
+        return 0 if report.ok else 1
+    r = report
+    print(f"simulated {r.config['workers']} workers / {r.experiments} "
+          f"experiments / {r.config['tenants']} tenants "
+          f"({'+'.join(r.config['algos'])})")
+    print(f"  virtual {r.virtual_s:.0f}s in wall {r.wall_s:.1f}s — "
+          f"{r.dispatches} coordinator dispatches")
+    print(f"  completed {r.acked_completions} trials "
+          f"({r.cas_rejected_completions} delayed completions rejected, "
+          f"{r.stale_released} stale released, {r.worker_deaths} worker "
+          f"deaths, {r.crashes} coordinator crashes)")
+    print(f"  fairness: jain={r.jain} over {r.completed_by_tenant}")
+    if r.recoveries:
+        print(f"  recovery: {r.recovery_s_per_10k_wal}s/10k WAL records "
+              f"across {len(r.recoveries)} crash(es)")
+    for name in sorted(r.best_by_experiment):
+        print(f"  best {name}: {r.best_by_experiment[name]:.6f}")
+    print(f"  event log: {r.event_lines} events "
+          f"sha256={r.event_log_sha256[:16]}…")
+    problems = (r.promotion_violations + r.acked_write_losses
+                + r.exactly_once_violations)
+    if problems:
+        print(f"CERTIFICATION FAILED ({len(problems)} violation(s)):")
+        for p in problems:
+            print(f"  ✗ {p}")
+        return 1
+    print("certified: promotion invariants, zero acked-write loss, "
+          "exactly-once replies")
+    return 0
+
+
 _COMMANDS = {
     "hunt": _cmd_hunt,
     "benchmark": _cmd_benchmark,
@@ -1654,8 +1929,10 @@ _COMMANDS = {
     "insert": _cmd_insert,
     "info": _cmd_info,
     "list": _cmd_list,
+    "rebalance": _cmd_rebalance,
     "resume": _cmd_resume,
     "serve": _cmd_serve,
+    "simulate": _cmd_simulate,
     "status": _cmd_status,
     "tenants": _cmd_tenants,
 }

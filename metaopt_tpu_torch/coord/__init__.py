@@ -15,14 +15,21 @@ surrogate.
 - :mod:`~metaopt_tpu_torch.coord.server` — :class:`CoordServer`.
 - :mod:`~metaopt_tpu_torch.coord.client_backend` —
   :class:`CoordLedgerClient`, the ``"coord"`` ledger backend.
-- :mod:`~metaopt_tpu_torch.coord.shards` — the routing helpers the server
-  reads.
+- :mod:`~metaopt_tpu_torch.coord.shards` — sharded serving: N CoordServer
+  subprocesses behind one consistent-hash shard map
+  (:class:`ShardSupervisor` spawn/health-check/restart-with-recovery or
+  failover, :class:`ShardRouter` old-client fallback proxy; new clients
+  learn the map from the ping ``caps`` and route directly).
+- :mod:`~metaopt_tpu_torch.coord.handoff` — live migration of one
+  experiment between shards, and the offline recovery failover uses.
 
-Sharded serving (``ShardRouter``, ``ShardSupervisor``, the hand-off) and
-``pod.py`` are not ported yet.
+``pod.py`` (several hosts) is not ported.
 """
 
 from metaopt_tpu_torch.coord.client_backend import CoordLedgerClient
 from metaopt_tpu_torch.coord.server import CoordServer
+from metaopt_tpu_torch.coord.shards import (HashRing, ShardRouter,
+                                            ShardSupervisor)
 
-__all__ = ["CoordServer", "CoordLedgerClient"]
+__all__ = ["CoordServer", "CoordLedgerClient", "HashRing", "ShardRouter",
+           "ShardSupervisor"]

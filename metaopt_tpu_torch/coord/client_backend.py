@@ -25,11 +25,12 @@ healthy. Reconnect attempts back off with decorrelated jitter so a
 32-worker pod doesn't thundering-herd the coordinator the instant it
 returns.
 
-Sharded serving is not ported yet: the client speaks to the one address it
-was given (or that server's Unix socket), and the shard-map routing with
-its ``WrongShardError`` refresh-and-retry waits for that slice. A
-``Migrating`` reply (an evicting server fences the experiment for a
-moment) is waited out, as in the reference.
+Against a sharded deployment (:mod:`metaopt_tpu_torch.coord.shards`) the
+client learns the shard map from the seed's ``ping`` and routes every
+experiment-named op straight to its owning shard; a ``WrongShardError``
+(the map moved under it) re-learns the map and retries, and a
+``Migrating`` reply (a hand-off or an eviction fences the experiment for
+a moment) is waited out.
 """
 
 from __future__ import annotations
@@ -54,7 +55,12 @@ from metaopt_tpu_torch.coord.protocol import (
     send_msg,
     send_payload,
 )
-from metaopt_tpu_torch.coord.shards import experiment_of
+from metaopt_tpu_torch.coord.shards import (
+    SHARD_MAP_CAP,
+    RoutingTable,
+    experiment_of,
+    map_version,
+)
 from metaopt_tpu_torch.ledger.backends import (
     AdmissionError,
     DuplicateExperimentError,
@@ -150,7 +156,29 @@ class CoordLedgerClient(LedgerBackend):
         #: server incarnation from the last ping — a reconnect that lands
         #: on a DIFFERENT incarnation crossed a restart and triggers
         #: session resumption (re-assert reservations, re-learn caps).
+        #: Kept as the SEED address's incarnation; sharded serving tracks
+        #: one per address in ``_incarnations`` below.
         self._incarnation: Optional[str] = None
+        #: sharded serving (coord/shards.py): when the seed's ping
+        #: advertises the "shard_map" cap, the map + ring live here (under
+        #: ``_caps_lock``) and every experiment-named op routes DIRECTLY
+        #: to the owning shard — the router hop is only for clients that
+        #: never learned the map. Against an unsharded server all three
+        #: stay empty and routing degrades to the seed address, so a new
+        #: client on an old server is wire-identical to before.
+        self._shard_map: Optional[Dict[str, Any]] = None
+        self._ring = None
+        self._shard_addrs: Dict[str, Tuple[str, int]] = {}
+        #: version of the adopted map — adoption is MONOTONIC: a stale
+        #: ping reply (raced with a hand-off commit) carrying a LOWER
+        #: version must never roll routing back to the pre-migration
+        #: owner, or acked writes would land on a shard about to drop
+        #: the experiment. -1 = no map adopted yet.
+        self._map_version: int = -1
+        #: per-address incarnation from the last ping of THAT address —
+        #: a reconnect to one shard compares against the shard's own
+        #: identity, not the seed's
+        self._incarnations: Dict[Tuple[str, int], str] = {}
         #: reservations this client currently holds: (experiment,
         #: trial_id) → worker. Maintained by reserve/worker_cycle/
         #: update_trial/heartbeat; re-asserted after a restart so the
@@ -184,12 +212,13 @@ class CoordLedgerClient(LedgerBackend):
     # -- connection management --------------------------------------------
     @property
     def _seed(self) -> Tuple[str, int]:
-        """The configured address of the server."""
+        """The configured address — router or single server; the only one
+        the client knows before a ping teaches it the shard map."""
         return (self.host, self.port)
 
     def _sock(self, addr: Optional[Tuple[str, int]] = None) -> socket.socket:
         # per-(pid, thread, address): a socket inherited across fork is
-        # never reused, and the UDS door is a second address
+        # never reused, and a sharded map means one socket per shard
         addr = addr or self._seed
         socks = getattr(self._local, "pid_socks", None)
         if socks is None or socks[0] != os.getpid():
@@ -234,6 +263,19 @@ class CoordLedgerClient(LedgerBackend):
                 except OSError:
                     pass
 
+    def _route(self, op: str, args: Dict[str, Any]) -> Tuple[str, int]:
+        """The address that owns this request: the owning shard when a
+        shard map is known and the op names an experiment, else the seed
+        (pan-shard ops like list_experiments/snapshot fan out there)."""
+        with self._caps_lock:
+            ring, addrs = self._ring, self._shard_addrs
+        if ring is None:
+            return self._seed
+        exp = experiment_of(op, args)
+        if exp is None:
+            return self._seed
+        return addrs.get(ring.owner(exp), self._seed)
+
     def _wire_for(self, addr: Tuple[str, int]) -> str:
         """The codec to speak to ``addr``: v2 only when that address's own
         ping advertised it (and it isn't strike-blocked)."""
@@ -244,16 +286,17 @@ class CoordLedgerClient(LedgerBackend):
 
     def _negotiate(self, s: socket.socket, addr: Tuple[str, int]) -> None:
         """One v1-JSON ping on this socket to learn the peer's wire (and
-        UDS path). Runs once per previously-unseen address, when an op
-        other than ``ping`` is the first to reach it."""
+        UDS path). Runs once per previously-unseen address — the seed
+        negotiates through the normal ping flow, this covers direct-to-
+        shard connections that would otherwise never get pinged."""
         send_msg(s, {"op": "ping", "args": {}, "req": uuid.uuid4().hex})
         reply = recv_msg(s)
         if reply is None:
             raise ConnectionError("coordinator closed during negotiation")
         if reply.get("ok"):
             # transport facts only: negotiation must not rewrite op caps
-            # (those belong to the explicit ping flow — a pinned-caps
-            # client stays pinned)
+            # or routing (those belong to the explicit ping flow — a
+            # pinned-caps client stays pinned)
             with self._caps_lock:
                 self._absorb_transport(addr, reply["result"])
         else:
@@ -346,6 +389,26 @@ class CoordLedgerClient(LedgerBackend):
                     # a whole pod's reconnects don't land as one herd
                     delay = decorrelated_jitter(delay)
                     time.sleep(delay)
+                    if addr != self._seed and not getattr(
+                            self._local, "rerouting", False):
+                        # the owning shard may be GONE for good (failover
+                        # shrank the map): re-learn routing from the seed
+                        # and follow the new owner instead of dialing a
+                        # dead address for the whole window
+                        self._local.rerouting = True
+                        try:
+                            self.ping()
+                        except Exception:
+                            log.debug("reroute ping failed", exc_info=True)
+                        finally:
+                            self._local.rerouting = False
+                        new_addr = self._route(msg.get("op"),
+                                               msg.get("args") or {})
+                        if new_addr != addr:
+                            log.info("rerouting %s from %s to %s after "
+                                     "map refresh", msg.get("op"), addr,
+                                     new_addr)
+                            addr = new_addr
         if attempt and msg.get("op") != "ping":
             # we reconnected at least once: resume the session (fresh caps,
             # and reservation re-assertion if the server incarnation
@@ -358,28 +421,43 @@ class CoordLedgerClient(LedgerBackend):
         # one id per logical call, shared by the retry: the server dedups on
         # it, so "executed but reply lost" cannot double-execute the op
         msg = {"op": op, "args": args, "req": uuid.uuid4().hex}
-        # Migrating = the server fenced this experiment for a moment (an
-        # eviction capturing its state); the fence lifts within the
-        # drain window, so wait it out rather than failing a healthy pod
+        # Migrating = the owning shard fenced this experiment for a live
+        # hand-off; the fence lifts (→ success on the new owner, or
+        # WrongShardError pointing there) within the migration window, so
+        # wait it out rather than failing a healthy pod
         deadline = time.monotonic() + max(5.0, self.reconnect_window_s)
+        misses = 0
         delay = 0.0
         while True:
-            reply = self._exchange(msg, self._seed)
+            reply = self._exchange(msg, self._route(op, args))
             if reply["ok"]:
                 return reply["result"]
-            if (reply["error"] == "Migrating"
-                    and time.monotonic() < deadline):
+            err = reply["error"]
+            if err == "WrongShardError" and misses < 2:
+                # stale routing table: the shard map changed under us
+                # (hand-off commit, shard added/removed across a restart
+                # or rolling upgrade). Re-learn the map from the seed and
+                # retry — the reused request id keeps the correctly-routed
+                # retry exactly-once.
+                misses += 1
+            elif err == "Migrating" and time.monotonic() < deadline:
                 delay = decorrelated_jitter(delay)
                 time.sleep(delay)
-                continue
-            break
+            else:
+                break
+            try:
+                self.ping()
+            except Exception:
+                log.debug("shard-map refresh ping failed", exc_info=True)
         exc = _ERRORS.get(reply["error"], CoordRPCError)
         raise exc(reply["msg"])
 
     def _absorb_transport(self, addr: Tuple[str, int],
                           r: Dict[str, Any]) -> None:
         """Record the per-address transport facts from a ping reply: the
-        wire codec and the UDS door. Caller holds ``_caps_lock``."""
+        wire codec and the UDS door. Caller holds ``_caps_lock``. These
+        apply per address (each shard speaks for itself), unlike caps /
+        routing which stay seed-only and ping-flow-only."""
         caps = tuple(r.get("caps") or ())
         if ("wire_v2" in caps and HAVE_WIRE_V2
                 and addr not in self._wire_blocked):
@@ -393,13 +471,36 @@ class CoordLedgerClient(LedgerBackend):
             self._uds_paths.pop(addr, None)
 
     def _absorb_ping(self, addr: Tuple[str, int], r: Dict[str, Any]) -> None:
-        """Record what a ping of ``addr`` taught us: transport, caps and
-        the server's incarnation."""
+        """Record what a ping of ``addr`` taught us. Only the seed's reply
+        rewrites caps + shard map (a shard's own ping also carries them,
+        but the seed stays the single source of truth for routing)."""
         with self._caps_lock:
+            if r.get("incarnation"):
+                self._incarnations[addr] = r["incarnation"]
             self._absorb_transport(addr, r)
+            if addr != self._seed:
+                return
             self._caps = tuple(r.get("caps") or ())
             if r.get("incarnation"):
                 self._incarnation = r["incarnation"]
+            smap = r.get("shard_map")
+            if smap and SHARD_MAP_CAP in self._caps:
+                if map_version(smap) >= self._map_version:
+                    table = RoutingTable(smap)
+                    self._shard_map = smap
+                    self._ring = table
+                    self._shard_addrs = table.addrs
+                    self._map_version = table.version
+                # else: stale reply from before a hand-off commit —
+                # keep the newer routing (monotonic adoption)
+            else:
+                # a seed that stopped advertising the cap (rolled back to
+                # a single-process server) un-teaches the map: degrade to
+                # direct seed mode rather than routing into the void
+                self._shard_map = None
+                self._ring = None
+                self._shard_addrs = {}
+                self._map_version = -1
 
     def ping(self) -> Dict[str, Any]:
         r = self._call("ping")
@@ -418,12 +519,15 @@ class CoordLedgerClient(LedgerBackend):
     def _after_reconnect(self, addr: Optional[Tuple[str, int]] = None) -> None:
         """The client half of crash recovery, run after any reconnect.
 
-        Re-handshake: re-ping the server (a restarted coordinator may be a
-        different build; the ping refreshes caps). If the ping's
-        ``incarnation`` differs from the one we knew, this was a real
+        Re-handshake: re-ping the address we reconnected to (a restarted
+        coordinator may be a different build; a seed re-ping also
+        refreshes caps + shard map). If the ping's ``incarnation``
+        differs from the one we knew FOR THAT ADDRESS, this was a real
         restart — re-assert every reservation we hold with a heartbeat so
         the recovered server's stale sweep sees live workers, and drop
-        the ones the new server no longer honors. Guarded
+        the ones the new server no longer honors. (Heartbeats route by
+        experiment, so under a shard map each lands on its owner; the
+        extra beats to shards that never restarted are no-ops.) Guarded
         per-thread against reentry (the resumption RPCs themselves go
         through ``_call``/``_exchange``) and best-effort: resumption must
         never turn a successful retry into an error.
@@ -434,8 +538,11 @@ class CoordLedgerClient(LedgerBackend):
         self._local.resuming = True
         try:
             with self._caps_lock:
-                prev = self._incarnation
-                self._caps = None  # force the re-handshake ping
+                prev = self._incarnations.get(addr)
+                if prev is None and addr == self._seed:
+                    prev = self._incarnation
+                if addr == self._seed:
+                    self._caps = None  # force the re-handshake ping
             try:
                 reply = self._exchange(
                     {"op": "ping", "args": {}, "req": uuid.uuid4().hex},
@@ -512,7 +619,8 @@ class CoordLedgerClient(LedgerBackend):
         """Multi-tenant service stats: per-tenant produce accounting and
         fleet residency; with ``include_experiments``, per-experiment
         status counts (evicted experiments answered from their O(1)
-        stub index — this call never hydrates)."""
+        stub index — this call never hydrates). Against a sharded seed
+        the router fans the op out and merges per-shard accounting."""
         return self._call("tenant_stats",
                           include_experiments=bool(include_experiments))
 

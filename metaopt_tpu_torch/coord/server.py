@@ -58,10 +58,12 @@ The RPC plane itself is built for many workers against one coordinator:
   a ``snapshot_path`` is configured (log lives at ``<snapshot>.wal``) or
   an explicit ``wal_path`` is given.
 
-Sharded serving is not ported yet: ``shard_id`` / ``shard_map`` other than
-``None`` raise, and the hand-off ops (``handoff_prepare``,
-``handoff_apply``, ``handoff_abort``, ``shard_map_update``) are answered
-as any op this server does not serve.
+Sharded serving (:mod:`metaopt_tpu_torch.coord.shards`): a server given
+``shard_id`` / ``shard_map`` is ONE shard of a consistent-hash map. It
+advertises the map on ``ping``, answers ``WrongShardError`` for
+experiments it does not own, and serves the hand-off admin plane
+(``handoff_prepare``, ``handoff_apply``, ``handoff_abort``,
+``shard_map_update``) that :mod:`metaopt_tpu_torch.coord.handoff` drives.
 """
 
 from __future__ import annotations
@@ -89,7 +91,11 @@ from metaopt_tpu_torch.coord.protocol import (
     recv_payload,
     send_payload,
 )
-from metaopt_tpu_torch.coord.shards import experiment_of
+from metaopt_tpu_torch.coord.shards import (
+    RoutingTable,
+    experiment_of,
+    map_version,
+)
 from metaopt_tpu_torch.coord.fuser import SuggestFuser
 from metaopt_tpu_torch.coord.tenancy import FairProduceScheduler
 from metaopt_tpu_torch.coord.wal import WriteAheadLog, fsync_dir, read_records
@@ -334,13 +340,11 @@ class CoordServer:
         #: injectable time source (utils/clock.py). All wall stamps
         #: (snapshot/event/heartbeat times) and all in-process intervals
         #: (housekeeping cadence, evict idle tracking, drain deadlines)
-        #: flow through it, so a virtual clock (the reference's scale
-        #: simulator, not ported yet) can drive it. When an
+        #: flow through it; the scale simulator passes a VirtualClock so
+        #: a simulated hour of heartbeats costs microseconds. When an
         #: explicit clock is given it is propagated to the inner backend
         #: (heartbeat stamps + stale sweep share the same timeline).
         self.clock = clock if clock is not None else SYSTEM_CLOCK
-        if shard_id is not None or shard_map is not None:
-            raise NotImplementedError("sharded serving is not ported yet")
         #: the device every hosted algorithm whose constructor takes one
         #: (TPE, BOHB, MOTPE, GP-BO) runs on; kept out of the stored
         #: algorithm configuration. Resolved here so a server on a machine
@@ -401,12 +405,26 @@ class CoordServer:
         #: incarnation knows it crossed a restart and re-asserts its live
         #: reservations / re-learns caps (session resumption)
         self._incarnation = uuid.uuid4().hex
-        #: the eviction fence, all under _map_cv: ``_migrating`` fences
-        #: experiments whose state is being captured (their ops get a
-        #: retryable ``Migrating`` reply), ``_exp_inflight`` counts
-        #: dispatches in flight per experiment so an eviction can drain
-        #: them. The cv is also the drain signal — never held across
-        #: dispatch or I/O.
+        #: sharded serving (coord/shards.py): when this server
+        #: is ONE shard of a consistent-hash map, it advertises the map in
+        #: its ping reply (cap "shard_map", so new clients route directly)
+        #: and rejects experiment-named ops it does not own with
+        #: WrongShardError — a routing-table-stale client refreshes the
+        #: map and retries instead of silently splitting an experiment's
+        #: state across two shards' ledgers/WALs. Both None (the default)
+        #: = the ordinary unsharded server, wire-identical to before.
+        self.shard_id = shard_id
+        self.shard_map = shard_map
+        self._ring = (RoutingTable(shard_map)
+                      if shard_id is not None and shard_map is not None
+                      else None)
+        #: live hand-off state (coord/handoff.py), all under _map_cv:
+        #: ``_migrating`` fences experiments mid-migration (their ops get
+        #: a retryable ``Migrating`` reply), ``_exp_inflight`` counts
+        #: dispatches in flight per experiment so handoff_prepare can
+        #: drain them, and the routing pair (shard_map, _ring) is swapped
+        #: wholesale when a bumped map version is adopted. The cv is also
+        #: the drain signal — never held across dispatch or I/O.
         self._map_cv = threading.Condition()
         self._migrating: Dict[str, str] = {}
         self._exp_inflight: Dict[str, int] = {}
@@ -445,9 +463,10 @@ class CoordServer:
         self._replies: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
         self._replies_cap = 4096
         self._replies_lock = threading.Lock()
-        #: request id → experiment, maintained in step with _replies: an
-        #: eviction carries the experiment's cached replies in its file
-        #: so an exactly-once retry that straddles it is still answered
+        #: request id → experiment, maintained in step with _replies: a
+        #: hand-off ships the moving experiment's cached replies to the
+        #: new owner (and an eviction carries them in its file) so an
+        #: exactly-once retry that straddles either is still answered
         #: from cache, not re-executed
         self._reply_exps: Dict[str, str] = {}
         #: worker_cycle requests mid-execution, keyed by request id: a retry
@@ -617,8 +636,8 @@ class CoordServer:
                        exp: Optional[str] = None) -> None:
         """Journal a reply-cache entry so a retry that straddles a restart
         is still answered from cache (exactly-once across crashes). The
-        ``exp`` tag attributes the record to its experiment
-        (:func:`metaopt_tpu_torch.coord.wal.record_experiment`)."""
+        ``exp`` tag lets a hand-off attribute the record to the moving
+        experiment (:func:`metaopt_tpu_torch.coord.wal.record_experiment`)."""
         if req and self._wal is not None:
             rec: Dict[str, Any] = {"op": "reply", "req": req, "reply": reply}
             if exp is not None:
@@ -637,11 +656,15 @@ class CoordServer:
                 old, _ = self._replies.popitem(last=False)
                 self._reply_exps.pop(old, None)
 
-    #: ops whose reply must not leave before their WAL records are durable
+    #: ops whose reply must not leave before their WAL records are durable.
+    #: The hand-off admin plane (handoff_* / shard_map_update) journals
+    #: inside its handlers, not in _dispatch, so it lives here too.
     _DURABLE_OPS = frozenset(
         {"create_experiment", "update_experiment", "delete_experiment",
          "register", "reserve", "update_trial", "release_stale",
-         "set_signal", "worker_cycle", "produce"}
+         "set_signal", "worker_cycle", "produce",
+         "handoff_prepare", "handoff_apply", "handoff_abort",
+         "shard_map_update"}
     )
 
     def _barrier_seq(self, op: Optional[str]) -> int:
@@ -691,6 +714,32 @@ class CoordServer:
                 self._signals[(rec["experiment"], rec["trial_id"])] = (
                     rec["signal"])
             return rec["experiment"]
+        if op == "shard_map":
+            # map adoption marker: a respawned shard restarts with the
+            # STALE map its original spawn argv carried — replaying the
+            # journaled adoption re-learns every hand-off/failover commit
+            # it acknowledged before dying
+            new_map = rec.get("map")
+            with self._map_cv:
+                if map_version(new_map) > map_version(self.shard_map):
+                    self.shard_map = new_map
+                    if self.shard_id is not None:
+                        self._ring = RoutingTable(new_map)
+            return None
+        if op == "handoff_fence":
+            # re-arm a migration fence that was live at the crash: the
+            # captured state may already have shipped, so a recovered
+            # source must NOT accept new writes for this experiment
+            # until the orchestrator commits or aborts. Harmless when
+            # the commit's shard_map record follows later in the log —
+            # ownership is checked before the fence at dispatch.
+            with self._map_cv:
+                self._migrating[rec["experiment"]] = rec.get("dest", "?")
+            return None
+        if op == "handoff_abort":
+            with self._map_cv:
+                self._migrating.pop(rec["experiment"], None)
+            return None
         if op == "evict":
             # the record is durable BEFORE the live path drops any state,
             # so replaying it over a snapshot that still holds the docs
@@ -996,8 +1045,8 @@ class CoordServer:
     def housekeeping_step(self) -> None:
         """One housekeeping beat: stale sweep, due snapshot, evict sweep.
 
-        Factored out of the loop so a caller can drive the exact
-        production duties on a virtual schedule (no loop thread).
+        Factored out of the loop so the scale simulator can drive the
+        exact production duties on a virtual schedule (no loop thread).
         Cadence is measured on ``clock.monotonic()`` — the historical
         wall-clock stamps made the sweep/snapshot cadence jump with NTP
         steps while ``_stopping.wait`` ticked monotonically.
@@ -1201,6 +1250,8 @@ class CoordServer:
                 {"experiment": e, "trial": t, "signal": s}
                 for (e, t), s in self._signals.items()
             ]
+        with self._map_cv:
+            smap = self.shard_map
         with self._evict_lock:
             # compaction drops journaled evict records at or below
             # wal_seq — the snapshot must carry the stubs or a restart
@@ -1211,6 +1262,11 @@ class CoordServer:
                        if n not in resident}
         if evicted:
             state["evicted"] = evicted
+        if smap is not None:
+            # compaction will drop any journaled shard_map adoption
+            # record at or below wal_seq — the snapshot must carry the
+            # adopted map or a restart falls back to its stale argv map
+            state["shard_map"] = smap
 
     # caller holds _snap_lock
     def _snapshot_commit(self, path: str, state: Dict[str, Any],
@@ -1313,6 +1369,12 @@ class CoordServer:
                     # already-stubbed) experiments are never overwritten
                     if name not in existing:
                         self._evicted.setdefault(name, stub)
+            snap_map = state.get("shard_map")
+            with self._map_cv:
+                if map_version(snap_map) > map_version(self.shard_map):
+                    self.shard_map = snap_map
+                    if self.shard_id is not None:
+                        self._ring = RoutingTable(snap_map)
         log.info("restored %d experiments from %s", len(state["experiments"]), path)
         return state
 
@@ -1398,7 +1460,7 @@ class CoordServer:
         """Move one experiment's full state to its crash-atomic evict file,
         leaving only a stub (doc + status counts) resident.
 
-        Fenced: new ops on the experiment get
+        Fenced exactly like a live hand-off: new ops on the experiment get
         a retryable ``Migrating`` while in-flight ones drain, so the
         capture/drop below can never interleave with a dispatch. The evict
         record is fsynced BEFORE any state is dropped — kill -9 anywhere
@@ -1843,6 +1905,10 @@ class CoordServer:
                             registered=res["registered"],
                             coalesced=res["coalesced"],
                             workers=[w for w in batch.workers if w],
+                            # the port's: the observations the fit held
+                            # when it suggested (a moved experiment's new
+                            # owner must hold every shipped completion)
+                            observed=getattr(_algo, "n_observed", None),
                         )
                     # re-arm the speculative pool the cycle just drained —
                     # only spawns a daemon thread, so the waiters blocked
@@ -2061,6 +2127,276 @@ class CoordServer:
                 pass
         return encode_msg(reply)
 
+    #: the hand-off admin plane (coord/handoff.py drives it): never
+    #: fenced, never reply-cached — every op is idempotent by design so
+    #: the orchestrator may blindly retry through a chaos kill
+    _HANDOFF_OPS = frozenset(
+        {"handoff_prepare", "handoff_apply", "handoff_abort",
+         "shard_map_update"}
+    )
+
+    def _handle_handoff(self, op: str,
+                        a: Dict[str, Any]) -> Dict[str, Any]:
+        """Route one admin-plane op; marshals errors like _handle_body."""
+        try:
+            if op == "handoff_prepare":
+                return self._handoff_prepare(a)
+            if op == "handoff_apply":
+                return self._handoff_apply(a)
+            if op == "handoff_abort":
+                exp = a["experiment"]
+                with self._map_cv:
+                    self._migrating.pop(exp, None)
+                    if self._wal is not None:
+                        # un-arm the journaled fence too, or a restart
+                        # would replay it back into place
+                        self._wal.append({"op": "handoff_abort",
+                                          "experiment": exp})
+                    self._map_cv.notify_all()
+                return {"ok": True, "result": True}
+            return self._shard_map_update(a)
+        except Exception as e:
+            return {"ok": False, "error": type(e).__name__, "msg": str(e)}
+
+    def _handoff_prepare(self, a: Dict[str, Any]) -> Dict[str, Any]:
+        """SOURCE side of a live migration: fence, drain, capture.
+
+        Fences ``experiment`` (new ops get a retryable ``Migrating``),
+        waits until its in-flight dispatches drain, then captures a
+        crash-atomic per-experiment snapshot — the experiment doc, every
+        trial doc, pending control signals, the reply-cache entries that
+        make in-flight exactly-once retries survive the move, and the
+        experiment's WAL tail (extracted under a compaction fence). The
+        fence STAYS armed after the reply: it is lifted by the ownership
+        commit (``shard_map_update`` with ``drop``) or by
+        ``handoff_abort``. A crash before commit loses only the
+        in-memory fence — the source recovers still owning the
+        experiment and the orchestrator starts over.
+        """
+        exp = a["experiment"]
+        dest = a["dest"]
+        drain_s = float(a.get("drain_timeout_s", 10.0))
+        if self._ring is None:
+            raise ValueError("not a sharded server")
+        with self._map_cv:
+            if self._ring.owner(exp) != self.shard_id:
+                return {
+                    "ok": False, "error": "WrongShardError",
+                    "msg": f"experiment {exp!r} is not owned by "
+                           f"{self.shard_id}",
+                }
+            cur = self._migrating.get(exp)
+            if cur is not None and cur != dest:
+                return {"ok": False, "error": "CoordRPCError",
+                        "msg": f"experiment {exp!r} already migrating "
+                               f"to {cur}"}
+            self._migrating[exp] = dest
+            if self._wal is not None:
+                # the fence must survive a source crash BETWEEN capture
+                # and commit: without this record a respawned source
+                # would accept writes the commit then deletes. Durable
+                # before any state ships — extract_tail below flushes
+                # the buffer, and the reply itself waits on the
+                # _DURABLE_OPS sender barrier.
+                self._wal.append({"op": "handoff_fence",
+                                  "experiment": exp, "dest": dest})
+            deadline = self.clock.monotonic() + drain_s
+            while self._exp_inflight.get(exp, 0) > 0:
+                remaining = deadline - self.clock.monotonic()
+                if remaining <= 0:
+                    self._migrating.pop(exp, None)
+                    if self._wal is not None:
+                        self._wal.append({"op": "handoff_abort",
+                                          "experiment": exp})
+                    self._map_cv.notify_all()
+                    return {"ok": False, "error": "CoordRPCError",
+                            "msg": f"drain of {exp!r} timed out with "
+                                   f"{self._exp_inflight.get(exp, 0)} "
+                                   "ops in flight"}
+                self._map_cv.wait(timeout=min(0.05, remaining))
+        if faults.fire("crash_handoff_source"):
+            # barrier 1 (pre-snapshot): fenced + drained, nothing captured
+            os.kill(os.getpid(), _signal_mod.SIGKILL)
+        if self._evict_enabled:
+            # an evicted experiment ships resident: page it back in under
+            # the fence so the capture below sees the full state
+            self.hydrate_experiment(exp)
+        wal = self._wal
+        try:
+            with self._exp_lock(exp):
+                doc = self.inner.load_experiment(exp)
+                if doc is None:
+                    raise KeyError(f"experiment {exp!r} not found")
+                trials = [t.to_dict() for t in self.inner.fetch(exp)]
+            with self._sig_lock:
+                signals = [{"trial_id": t, "signal": s}
+                           for (e, t), s in self._signals.items()
+                           if e == exp]
+            with self._replies_lock:
+                replies = [{"req": r, "reply": self._replies[r]}
+                           for r, e in self._reply_exps.items()
+                           if e == exp and r in self._replies]
+            tail: list = []
+            if wal is not None:
+                # the fence holds compaction off while the tail is read —
+                # a snapshot's compact() racing this extraction could
+                # rewrite the log under it (satellite: fenced compaction)
+                with wal.compaction_fence():
+                    tail = wal.extract_tail(exp)
+        except Exception:
+            with self._map_cv:
+                self._migrating.pop(exp, None)
+                if self._wal is not None:
+                    self._wal.append({"op": "handoff_abort",
+                                      "experiment": exp})
+                self._map_cv.notify_all()
+            raise
+        if faults.fire("crash_handoff_source"):
+            # barrier 2 (post-snapshot): captured, nothing shipped
+            os.kill(os.getpid(), _signal_mod.SIGKILL)
+        return {"ok": True, "result": {
+            "experiment": doc, "trials": trials, "signals": signals,
+            "replies": replies, "wal_tail": tail,
+        }}
+
+    def _handoff_apply(self, a: Dict[str, Any]) -> Dict[str, Any]:
+        """DESTINATION side: journal + adopt one shipped experiment.
+
+        Idempotent by construction — every piece is an upsert and the
+        map adoption is version-gated — so the orchestrator retries it
+        verbatim through a chaos kill. The shipped reply-cache entries
+        (list + any journaled reply records in the WAL tail) are
+        installed AND re-journaled here, so an exactly-once
+        ``worker_cycle`` retry that lands after the move (even after a
+        further dest crash) is answered from cache, not re-executed.
+        """
+        exp = a["experiment"]
+        state = a["state"]
+        new_map = a.get("shard_map")
+        if faults.fire("crash_handoff_dest"):
+            # barrier 3 (dest pre-commit): nothing applied yet
+            os.kill(os.getpid(), _signal_mod.SIGKILL)
+        wal = self._wal
+        applied_trials = 0
+        with self._exp_lock(exp):
+            if self.inner.load_experiment(exp) is None:
+                cfg = state["experiment"]
+                self.inner.create_experiment(cfg)
+                if wal is not None:
+                    wal.append({"op": "create_experiment", "config": cfg})
+            for doc in state.get("trials") or []:
+                if faults.fire("torn_handoff_ship"):
+                    # die mid-ship: a prefix of the docs is journaled
+                    # durable, the rest never landed — the retried apply
+                    # must complete the move idempotently (fsync under
+                    # EXP is fine: SIGKILL on the next line, nothing
+                    # else ever runs in this incarnation)
+                    if wal is not None:
+                        wal.sync(wal.appended_seq)
+                    os.kill(os.getpid(), _signal_mod.SIGKILL)
+                self.inner.put_trial(Trial.from_dict(doc))
+                if wal is not None:
+                    wal.append({"op": "put_trial", "trial": doc})
+                applied_trials += 1
+            self._mutated(exp)
+        with self._sig_lock:
+            for sig in state.get("signals") or []:
+                self._signals[(exp, sig["trial_id"])] = sig["signal"]
+        if wal is not None:
+            for sig in state.get("signals") or []:
+                wal.append({"op": "set_signal", "experiment": exp,
+                            "trial_id": sig["trial_id"],
+                            "signal": sig["signal"]})
+        shipped = {r["req"]: r["reply"]
+                   for r in state.get("replies") or []}
+        for rec in state.get("wal_tail") or []:
+            # the tail's mutation records are subsumed by the shipped doc
+            # state; only its reply records (entries evicted from the
+            # in-memory cache but still journaled) add coverage
+            if rec.get("op") == "reply" and rec.get("req") not in shipped:
+                shipped[rec["req"]] = rec["reply"]
+        for req, reply in shipped.items():
+            self._cache_reply(req, reply, exp=exp)
+            self._journal_reply(req, reply, exp=exp)
+        if new_map is not None:
+            with self._map_cv:
+                if map_version(new_map) > map_version(self.shard_map):
+                    self.shard_map = new_map
+                    if self.shard_id is not None:
+                        self._ring = RoutingTable(new_map)
+                    if wal is not None:
+                        wal.append({"op": "shard_map", "map": new_map})
+                self._migrating.pop(exp, None)
+                self._map_cv.notify_all()
+        if wal is not None:
+            # make the adoption durable HERE, not just at the sender
+            # barrier: the post-commit chaos kill below must only ever
+            # fire with everything above already on disk
+            wal.sync(wal.appended_seq)
+        if faults.fire("crash_handoff_dest"):
+            # barrier 4 (dest post-commit): durable, reply never leaves —
+            # the orchestrator's retry is answered idempotently
+            os.kill(os.getpid(), _signal_mod.SIGKILL)
+        return {"ok": True, "result": {
+            "trials": applied_trials, "replies": len(shipped),
+            "map_version": map_version(self.shard_map),
+        }}
+
+    def _shard_map_update(self, a: Dict[str, Any]) -> Dict[str, Any]:
+        """Adopt a bumped shard map (version-gated, monotonic) and drop
+        local copies of experiments whose ownership moved away.
+
+        This is the OWNERSHIP COMMIT on the migration source: adopting
+        the new map makes it answer ``WrongShardError`` for the moved
+        experiment (clients re-learn and follow), the journaled
+        ``shard_map`` record + post-delete WAL records make the commit
+        crash-durable, and the fence is lifted last.
+        """
+        new_map = a["shard_map"]
+        drop = list(a.get("drop") or [])
+        adopted = False
+        with self._map_cv:
+            if map_version(new_map) > map_version(self.shard_map):
+                self.shard_map = new_map
+                if self.shard_id is not None:
+                    self._ring = RoutingTable(new_map)
+                if self._wal is not None:
+                    self._wal.append({"op": "shard_map", "map": new_map})
+                adopted = True
+            for exp in drop:
+                self._migrating.pop(exp, None)
+            self._map_cv.notify_all()
+        for exp in drop:
+            # the moved experiment's local copy dies with the commit —
+            # the ledger proxy journals the delete under the exp lock
+            self.ledger.delete_experiment(exp)
+            with self._sig_lock:
+                self._signals = {k: v for k, v in self._signals.items()
+                                 if k[0] != exp}
+            with self._producers_guard:
+                self._producers.pop(exp, None)
+                self._coalescers.pop(exp, None)
+            with self._replies_lock:
+                for req in [r for r, e in self._reply_exps.items()
+                            if e == exp]:
+                    self._reply_exps.pop(req, None)
+                    self._replies.pop(req, None)
+        return {"ok": True, "result": {
+            "adopted": adopted,
+            "map_version": map_version(self.shard_map),
+        }}
+
+    @staticmethod
+    def _encode_reply(reply: Dict[str, Any], wire: str) -> bytes:
+        """Reply payload bytes in ``wire``; a reply the binary codec cannot
+        carry falls back to JSON for that frame (receivers auto-detect)."""
+        if wire == "v2":
+            try:
+                return encode_reply_v2(reply)
+            except ProtocolError:
+                pass
+        return encode_msg(reply)
+
     def _handle(self, msg: Dict[str, Any],
                 wire: str = "v1") -> Union[Dict[str, Any], bytes]:
         """Dispatch one request; returns a reply dict or preencoded bytes.
@@ -2073,20 +2409,43 @@ class CoordServer:
         orphaned reservations from that path are reclaimed by the stale
         sweep.) Read ops take no server lock at all.
 
-        On an eviction-enabled server every experiment-named op first
-        clears the fence under ``_map_cv`` and is counted in
-        ``_exp_inflight`` for its whole dispatch, so an eviction can
-        quiesce one experiment (fence new ops with a retryable
-        ``Migrating``, wait for the in-flight count to drain) without
-        stalling any other experiment's traffic.
+        On a sharded server every experiment-named op first clears the
+        migration fence + ownership check under ``_map_cv`` and is
+        counted in ``_exp_inflight`` for its whole dispatch, so a
+        hand-off can quiesce one experiment (fence new ops with a
+        retryable ``Migrating``, wait for the in-flight count to drain)
+        without stalling any other experiment's traffic.
         """
         op = msg.get("op")
+        if op in self._HANDOFF_OPS:
+            return self._handle_handoff(op, msg.get("args") or {})
         exp = None
-        if self._evict_enabled and op not in (
+        if (self._ring is not None or self._evict_enabled) and op not in (
                 "ping", "snapshot", "list_experiments", "tenant_stats"):
+            # sharded serving: refuse experiment-named ops this shard does
+            # not own BEFORE any cache or dispatch — accepting one would
+            # split the experiment's state across two shards' ledgers.
+            # Never cached (a stale-map retry must re-check after the
+            # client refreshes its routing table). An eviction-enabled
+            # server runs the same fence + in-flight accounting even
+            # unsharded: evict_experiment drains through it exactly like
+            # a hand-off, so a capture can never interleave a dispatch.
             exp = experiment_of(op, msg.get("args") or {})
             if exp is not None:
                 with self._map_cv:
+                    # ownership BEFORE the fence: after the commit a
+                    # recovered (journaled) fence may still be armed for
+                    # an experiment this shard no longer owns, and the
+                    # client must be told to re-learn the map, not to
+                    # retry here forever
+                    if self._ring is not None:
+                        owner = self._ring.owner(exp)
+                        if owner != self.shard_id:
+                            return {
+                                "ok": False, "error": "WrongShardError",
+                                "msg": f"experiment {exp!r} is owned by "
+                                       f"shard {owner}, not {self.shard_id}",
+                            }
                     dest = self._migrating.get(exp)
                     if dest is not None:
                         return {
@@ -2095,7 +2454,7 @@ class CoordServer:
                                    f"shard {dest}; retry shortly",
                         }
                     # counted under the SAME cv hold as the fence check:
-                    # an op admitted here is visible to a later eviction's
+                    # an op admitted here is visible to a later prepare's
                     # drain wait, an op arriving after the fence is not
                     self._exp_inflight[exp] = (
                         self._exp_inflight.get(exp, 0) + 1)
@@ -2283,6 +2642,20 @@ class CoordServer:
                 # path locally switch their connections to it (old clients
                 # ignore the field — wire framing is unchanged)
                 reply["uds_path"] = self.uds_path
+            if self._ring is not None:
+                # sharded serving: teach the client the map so its next
+                # call routes straight to the owning shard; read under
+                # _map_cv so a concurrent hand-off commit can never hand
+                # out a half-swapped map
+                reply["caps"] = reply["caps"] + ["shard_map"]
+                with self._map_cv:
+                    reply["shard_map"] = self.shard_map
+                reply["shard_id"] = self.shard_id
+                # the port's device rule: each shard process owns its own
+                # device context, and says which (and who it is) here
+                reply["pid"] = os.getpid()
+                reply["device"] = (None if self.device is None
+                                   else str(self.device))
             return reply
         if op == "create_experiment":
             cfg = a["config"]

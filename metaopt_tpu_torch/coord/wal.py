@@ -5,7 +5,7 @@
 Every acknowledged mutation is on disk before its reply leaves the sender
 thread, and recovery is ``restore(snapshot) + replay(WAL tail)``. The
 record bytes equal the reference's, so either package replays the other's
-log. ``extract_tail`` (the hand-off's) is not ported yet.
+log. ``extract_tail`` gives a hand-off one experiment's records.
 
 Record formats (a log may mix them freely; each record declares its own)::
 
@@ -383,6 +383,47 @@ class WriteAheadLog:
         appends and syncs are unaffected.
         """
         return _CompactionFence(self)
+
+    def extract_tail(self, experiment: str) -> List[Dict[str, Any]]:
+        """All on-disk + buffered records attributed to ``experiment``.
+
+        Takes the group-commit leader role so the pending buffer is
+        flushed first and no concurrent batch interleaves with the read —
+        the returned tail is therefore complete up to every acknowledged
+        write at the moment of the call. Call under a
+        :meth:`compaction_fence` when the result must stay valid until an
+        ownership commit.
+        """
+        if self._f is None:
+            return []
+        while True:
+            with self._cv:
+                if self._syncing:
+                    self._cv.wait(timeout=1.0)
+                    continue
+                self._syncing = True
+            break
+        upto = 0
+        try:
+            with self._buf_lock:
+                batch, self._pending = self._pending, []
+                upto = self._appended
+            try:
+                self._write_batch(batch)
+            except OSError:
+                log.exception("WAL extract_tail flush failed")
+                with self._cv:
+                    self._failed = True
+                return []
+            records, _ = read_records(self.path, truncate_torn=False)
+            return [r for r in records
+                    if record_experiment(r) == experiment]
+        finally:
+            with self._cv:
+                if not self._failed:
+                    self._durable = max(self._durable, upto)
+                self._syncing = False
+                self._cv.notify_all()
 
     def _fence_enter(self) -> None:
         tid = threading.get_ident()

@@ -1,16 +1,17 @@
 """Fault injection for executor tests.
 
-Port of ``metaopt_tpu/executor/faults.py``. The port's consumers are the
-subprocess executor's three kinds, so failure-detection paths — broken
-trials, lost heartbeats, spawn failures — are testable deterministically
-instead of waiting for real preemptions:
+Port of ``metaopt_tpu/executor/faults.py``. The subprocess executor's
+three kinds make failure-detection paths — broken trials, lost
+heartbeats, spawn failures — testable deterministically instead of
+waiting for real preemptions:
 
     from metaopt_tpu_torch.executor.faults import faults
     faults.arm("kill_trial", times=1)        # next trial gets SIGTERMed
     faults.arm("drop_heartbeat", times=2)    # next 2 heartbeats report lost
     faults.arm("spawn_fail", times=1)        # next spawn errors out
 
-or via env (picked up at import, for subprocess-launched workers):
+or via env (picked up at import, for subprocess-launched workers AND
+subprocess-launched coordinators):
 
     METAOPT_TPU_FAULTS="kill_trial:1,drop_heartbeat:2"
     METAOPT_TPU_FAULTS="kill_trial:1@5"           # skip 5 firings, then fire
@@ -27,6 +28,36 @@ indefinitely. The stream is seeded per kind and advanced once per
 ``fire`` call, so a whole fault sweep is reproducible from the seed
 alone. Deterministic ``times@skip`` rules take precedence when both are
 armed for the same kind.
+
+Coordinator kinds (consumed in ``coord/server.py`` and ``coord/wal.py``;
+each SIGKILLs the process at a crash-consistent point, so arm them only
+in a subprocess-hosted server): ``crash_server``, ``torn_wal_tail``,
+``partial_snapshot``, ``crash_segment_seal``, ``crash_manifest_commit``
+and ``crash_evict``.
+
+Hand-off kinds (consumed in ``coord/server.py``; the ``@skip`` selector
+walks the barriers of the live-migration protocol in order):
+
+- ``crash_handoff_source``: die on the SOURCE shard — skip 0 fires
+  after the experiment is fenced but before its state is captured
+  (pre-snapshot), skip 1 fires after capture, before the reply ships
+  (post-snapshot). Either way nothing was shipped; the source's own
+  WAL + fence journaling must bring it back still owning the
+  experiment.
+- ``crash_handoff_dest``: die on the DESTINATION shard — skip 0 fires
+  before any shipped state is applied (pre-commit), skip 1 fires after
+  the shipped state is journaled + fsynced but before the apply reply
+  (post-commit). The orchestrator's retry against the respawned dest
+  must be idempotent.
+- ``torn_handoff_ship``: die on the destination mid-apply with only a
+  prefix of the shipped trial docs journaled — recovery replays the
+  partial prefix harmlessly and the orchestrator's retried apply
+  completes the move.
+
+The scale simulator (``metaopt_tpu_torch/sim``) builds a private injector
+from its own spec with ``FaultInjector(spec=...)``; its kinds are
+``sim_worker_death``, ``sim_lost_heartbeat``, ``sim_delay`` and
+``sim_crash_server``.
 
 ``fire(kind)`` is the single hook executors consult; it is thread-safe and
 cheap when nothing is armed (one dict lookup).

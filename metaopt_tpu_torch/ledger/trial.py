@@ -17,8 +17,22 @@ from typing import Any, Dict, List, Mapping, Optional
 from metaopt_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 from metaopt_tpu_torch.utils.hashing import jsonable, point_hash
 
-#: Clock used for submit/start/end/heartbeat stamps.
+#: Clock used for submit/start/end/heartbeat stamps.  Trials are
+#: constructed all over the tree (workers, server replay, CLI), so the
+#: seam is a module-level source rather than a per-instance parameter;
+#: the simulator swaps it for a VirtualClock via ``set_trial_clock``.
 _CLOCK: Clock = SYSTEM_CLOCK
+
+
+def set_trial_clock(clock: Optional[Clock]) -> Clock:
+    """Install ``clock`` (or restore the system clock with ``None``) as
+    the source for Trial timestamps; returns the previous clock so
+    callers can restore it.
+    """
+    global _CLOCK
+    prev = _CLOCK
+    _CLOCK = clock if clock is not None else SYSTEM_CLOCK
+    return prev
 
 #: Legal status values and transitions.
 STATUSES = ("new", "reserved", "completed", "interrupted", "broken", "suspended")

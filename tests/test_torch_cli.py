@@ -20,6 +20,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -452,3 +453,125 @@ def test_executor_n_chips_in_the_config_file_pins_trials(tmp_path, quad, capsys,
         assert rc == 0 and out["total"] == {"completed": 2}
         # the defaults' executor.n_chips (1) pins nothing; the file's does
         assert all(t.resources.get("chips") == want for t in ledger_from_spec(led).fetch(name))
+
+
+def _cpu_coord_config(tmp_path):
+    path = tmp_path / "coord_cpu.json"
+    path.write_text(json.dumps({"coordinator": {"device": "cpu"}}))
+    return str(path)
+
+
+def _serve(argv, env, timeout_s=120.0):
+    """Start ``python -m metaopt_tpu_torch serve ...``; return the process
+    and its ready line (or the whole output if it exited first)."""
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "metaopt_tpu_torch", "serve"] + argv,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines = []
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if "coordinator ready" in line:
+                ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.monotonic() + timeout_s
+    while not ready.wait(0.05):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            reader.join(timeout=5)
+            break
+    return proc, "".join(lines), reader
+
+
+def test_serve_shards_then_rebalance_through_python_dash_m(tmp_path, quad, capsys):
+    """``serve --shards 2`` with ``coordinator.device: cpu``: a hosted hunt
+    through the router's public address, then ``rebalance`` moves the
+    experiment to the other shard with every completion, in the
+    reference's words; a second ``rebalance`` has nothing to do."""
+    from metaopt_tpu_torch.coord import CoordLedgerClient
+    from metaopt_tpu_torch.coord.shards import ring_of
+
+    env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(tmp_path))
+    snap = tmp_path / "shards"
+    snap.mkdir()
+    proc, out, reader = _serve(["--shards", "2", "--ledger", "memory", "--snapshot",
+                                str(snap), "--config", _cpu_coord_config(tmp_path)], env)
+    try:
+        assert "coordinator ready at coord://" in out, out[-3000:]
+        assert "2 shards: s0=coord://" in out
+        addr = out.split("coordinator ready at coord://")[1].split()[0]
+        host, port = addr.rsplit(":", 1)
+        c = CoordLedgerClient(host, int(port), io_timeout_s=60.0, reconnect_window_s=30.0)
+        smap = c.ping()["shard_map"]
+        nm = next(f"cli-{i}" for i in range(100) if ring_of(smap).owner(f"cli-{i}") == "s0")
+        cfg = algo_config(tmp_path, {"random": {"seed": 2}})
+        rc = main(["hunt", "-n", nm, "--ledger", f"coord://{addr}", "--producer", "coord",
+                   "--n-workers", "2", "--max-trials", "4", "--config", cfg, quad,
+                   "-x~uniform(-3, 3)"])
+        assert rc == 0
+        capsys.readouterr()
+        assert c.count(nm, "completed") == 4
+        before = sorted(t.id for t in c.fetch(nm))
+        reb = [sys.executable, "-m", "metaopt_tpu_torch", "rebalance", "--coord", addr,
+               "--experiment", nm, "--dest", "s1", "--window-s", "30"]
+        moved = subprocess.run(reb, env=env, capture_output=True, text=True, timeout=120)
+        assert moved.returncode == 0, moved.stderr[-2000:]
+        assert moved.stdout.startswith(f"{nm}: s0 -> s1 ({len(before)} trials, ")
+        assert moved.stdout.rstrip().endswith("cached replies, map v2)")
+        c.ping()
+        assert c._ring.owner(nm) == "s1"
+        assert sorted(t.id for t in c.fetch(nm)) == before
+        assert c.count(nm, "completed") == 4
+        again = subprocess.run(reb, env=env, capture_output=True, text=True, timeout=120)
+        assert again.returncode == 0
+        assert "already lives on s1; nothing to do" in again.stdout
+        bad = subprocess.run(reb[:-4] + ["--dest", "s9"], env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert bad.returncode == 2 and "unknown destination shard 's9'" in bad.stderr
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        reader.join(timeout=10)
+    assert proc.returncode == 0
+
+
+def test_serve_shards_without_cuda_fails_unless_given_cpu(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(tmp_path))
+    proc, out, reader = _serve(["--shards", "2", "--ledger", "memory"], env)
+    try:
+        assert proc.wait(timeout=60) != 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        reader.join(timeout=10)
+    out += proc.stdout.read() if not proc.stdout.closed else ""
+    assert "CUDA is not available" in out and "coordinator ready" not in out
+
+
+def test_simulate_json_gives_the_reference_report(tmp_path, capsys):
+    """``simulate --json`` on ``coordinator.device: cpu``: the reference
+    CLI's report keys and verdict, and for ASHA and Hyperband its event-log
+    digest; without the config it raises (no CUDA here)."""
+    argv = ["simulate", "--workers", "150", "--algos", "asha", "hyperband",
+            "--trials", "16", "--seed", "3", "--json"]
+    rc, ours = run_json(capsys, argv + ["--config", _cpu_coord_config(tmp_path)])
+    ref_rc, theirs = run_json(capsys, argv, cli=ref_main)
+    assert rc == ref_rc == 0 and ours["ok"] is theirs["ok"] is True
+    assert ours.keys() == theirs.keys()
+    assert ours["config"].keys() == theirs["config"].keys()
+    assert ours["crashes"] == theirs["crashes"] == 2
+    assert ours["event_log_sha256"] == theirs["event_log_sha256"]
+    import torch
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)

@@ -228,3 +228,131 @@ def test_each_server_recovers_the_others_snapshot_and_wal_tail(tmp_path, writer,
         assert sorted(_doc(got), key=key) == sorted(_doc(delta), key=key)
         assert c2.fetch_completed_since("r", cur2)[0] == []
         assert s2._signals.get(("r", held)) == "stop"
+
+
+def _shard_pair(kind, tmp_path):
+    """Two in-process shards of one package behind one map; returns the
+    servers (started) and the map."""
+    from metaopt_tpu_torch.coord.shards import _free_port, make_shard_map
+
+    smap = make_shard_map([(f"s{i}", "127.0.0.1", _free_port())
+                           for i in range(2)])
+    servers = []
+    for s in smap["shards"]:
+        srv = SERVERS[kind](host=s["host"], port=s["port"], shard_id=s["id"],
+                            shard_map=smap,
+                            snapshot_path=str(tmp_path / f"{kind}-{s['id']}.snap"))
+        servers.append(srv.start())
+    return servers, smap
+
+
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("client,server", [("port", "ref"), ("ref", "port")])
+def test_each_client_routes_over_the_other_packages_shards(tmp_path, client,
+                                                           server, wire):
+    """A client of one package, seeded at shard s0 of the other package,
+    learns the shard map from that shard's ping and completes trials on
+    both shards directly; each shard holds only the experiment it owns,
+    and a map that the seed bumps (a rebalance's override) is adopted."""
+    from metaopt_tpu_torch.coord.shards import ring_of, with_override
+
+    servers, smap = _shard_pair(server, tmp_path)
+    try:
+        cls, Trial = CLIENTS[client]
+        host, port = servers[0].address
+        c = cls(host=host, port=port, wire=wire, reconnect_window_s=5.0,
+                **({"io_timeout_s": 30.0} if client == "port" else {}))
+        ping = c.ping()
+        assert "shard_map" in ping["caps"] and ping["shard_map"] == smap
+        assert c._ring is not None
+        ring = ring_of(smap)
+        names = {}
+        for i in range(100):
+            names.setdefault(ring.owner(f"ix-{i}"), f"ix-{i}")
+        assert sorted(names) == ["s0", "s1"]
+        for sid, nm in sorted(names.items()):
+            c.create_experiment(_config(nm, {"random": {"seed": 3}}, max_trials=3))
+            done = None
+            for _ in range(3):
+                r = c.worker_cycle(nm, "w0", pool_size=2, complete=done)
+                t = r["trial"]
+                t.transition("completed")
+                t.attach_results([{"name": "objective", "type": "objective",
+                                   "value": float(t.params["x"]) ** 2}])
+                done = {"trial": t.to_dict(), "expected_status": "reserved",
+                        "expected_worker": "w0"}
+            r = c.worker_cycle(nm, "w0", pool_size=2, complete=done,
+                               produce=False)
+            assert r["completed_ok"]
+            assert c.count(nm, "completed") == 3
+        for srv, sid in zip(servers, ("s0", "s1")):
+            assert srv.inner.list_experiments() == [names[sid]]
+        assert sorted(c.list_experiments()) == [names["s0"]]  # seed's view
+        # the seed adopts a bumped map; the client follows on its next ping
+        moved = with_override(smap, names["s0"], "s1")
+        for srv in servers:
+            srv._handle({"op": "shard_map_update", "args": {"shard_map": moved}})
+        c.ping()
+        assert c._map_version == 2 and c._ring.owner(names["s0"]) == "s1"
+        if wire == "auto":
+            assert c._wire_for(c._seed) == "v2"
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
+@pytest.mark.parametrize("wire", ["v1", pytest.param("v2", marks=pytest.mark.skipif(
+    not HAVE_WIRE_V2, reason="msgpack unavailable: wire v2 off"))])
+@pytest.mark.parametrize("source,dest", [("ref", "port"), ("port", "ref")])
+def test_an_experiment_migrates_between_the_packages_shards(tmp_path, monkeypatch, source,
+                                                            dest, wire):
+    """The hand-off admin plane speaks one protocol on either wire: the
+    port's ``migrate_experiment`` moves an experiment from one package's
+    shard to the other's (prepare, apply, commit), every acknowledged
+    completion and cached reply arrives, and the source answers
+    ``WrongShardError``."""
+    from metaopt_tpu_torch.coord import handoff
+    from metaopt_tpu_torch.coord.handoff import migrate_experiment
+    from metaopt_tpu_torch.coord.shards import (_free_port, make_shard_map,
+                                                ring_of, with_override)
+
+    if wire == "v1":   # an orchestrator without msgpack ships the state as JSON
+        monkeypatch.setattr(handoff, "HAVE_WIRE_V2", False)
+
+    smap = make_shard_map([(f"s{i}", "127.0.0.1", _free_port()) for i in range(2)])
+    kinds = {"s0": source, "s1": dest}
+    servers = {s["id"]: SERVERS[kinds[s["id"]]](
+        host=s["host"], port=s["port"], shard_id=s["id"], shard_map=smap,
+        snapshot_path=str(tmp_path / f"{s['id']}.snap")).start()
+        for s in smap["shards"]}
+    try:
+        nm = next(f"mv-{i}" for i in range(100) if ring_of(smap).owner(f"mv-{i}") == "s0")
+        c = _client("port", servers["s0"])
+        c.ping()
+        c.create_experiment(_config(nm, {"random": {"seed": 9}}, max_trials=8))
+        done = None
+        for _ in range(4):
+            t = c.worker_cycle(nm, "w0", pool_size=2, complete=done)["trial"]
+            t.transition("completed")
+            t.attach_results([{"name": "objective", "type": "objective",
+                               "value": float(t.params["x"]) ** 2}])
+            done = {"trial": t.to_dict(), "expected_status": "reserved",
+                    "expected_worker": "w0"}
+        c.worker_cycle(nm, "w0", pool_size=2, complete=done, produce=False)
+        before = sorted(_doc(c.fetch(nm)), key=lambda d: d["id"])
+        new_map = with_override(smap, nm, "s1")
+        res = migrate_experiment(nm, servers["s0"].address, servers["s1"].address,
+                                 "s1", new_map, window_s=10.0)
+        assert {handoff._ADDR_WIRE[servers[sid].address] for sid in kinds} == {wire}
+        assert res["trials"] == len(before) and res["replies"] >= 5
+        assert res["map_version"] == 2
+        c.ping()
+        assert c._ring.owner(nm) == "s1"
+        assert sorted(_doc(c.fetch(nm)), key=lambda d: d["id"]) == before
+        assert c.count(nm, "completed") == 4
+        miss = servers["s0"]._handle({"op": "count", "args": {"experiment": nm}})
+        assert miss["error"] == "WrongShardError"
+        assert nm not in servers["s0"].inner.list_experiments()
+    finally:
+        for srv in servers.values():
+            srv.stop()

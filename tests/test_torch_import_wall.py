@@ -13,7 +13,9 @@ EVC branch on the native engine behind a bare path, whose library must be
 the port's own build under ``metaopt_tpu_torch/_build/`` (never the
 reference's ``libledgerstore.so``), and a hosted TPE hunt through the
 coordinator that ``serve`` runs (``hunt --producer coord``, two workers,
-the fleet-fused plane on).
+the fleet-fused plane on), a live hand-off between two in-process shards
+(``coord/handoff.py``), the shard process's entry point refusing ``cuda``
+without CUDA, and a small simulation (``sim/``) with a hosted TPE.
 """
 
 import ast
@@ -91,7 +93,12 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/coord/shards.py",
                  "metaopt_tpu_torch/coord/fuser.py",
                  "metaopt_tpu_torch/coord/server.py",
-                 "metaopt_tpu_torch/coord/client_backend.py"):
+                 "metaopt_tpu_torch/coord/client_backend.py",
+                 "metaopt_tpu_torch/coord/handoff.py",
+                 "metaopt_tpu_torch/sim/__init__.py",
+                 "metaopt_tpu_torch/sim/clock.py",
+                 "metaopt_tpu_torch/sim/certify.py",
+                 "metaopt_tpu_torch/sim/engine.py"):
         assert must in names
 
 
@@ -124,7 +131,10 @@ assert {"metaopt_tpu_torch.models.lm", "metaopt_tpu_torch.models.moe",
         "metaopt_tpu_torch.coord.wal", "metaopt_tpu_torch.coord.tenancy",
         "metaopt_tpu_torch.coord.shards", "metaopt_tpu_torch.coord.fuser",
         "metaopt_tpu_torch.coord.server",
-        "metaopt_tpu_torch.coord.client_backend"} <= set(mods), mods
+        "metaopt_tpu_torch.coord.client_backend",
+        "metaopt_tpu_torch.coord.handoff", "metaopt_tpu_torch.sim",
+        "metaopt_tpu_torch.sim.clock", "metaopt_tpu_torch.sim.certify",
+        "metaopt_tpu_torch.sim.engine"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 
 from metaopt_tpu_torch import build_experiment
@@ -211,6 +221,37 @@ with CoordServer(device="cpu", snapshot_path=os.path.join(root, "snap.json"),
     assert cli.count("hosted", "completed") == 8
     algo = srv._producers["hosted"][0].algorithm
     assert type(algo).__name__ == "TPE" and str(algo.device) == "cpu"
+# a live hand-off between two in-process shards
+from metaopt_tpu_torch.coord.handoff import migrate_experiment
+from metaopt_tpu_torch.coord.shards import (_free_port, _shard_main, make_shard_map,
+                                            ring_of, with_override)
+smap = make_shard_map([(f"s{i}", "127.0.0.1", _free_port()) for i in range(2)])
+shards = [CoordServer(device="cpu", host=s["host"], port=s["port"], shard_id=s["id"],
+                      shard_map=smap).start() for s in smap["shards"]]
+try:
+    nm = next(f"h{i}" for i in range(99) if ring_of(smap).owner(f"h{i}") == "s0")
+    cli = CoordLedgerClient(*shards[0].address)
+    cli.create_experiment({"name": nm, "max_trials": 2})
+    res = migrate_experiment(nm, shards[0].address, shards[1].address, "s1",
+                             with_override(smap, nm, "s1"), window_s=10.0)
+    assert res["map_version"] == 2, res
+    assert shards[1].inner.list_experiments() == [nm]
+finally:
+    for srv in shards:
+        srv.stop()
+import torch
+if not torch.cuda.is_available():
+    try:
+        _shard_main(["--shard-id", "s0", "--port", str(_free_port())])
+        raise AssertionError("a shard on cuda started without CUDA")
+    except RuntimeError as err:
+        assert "CUDA is not available" in str(err)
+# a small simulation with a hosted TPE
+from metaopt_tpu_torch.sim import SimConfig, Simulation
+rep = Simulation(SimConfig(workers=30, tenants=2, experiments_per_tenant=1,
+                           algos=("tpe", "asha"), max_trials=12,
+                           faults="sim_crash_server:1@10"), device="cpu").run()
+assert rep.ok and rep.crashes == 1 and rep.acked_completions == 24, rep.to_dict()
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not leaked, leaked
 print("WALL-OK", len(mods))
