@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through eighteen phases and exits non-zero if any fails:
+``metaopt_tpu``) through nineteen phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -66,8 +66,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    trials (cut from 100 to 50 to pay for phase 17, to 32 for phase 18) — all completed, none broken, none run twice, a finite best, and
    ``status --json`` from another fresh process agreeing; (b) BASELINE
    config 2, TPE (``examples/tpe.yaml``'s settings, passed as JSON) on
-   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 3 trials, 2 of them
-   initial points (cut from 16 and 10 to fit the script's time limit),
+   ``metaopt_tpu_torch/examples/mlp_mnist.py``, 2 trials, 1 of them an
+   initial point (cut from 16 and 10 to fit the script's time limit),
    each a fresh process on the card — finite, at least 1 suggested by EI,
    in the space,
    each on CUDA — split into process start → first CUDA op, training, and
@@ -158,7 +158,7 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    EI.
 14. lm: the decoder-only LM at full width (``make_lm``'s defaults: d_model
    512, 8 heads, 6 layers, d_ff 2048, vocab 1000) at seq 512. (a) Card
-   against CPU at full width, batch 2, 2 layers (depth cut from 6 to fit
+   against CPU at full width, batch 1, 2 layers (depth cut from 6 to fit
    the time limit), on the same weights, attention seeds and
    feed-forward masks: dense, and MoE with 8 experts at k = 1 and 2
    (capacity 1.25), each at dropout 0 and 0.1: eval-mode logits within 3e-2
@@ -252,7 +252,7 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    the bucket launches against the same members' solo launches (CUDA
    kernels, host ms, device ms per bucket and per member), each fused row
    against the member's solo row (winners equal except at f32 ties of
-   1e-5), then one live fuser tick. (e) 4 client threads x 125
+   1e-5), then one live fuser tick. (e) 4 client threads x 64
    ``worker_cycle`` round trips over TCP and over the socket, WAL
    fsync'd: p50 and p99 microseconds.
 18. shards: sharded serving. (a) ``python -m metaopt_tpu_torch -v serve
@@ -284,13 +284,32 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    wall seconds, events, recovery seconds per 10k WAL records, the two
    digests side by side (the first diverging event if they differ); then
    a TPE-only simulation that reaches EI on the card.
+19. web: the read side over [ledger]'s native directory (config 1's 32
+   Rosenbrock trials, the 15,000-trial EVC parent, the TPE child) and two
+   experiments written here (32 random ZDT1 trials; 8 Rosenbrock lineages
+   at fidelity 1, 3, 9). (a) ``python -m metaopt_tpu_torch web`` in a
+   fresh process, the surrogate on the card, booting while (b) and (c)
+   run. (b) In-process ``make_server(..., device="cuda")``: every route
+   (``/``, ``/healthz``, ``/dashboard``, ``/experiments``, each
+   experiment's document, completed trials, regret, parallel and workers,
+   ``/lcurves``, ``/pareto``, ``/importance`` and ``/pdp`` at n 32, a 404
+   and 400s), each status as expected, ms and bytes per route. (c)
+   ``ard_importance`` and ``partial_dependence`` (d 2, 24 grid points, 64
+   background rows) card against CPU at n 32 and 512 (importance within
+   1e-3, the curves within 5e-3 of the objective's std); host ms, device
+   ms, CUDA kernels and peak memory per call at n 32 and 4096. (d) The
+   same routes from the ``web`` process, each JSON equal to (b)'s (the
+   surrogate's within (c)'s bounds, ``/workers`` but for the ages), and
+   ``plot regret|lcurve|parallel|importance|pdp|pareto --json``
+   in-process equal to the routes; then the process is stopped.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
 line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
 line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line, a
-``{"coord": {...}}`` line, a ``{"shards": {...}}`` line and, last,
+``{"coord": {...}}`` line, a ``{"shards": {...}}`` line, a ``{"web":
+{...}}`` line and, last,
 the ``{"ok": true, "device": {...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
@@ -328,10 +347,10 @@ TPE_SPACE = {  # BASELINE config 2: examples/mlp_mnist.py's docstring
 }
 TPE_TRIALS, TPE_INITIAL = 16, 10
 # config 2 through the CLI: cut from 16 trials (10 random, 6 by EI) to 5
-# (4 random, 1 by EI) in PR 11, then to 3 (2 random, 1 by EI) in PR 13 to
-# pay for phase 17; the in-process hunt of [tpe] keeps its 16 with
-# tpe.yaml's 10 initial points
-HUNT_TPE_TRIALS, HUNT_TPE_INITIAL = 3, 2
+# (4 random, 1 by EI), then to 3 (2 random, 1 by EI) to pay for phase 17,
+# and to 2 (1 random, 1 by EI) for phase 19; the in-process hunt of [tpe]
+# keeps its 16 with tpe.yaml's 10 initial points
+HUNT_TPE_TRIALS, HUNT_TPE_INITIAL = 2, 1
 # BASELINE config 1 through the CLI ([hunt] on file:, [ledger] on the native
 # engine): cut from 100 trials to 50 to pay for phase 17, and to 32 to pay
 # for phase 18
@@ -450,9 +469,11 @@ PBT_TRIAL_S = 60        # a trial's share of the CLI's deadline
 MOTPE_YAML = {"seed": 0, "n_objectives": 2, "n_initial_points": 12, "gamma": 0.3}
 MOTPE_TRIALS = 24
 LM_BATCH, LM_SEQ = 32, 512      # train_lm's batch at the phase's sequence: 16,384 tokens
-# card against CPU (the CPU runs the plain attention): full width, batch 2,
-# depth cut from 6 to 2 layers to fit the script's time limit
-LM_CMP_BATCH, LM_CMP_LAYERS = 2, 2
+# card against CPU (the CPU runs the plain attention): full width, depth
+# cut from 6 to 2 layers to fit the script's time limit, batch cut from 2
+# to 1 to pay for phase 19 (every bound held at batch 1 on the H100:
+# routers 1.03e-2 at worst against 5e-2, gradient norms 1.18e-3)
+LM_CMP_BATCH, LM_CMP_LAYERS = 1, 2
 # the routers' gradient norms, card against CPU: each token's router-logit
 # gradient sums to 0 over the experts, so these are sums whose terms cancel,
 # and the bf16 attention kernels' differences from the CPU's f32 plain
@@ -3469,7 +3490,10 @@ def tpe_fit_card_vs_cpu(torch, algo):
     return errs, cpu
 
 
-def ledger_phase(torch, smi: str, hunt_stats):
+def ledger_phase(torch, smi: str, hunt_stats, keep_root: bool = False):
+    """``keep_root``: on success leave the phase's directory (its native
+    ledger) for [web] and return it as ``out["root"]``; the caller
+    removes it."""
     import numpy as np
 
     from metaopt_tpu_torch import native
@@ -3760,12 +3784,15 @@ def ledger_phase(torch, smi: str, hunt_stats):
             f"B/trial, {rss['off']['fetch_completed_s']:.3f} s; TPE's columnar observe of the "
             f"CompletedBatch {observe_s:.3f} s")
         mark("archive")
+        if keep_root:
+            out["root"] = str(root)
     finally:
         for proc in probes.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        shutil.rmtree(root, ignore_errors=True)
+        if "root" not in out:
+            shutil.rmtree(root, ignore_errors=True)
     out["part_s"] = part_s
     log(f"[ledger] part seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in part_s.items()))
     return out
@@ -3785,8 +3812,8 @@ COORD_GP_FLEET, COORD_GP_N = 8, (64, 71)
 COORD_TIE = 1e-5            # ROADMAP B4's rule: winners equal except at f32 ties
 COORD_SOLO_TIMED = 8        # members whose solo launches are timed and profiled
 # (e), per transport: cut from 250 cycles a thread to 125 to pay for phase
-# 18
-COORD_RPC_THREADS, COORD_RPC_CYCLES = 4, 125
+# 18, and to 64 for phase 19
+COORD_RPC_THREADS, COORD_RPC_CYCLES = 4, 64
 
 
 def start_serve(args, root: Path, env, tag: str, group: bool = False):
@@ -4864,6 +4891,350 @@ def shards_phase(torch, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the read side: `web`, `plot`, GP-BO's analyses on the card
+
+WEB_READY_S = 90            # spawn -> listening deadline of `web`
+WEB_N = (32, 512, 4096)     # the surrogate at config 1's n, the CPU check's, the big one
+WEB_SEED = 15
+WEB_MO_TRIALS = 32          # random ZDT1 trials for /pareto
+WEB_FID_LINEAGES = 8        # Rosenbrock lineages at fidelity 1, 3, 9 for /lcurves
+# card against CPU: importance absolute, the pdp curves over the
+# objective's standard deviation. Wider than the fit bound GP_TOL["fit"]:
+# 80 Adam steps of an f32 fit at n 512 carry rounding far, so that moving
+# each objective by one f32 ulp moves the reference's own importance by
+# 3.4e-4 and its curves by 2.0e-3 sd (on these inputs, on the CPU); the
+# card against the CPU measured 1.0e-4 and 4.9e-4 sd there (H100 80GB HBM3)
+WEB_TOL = {"importance": 1e-3, "pdp_sd": 5e-3}
+
+
+def start_web(args, root: Path, env):
+    """``python -m metaopt_tpu_torch web ARGS`` in a fresh process; a thread
+    drains its output and stamps its listening line."""
+    import threading
+
+    h = {"lines": [], "ready": threading.Event(), "t0": time.perf_counter()}
+    h["proc"] = subprocess.Popen([sys.executable, "-m", "metaopt_tpu_torch", "web", *args],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                 env=env, cwd=root)
+
+    def drain():
+        for line in h["proc"].stdout:
+            h["lines"].append(line)
+            if line.startswith("webapi listening on http://"):
+                h["url"] = line.split()[-1]
+                h["ready_at"] = time.perf_counter()
+                h["ready"].set()
+
+    threading.Thread(target=drain, name="web", daemon=True).start()
+    return h
+
+
+def fetch(url: str):
+    """(status, body bytes, ms) of one GET, error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as err:
+        code, body = err.code, err.read()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def surrogate_rows(np, n: int, seed: int):
+    """n unit-cube rows in 2-d and a smooth objective with noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.random((n, 2)).astype(np.float32)
+    y = (np.sin(6.0 * X[:, 0]) + 4.0 * (X[:, 1] - 0.3) ** 2
+         + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return X, y
+
+
+def surrogate_diff(torch, G, np, X, y):
+    """Card against CPU for one input: (importance max |diff|, pdp curves'
+    max |diff| over the objective's std)."""
+    imp = [G.ard_importance(X, y, device=d) for d in ("cuda", "cpu")]
+    pdp = [G.partial_dependence(X, y, device=d)[1] for d in ("cuda", "cpu")]
+    fin = y[np.isfinite(y)]
+    return (float(np.abs(imp[0] - imp[1]).max()),
+            float(np.abs(pdp[0] - pdp[1]).max()) / float(fin.std() + 1e-8))
+
+
+def surrogate_call(torch, fn, how: str = "both"):
+    """(stats, result) of one surrogate call ``fn``, by ``how``:
+
+    - ``both``: host ms and peak memory over one synchronized call, device
+      ms and CUDA kernels from torch.profiler (CUDA activity only) over
+      one more;
+    - ``traced``: one call under the profiler gives all four (host ms then
+      includes the profiler's recording, not its post-processing, which
+      costs ~5 s at 35k kernels): for a fit at n 4096, whose device time
+      dwarfs the recording;
+    - ``events``: one call, device ms by CUDA events around it (the busy
+      time of a device-bound call), no kernel count.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() - base,
+                start.elapsed_time(end), res)
+
+    t_all = time.perf_counter()
+    st = {"how": how, "device_ms": None, "cuda_kernels": None}
+    if how != "traced":
+        st["host_ms"], st["peak_bytes"], ev_ms, res = timed()
+        if how == "events":
+            st["device_ms"] = ev_ms
+    if how != "events":
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                if how == "traced":
+                    st["host_ms"], st["peak_bytes"], _, res = timed()
+                else:
+                    fn()
+                    torch.cuda.synchronize()
+            rows = kernel_rows(prof, 1)
+            st["device_ms"], st["cuda_kernels"] = (sum(r[1] for r in rows),
+                                                   sum(r[2] for r in rows))
+        except Exception as err:  # the profiler is a measurement aid only
+            log(f"  (torch.profiler unavailable: {type(err).__name__}: {err})")
+            if "host_ms" not in st:
+                st["host_ms"], st["peak_bytes"], _, res = timed()
+    st["wall_s"] = time.perf_counter() - t_all
+    return st, res
+
+
+def web_equal(a, b, tol: float = 0.0, path: str = "") -> None:
+    """a == b, floats within ``tol``; raises naming the first difference."""
+    if isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys():
+        for k in a:
+            web_equal(a[k], b[k], tol, f"{path}/{k}")
+    elif isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            web_equal(x, y, tol, f"{path}[{i}]")
+    elif isinstance(a, float) and isinstance(b, float):
+        if not abs(a - b) <= tol:
+            raise AssertionError(f"[web] {path}: {a!r} != {b!r} (tol {tol:g})")
+    elif a != b:
+        raise AssertionError(f"[web] {path}: {str(a)[:200]} != {str(b)[:200]}")
+
+
+def web_phase(torch, smi: str, ledger_root: Path):
+    """``web`` and ``plot`` over [ledger]'s native directory: its config-1
+    ``rosen`` (32 trials), the 15,000-trial EVC ``parent`` and the TPE
+    ``child``, plus a ZDT1 run and a fidelity run written here."""
+    import numpy as np
+
+    from metaopt_tpu_torch.algo import gp_bo as G
+    from metaopt_tpu_torch.io import webapi
+    from metaopt_tpu_torch.ledger import Experiment
+    from metaopt_tpu_torch.ledger.backends import ledger_from_spec
+    from metaopt_tpu_torch.models.objectives import rosenbrock
+    from metaopt_tpu_torch.space import build_space
+
+    repo = Path(__file__).resolve().parent
+    bare = str(ledger_root / "ledger")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = {"card": smi}
+    part_s, last = {}, [time.perf_counter()]
+
+    def mark(part: str) -> None:  # seconds since the previous part ended
+        now = time.perf_counter()
+        part_s[part] = now - last[0]
+        last[0] = now
+
+    # -- (a) `web` on the card, booting while (b) and (c) run here -----------
+    h = start_web(["--ledger", bare, "--port", "0"], ledger_root, env)
+    server = None
+    try:
+        led = ledger_from_spec(bare)
+        rng = np.random.default_rng(WEB_SEED)
+        mo = Experiment("mo", led, space=build_space({"x": "uniform(0, 1)",
+                                                      "y": "uniform(0, 1)"}),
+                        algorithm={"random": {}}, max_trials=WEB_MO_TRIALS).configure()
+        for x, y in rng.random((WEB_MO_TRIALS, 2)).tolist():
+            p = {"x": x, "y": y}
+            mo.register_trials([mo.make_trial(p)])
+            mo.push_results(mo.reserve_trial("w0"), zdt1(p))
+        fid = Experiment("fid", led, space=build_space({**ROSEN_SPACE,
+                                                        "epochs": "fidelity(1, 9, base=3)"}),
+                         algorithm={"random": {}}, max_trials=3 * WEB_FID_LINEAGES).configure()
+        for x, y in rng.uniform(-5.0, 10.0, (WEB_FID_LINEAGES, 2)).tolist():
+            for e in (1, 3, 9):
+                p = {"x": x, "y": y, "epochs": e}
+                fid.register_trials([fid.make_trial(p)])
+                fid.push_results(fid.reserve_trial("w0"), [
+                    {"name": "objective", "type": "objective",
+                     "value": rosenbrock(p) * (1.0 + 1.0 / e)}])
+        counts = {n: led.count(n, "completed") for n in ("rosen", "parent", "child", "mo", "fid")}
+        if counts != {"rosen": ROSEN_TRIALS, "parent": LEDGER_PARENT,
+                      "child": LEDGER_CHILD_TRIALS, "mo": WEB_MO_TRIALS,
+                      "fid": 3 * WEB_FID_LINEAGES}:
+            raise AssertionError(f"[web] the ledger holds {counts} completed trials")
+        mark("ledger")
+
+        # -- (b) every route in-process, the surrogate on the card ----------
+        server = webapi.make_server(led, device="cuda")
+        webapi.start_in_thread(server)
+        base = "http://%s:%d" % server.server_address[:2]
+        routes = [("", 200), ("healthz", 200), ("dashboard", 200), ("experiments", 200),
+                  ("experiments/ghost", 404), ("nope", 404),
+                  ("experiments/rosen/trials?status=bogus", 400),
+                  ("experiments/rosen/lcurves", 400), ("experiments/rosen/pareto", 400)]
+        for name in ("rosen", "child", "mo", "fid"):
+            routes += [(f"experiments/{name}{tail}", 200)
+                       for tail in ("", "/trials?status=completed", "/regret", "/parallel",
+                                    "/workers")]
+        # the size a dashboard polls on a long sweep
+        routes += [(f"experiments/parent/{tail}", 200)
+                   for tail in ("trials?status=completed", "regret", "parallel")]
+        routes += [("experiments/fid/lcurves", 200), ("experiments/mo/pareto", 200),
+                   ("experiments/rosen/importance", 200), ("experiments/rosen/pdp", 200)]
+        answers, per_route = {}, {}
+        for path, want in routes:
+            code, body, ms = fetch(f"{base}/{path}")
+            if code != want:
+                raise AssertionError(f"[web] GET /{path}: {code}, expected {want}: "
+                                     f"{body[:500]!r}")
+            answers[path] = body
+            per_route[path] = {"status": code, "ms": ms, "bytes": len(body)}
+        for path in ("experiments/rosen/importance", "experiments/rosen/pdp"):
+            # the first fit paid the card's first cuSOLVER and autograd calls
+            per_route[path]["warm_ms"] = fetch(f"{base}/{path}")[2]
+        out["routes"] = per_route
+        log("[web] (b) in-process, ms / bytes: " + "; ".join(
+            f"/{p} {r['ms']:.1f} / {r['bytes']}" for p, r in per_route.items())
+            + f"; card {smi}")
+        mark("routes")
+
+        # the `web` process's answers, fetched in a thread as soon as it
+        # listens, while (c) runs here
+        import threading
+
+        remote = {}
+
+        def fetch_remote():
+            if h["ready"].wait(max(0.0, WEB_READY_S - (time.perf_counter() - h["t0"]))):
+                for path, _ in routes:
+                    remote[path] = fetch(f"{h['url']}/{path}")
+
+        fetcher = threading.Thread(target=fetch_remote, name="web-fetch", daemon=True)
+        fetcher.start()
+
+        # -- (c) the surrogate on the card against the CPU, and its cost ----
+        (cube, X32, y32), _ = webapi._surrogate_inputs(led, "rosen")
+        inputs = {32: (X32, y32)}
+        for n in WEB_N[1:]:
+            inputs[n] = surrogate_rows(np, n, WEB_SEED + n)
+        diffs = {}
+        for n in WEB_N[:2]:
+            t0 = time.perf_counter()
+            imp_err, pdp_err = surrogate_diff(torch, G, np, *inputs[n])
+            diffs[n] = {"importance_max_abs": imp_err, "pdp_max_abs_over_sd": pdp_err,
+                        "wall_s": time.perf_counter() - t0}
+        out["card_vs_cpu"] = diffs
+        if any(d["importance_max_abs"] > WEB_TOL["importance"]
+               or d["pdp_max_abs_over_sd"] > WEB_TOL["pdp_sd"] for d in diffs.values()):
+            raise AssertionError(f"[web] the surrogate, card against CPU: {diffs} "
+                                 f"(bounds {WEB_TOL})")
+        calls = {}
+        # pdp's fit is importance's, plus one Cholesky and d mat-vecs (87
+        # kernels at n 32): it is timed by CUDA events only, sparing a trace
+        # post-processing of 4-9 s a call
+        for n, hows in ((WEB_N[0], ("both", "events")), (WEB_N[-1], ("traced", "events"))):
+            X, y = inputs[n]
+            for label, fn, how in (
+                    ("importance", lambda: G.ard_importance(X, y, device="cuda"), hows[0]),
+                    ("pdp", lambda: G.partial_dependence(X, y, device="cuda")[1], hows[1])):
+                calls[f"{label}_n{n}"], res = surrogate_call(torch, fn, how)
+                if not np.isfinite(res).all():
+                    raise AssertionError(f"[web] {label} at n {n} is not finite: {res}")
+        out["surrogate"] = calls
+        log(f"[web] (c) card vs cpu: {diffs} (bounds {WEB_TOL}); per call: " + "; ".join(
+            f"{k} host {v['host_ms']:.1f} ms, device {v['device_ms']} ms, {v['cuda_kernels']} "
+            f"kernels, peak {v['peak_bytes'] / 2**20:.1f} MiB" for k, v in calls.items())
+            + f"; card {smi}")
+        mark("surrogate")
+
+        # -- (d) the `web` process and `plot` give the same JSON ------------
+        fetcher.join(WEB_READY_S + 300)
+        if not h["ready"].is_set() or len(remote) != len(routes):
+            raise AssertionError(f"[web] web not listening in {WEB_READY_S} s, or it answered "
+                                 f"{len(remote)} of {len(routes)} routes:\n"
+                                 + "".join(h["lines"])[-3000:])
+        out["web_ready_s"] = h["ready_at"] - h["t0"]
+        out["web_process"] = {}
+        for path, want in routes:
+            code, body, ms = remote[path]
+            if code != want:
+                raise AssertionError(f"[web] the web process: GET /{path}: {code}: "
+                                     f"{body[:500]!r}")
+            out["web_process"][path] = {"ms": ms, "bytes": len(body)}
+            if path == "dashboard":
+                if body != answers[path]:
+                    raise AssertionError("[web] the dashboards differ")
+                continue
+            a, b = json.loads(body), json.loads(answers[path])
+            if path.endswith("/workers"):   # the age at the request's time
+                a, b = ([{k: v for k, v in r.items() if k != "last_seen_age_s"} for r in x]
+                        for x in (a, b))
+            tol = 0.0
+            if path.endswith("/importance"):
+                tol = WEB_TOL["importance"]
+            elif path.endswith("/pdp"):
+                tol = WEB_TOL["pdp_sd"] * float(y32.std() + 1e-8)
+            web_equal(a, b, tol, path)
+        plots = {}
+        for kind, name, path in (("regret", "rosen", "regret"), ("lcurve", "fid", "lcurves"),
+                                 ("parallel", "rosen", "parallel"),
+                                 ("importance", "rosen", "importance"),
+                                 ("pdp", "rosen", "pdp"), ("pareto", "mo", "pareto")):
+            t0 = time.perf_counter()
+            rc, text = cli_in_process(["plot", kind, "-n", name, "--ledger", bare, "--json"])
+            plots[kind] = (time.perf_counter() - t0) * 1e3
+            if rc != 0:
+                raise AssertionError(f"[web] plot {kind} returned {rc}: {text[-2000:]}")
+            tol = {"importance": WEB_TOL["importance"],
+                   "pdp": WEB_TOL["pdp_sd"] * float(y32.std() + 1e-8)}.get(kind, 0.0)
+            web_equal(json.loads(text), json.loads(answers[f"experiments/{name}/{path}"]),
+                      tol, f"plot {kind}")
+        out["plot_ms"] = plots
+        log(f"[web] (d) `web` listening {out['web_ready_s']:.2f} s after spawn; every route's "
+            f"JSON equal to in-process (surrogate within {WEB_TOL}), ms (fetched while (c) "
+            f"ran): " + "; ".join(f"/{p} {r['ms']:.1f}" for p, r in out["web_process"].items())
+            + "; plot --json equal to the routes, ms: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in plots.items()))
+        mark("web_and_plot")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        proc = h["proc"]
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)   # serve_forever closes and returns
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    out["part_s"] = part_s
+    log("[web] part seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in part_s.items()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5107,16 +5478,23 @@ def main() -> int:
     mark("batched")
 
     # -- 16. the ledger at sweep scale: the native engine, EVC, the archive ----
-    ledger_stats = ledger_phase(torch, smi, hunt_stats)
+    ledger_stats = ledger_phase(torch, smi, hunt_stats, keep_root=True)
+    ledger_root = Path(ledger_stats.pop("root"))
     mark("ledger")
+    try:
+        # -- 17. the coordinator: serve, kill -9 and recovery, the fleet, RPCs
+        coord_stats = coord_phase(torch, smi)
+        mark("coord")
 
-    # -- 17. the coordinator: serve, kill -9 and recovery, the fleet, RPCs ----
-    coord_stats = coord_phase(torch, smi)
-    mark("coord")
+        # -- 18. sharded serving: serve --shards, rebalance, failover, simulate
+        shards_stats = shards_phase(torch, smi)
+        mark("shards")
 
-    # -- 18. sharded serving: serve --shards, rebalance, failover, simulate ---
-    shards_stats = shards_phase(torch, smi)
-    mark("shards")
+        # -- 19. the read side: `web`, `plot`, GP-BO's analyses on the card --
+        web_stats = web_phase(torch, smi, ledger_root)
+        mark("web")
+    finally:
+        shutil.rmtree(ledger_root, ignore_errors=True)
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -5168,6 +5546,7 @@ def main() -> int:
     print(json.dumps({"ledger": ledger_stats}), flush=True)
     print(json.dumps({"coord": coord_stats}), flush=True)
     print(json.dumps({"shards": shards_stats}), flush=True)
+    print(json.dumps({"web": web_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -58,9 +58,13 @@ the B = 1 case) and a bucket of experiments with equal-cap factors
 vmaps one traced body for both. The standardization mean and spread reach
 the device as (B,) float32 rows in both paths, so a fused row equals the
 member's solo launch bit for bit on the CPU. ``fuse_snapshot`` /
-``fuse_commit`` / ``fuse_abort`` feed the fuser. Not ported yet: the
-analysis helpers ``partial_dependence`` and ``ard_importance`` with their
-fits.
+``fuse_commit`` / ``fuse_abort`` feed the fuser.
+
+The analyses: :func:`ard_importance` and :func:`partial_dependence` fit a
+cold ARD surrogate (:func:`_fit_surrogate`, the same Adam) on the
+device their ``device`` argument names (``cuda`` unless the caller passes
+another) from host inputs standardized and padded in numpy exactly as the
+reference does, so both packages fit the same padded rows.
 """
 
 from __future__ import annotations
@@ -416,6 +420,118 @@ def gp_acquire_fused(X, y_raw, L, n: int, mu: float, sd: float, fit_seed: int, c
                  for p in range(n_pools)]
     return _gp_acquire_body(X, y_raw, L, n, mu, sd, draws, params,
                             n_cand=n_cand, n_out=n_out)
+
+
+def _fit_ard(X, y, mask, fit_lr: float, *, fit_iters: int):
+    """Fitted (log_ls, log_amp, log_noise) for importance analysis: a cold
+    fit from :func:`_default_params`, on the device of ``X``."""
+    theta0 = _pack(_default_params(X.shape[1], X.device))
+    return _unpack(_adam_fit(theta0, X, y, mask, fit_lr, fit_iters))
+
+
+def _fit_surrogate(X, y, *, fit_iters: int = 80, fit_lr: float = 0.05, device=None):
+    """Shared surrogate-fit preamble for importance + partial dependence.
+
+    Drops non-finite objectives (a diverged trial must not poison either
+    analysis), pow2-pads, standardizes (all on the host, in numpy, as the
+    reference does) and runs the ARD fit on ``device`` (``cuda`` unless
+    the caller passes another; without CUDA it raises). Returns
+    ``(params, Xp, yp, mask, mu, sd, X_finite)``: ``params`` and the
+    padded ``Xp``, ``yp``, ``mask`` as tensors on the device. Raises
+    ValueError when fewer than 2 finite rows remain — both analyses are
+    meaningless below that.
+    """
+    dev = resolve_device(device)
+    X = np.asarray(X, np.float32)
+    y = np.asarray(y, np.float32)
+    keep = np.isfinite(y)
+    X, y = X[keep], y[keep]
+    n, d = X.shape
+    if n < 2:
+        raise ValueError("surrogate analysis needs >= 2 finite trials")
+    mu, sd = float(y.mean()), float(y.std() + 1e-8)
+    npad = pad_pow2(max(n, 2))
+    Xp = np.zeros((npad, d), np.float32)
+    Xp[:n] = X
+    yp = np.zeros(npad, np.float32)
+    yp[:n] = (y - mu) / sd
+    mask = np.zeros(npad, np.float32)
+    mask[:n] = 1.0
+    Xp, yp, mask = (torch.from_numpy(a).to(dev) for a in (Xp, yp, mask))
+    params = _fit_ard(Xp, yp, mask, fit_lr, fit_iters=fit_iters)
+    return params, Xp, yp, mask, mu, sd, X
+
+
+def _posterior_alpha(X, y, mask, params):
+    """One Cholesky for the whole analysis: the mean needs only alpha."""
+    K = _masked_gram(X, mask, params["log_ls"], params["log_amp"],
+                     params["log_noise"])
+    return _cho_solve(_cholesky(K), y * mask)
+
+
+def _mean_from_alpha(X, mask, params, alpha, Xq):
+    """Posterior mean at the rows of ``Xq``: Ksᵀ·alpha, summed elementwise
+    (never a TF32 matrix product)."""
+    Ks = _kernel(X, Xq, params["log_ls"], params["log_amp"]) * mask[:, None]
+    return torch.sum(Ks * alpha[:, None], dim=0)
+
+
+def partial_dependence(
+    X: np.ndarray, y: np.ndarray, *, n_grid: int = 24,
+    max_background: int = 64, fit_iters: int = 80, fit_lr: float = 0.05,
+    seed: int = 0, device=None,
+):
+    """(grid, curves): 1-D partial dependence of each dim under the GP.
+
+    Computed from the same fitted ARD surrogate that serves importance
+    (shared :func:`_fit_surrogate`), on ``device``. For each dimension d
+    and grid value g, the curve is the posterior mean averaged over
+    background points drawn from the OBSERVED data (the classic PDP
+    estimator), de-standardized back to objective units. The gram is
+    factored ONCE (:func:`_posterior_alpha`); each dimension's queries
+    then cost one kernel-matvec. X: (n, d) unit-cube points; y: (n,) raw
+    objectives (non-finite rows dropped; ValueError below 2 finite).
+    Returns ``grid`` (n_grid,) in [0, 1], ``curves`` (d, n_grid) float64.
+    """
+    params, Xp, yp, mask, mu, sd, Xf = _fit_surrogate(
+        X, y, fit_iters=fit_iters, fit_lr=fit_lr, device=device
+    )
+    n, d = Xf.shape
+    alpha = _posterior_alpha(Xp, yp, mask, params)
+    rng = np.random.RandomState(seed)
+    bg = Xf if n <= max_background else Xf[
+        rng.choice(n, max_background, replace=False)
+    ]
+    grid = ((np.arange(n_grid) + 0.5) / n_grid).astype(np.float32)
+    curves = np.zeros((d, n_grid), np.float64)
+    for j in range(d):
+        # (G·B, d) queries: background rows with dim j pinned per grid
+        # value — kept per-dim so the kernel slab stays O(npad · G·B)
+        Q = np.repeat(bg[None, :, :], n_grid, axis=0)      # (G, B, d)
+        Q[:, :, j] = grid[:, None]
+        m = _mean_from_alpha(
+            Xp, mask, params, alpha, torch.from_numpy(Q.reshape(-1, d)).to(Xp.device),
+        ).cpu().numpy().reshape(n_grid, len(bg))
+        curves[j] = m.mean(axis=1) * sd + mu
+    return grid, curves
+
+
+def ard_importance(
+    X: np.ndarray, y: np.ndarray, *, fit_iters: int = 80, fit_lr: float = 0.05,
+    device=None,
+) -> np.ndarray:
+    """Per-dimension importance from a fitted ARD GP, normalized to sum 1.
+
+    The ARD RBF's sensitivity along dimension d scales as 1/lengthscale²:
+    a short lengthscale means the objective bends quickly along that axis
+    (the lineage's LPI role). X in the unit cube (n, d); y raw objectives
+    (non-finite rows dropped — shared :func:`_fit_surrogate` preamble, so
+    importance and partial dependence read the identical surrogate). The
+    fit runs on ``device`` (``cuda`` unless the caller passes another).
+    """
+    params, *_ = _fit_surrogate(X, y, fit_iters=fit_iters, fit_lr=fit_lr, device=device)
+    inv_sq = torch.exp(-2.0 * params["log_ls"]).cpu().numpy().astype(np.float64)
+    return inv_sq / max(inv_sq.sum(), 1e-12)
 
 
 @algo_registry.register("gp")

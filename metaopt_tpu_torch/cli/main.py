@@ -11,7 +11,12 @@ own command line, with ``~priors`` marking searchable arguments:
 
 Ported subcommands: ``hunt``, ``init-only``, ``insert``, ``resume``,
 ``list``, ``status``, ``info``, ``db`` (``test``, ``rm``, ``compact``,
-``dump``, ``load``, ``set``, ``release``) and ``benchmark``. A bare
+``dump``, ``load``, ``set``, ``release``), ``benchmark``, ``plot``
+(``regret``, ``lcurve``, ``parallel``, ``importance``, ``pdp``,
+``pareto``) and ``web`` (the read-only REST API of
+:mod:`~metaopt_tpu_torch.io.webapi`). The importance and pdp views fit
+their GP surrogate on ``cuda`` unless ``surrogate.device`` in the config
+file names another (the CPU tests pass ``"cpu"``). A bare
 ``--ledger DIR`` resolves as the reference's does: the native ledgerstore
 engine, or the file backend where the directory already holds per-trial
 JSON documents or ``g++`` cannot build the engine. EVC: ``--warm-start``,
@@ -218,6 +223,27 @@ def build_parser() -> argparse.ArgumentParser:
     common(info)
     info.add_argument("--json", action="store_true", dest="as_json")
 
+    plot = sub.add_parser("plot", help="optimization diagnostics")
+    plot.add_argument("kind",
+                      choices=["regret", "lcurve", "parallel", "importance",
+                               "pdp",
+                               "pareto"],
+                      help="regret: best-objective-so-far per completed "
+                           "trial; lcurve: objective vs fidelity budget per "
+                           "lineage (multi-fidelity experiments); parallel: "
+                           "parallel-coordinates data (params + objective "
+                           "per completed trial, JSON); importance: "
+                           "per-parameter importance from a fitted ARD GP "
+                           "surrogate (the lineage's LPI role); pdp: 1-D "
+                           "partial dependence of each parameter under "
+                           "the same surrogate; pareto: "
+                           "nondominated front over the trials' objective "
+                           "vectors (multi-objective experiments). The "
+                           "surrogate is fitted on cuda unless the config "
+                           "file's surrogate.device names another")
+    common(plot)
+    plot.add_argument("--json", action="store_true", dest="as_json")
+
     st = sub.add_parser("status", help="show experiment state")
     common(st)
     st.add_argument("--json", action="store_true", dest="as_json")
@@ -269,6 +295,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="test: emit the check report as JSON")
     db.add_argument("--config", help="framework config YAML (or JSON)")
     db.add_argument("--ledger", help=LEDGER_HELP)
+
+    web = sub.add_parser(
+        "web", help="read-only REST API over the ledger (dashboards)"
+    )
+    web.add_argument("--config", help="framework config YAML (or JSON); its "
+                                      "surrogate.device places the "
+                                      "importance and pdp routes' GP fits "
+                                      "(default cuda)")
+    web.add_argument("--ledger", help=LEDGER_HELP)
+    web.add_argument("--host", default="127.0.0.1")
+    web.add_argument("--port", type=int, default=0,
+                     help="0 binds an ephemeral port (printed at startup)")
 
     tn = sub.add_parser(
         "tenants",
@@ -1084,14 +1122,16 @@ def _cmd_info(args, cfg: Dict[str, Any]) -> int:
     ledger = _make_ledger_from_spec(args.ledger, cfg)
     if not args.name:
         raise SystemExit("info needs an experiment name (-n/--name)")
-    doc = ledger.load_experiment(args.name)
-    if doc is None:
+    from metaopt_tpu_torch.io.webapi import _experiment_detail
+
+    detail = _experiment_detail(ledger, args.name)
+    if detail is None:
         raise SystemExit(f"no such experiment: {args.name}")
     exp = Experiment(args.name, ledger).configure()
-    s = exp.stats
+    s = detail["stats"]
     payload = {
         "name": exp.name,
-        "version": doc.get("version", 1),
+        "version": detail.get("version", 1),
         "algorithm": exp.algorithm,
         "space": {n: d.get_prior_string() for n, d in exp.space.items()},
         "max_trials": exp.max_trials,
@@ -1119,6 +1159,235 @@ def _cmd_info(args, cfg: Dict[str, Any]) -> int:
         print(f"  best: {s['best']['objective']:.6g} at {s['best']['params']}")
     if exp.user_args:
         print(f"  command: {' '.join(exp.user_args)}")
+    return 0
+
+
+def _cmd_plot(args, cfg: Dict[str, Any]) -> int:
+    """The lineage's regret/lcurve plots, and the surrogate and Pareto
+    views that the web API serves from the same series.
+
+    Emits JSON (--json) or ASCII; no plotting dependency needed. The
+    importance and pdp surrogates are fitted on ``cuda`` unless the config
+    file's ``surrogate.device`` names another.
+    """
+    from metaopt_tpu_torch.io.webapi import regret_series
+
+    ledger = _make_ledger_from_spec(args.ledger, cfg)
+    if not args.name:
+        raise SystemExit("plot needs an experiment name (-n/--name)")
+    if ledger.load_experiment(args.name) is None:
+        raise SystemExit(f"no such experiment: {args.name}")
+    if args.kind == "lcurve":
+        return _plot_lcurve(args, ledger)
+    if args.kind == "parallel":
+        return _plot_parallel(args, ledger)
+    device = (cfg.get("surrogate") or {}).get("device")
+    if args.kind == "importance":
+        return _plot_importance(args, ledger, device)
+    if args.kind == "pdp":
+        return _plot_pdp(args, ledger, device)
+    if args.kind == "pareto":
+        return _plot_pareto(args, ledger)
+    points = regret_series(ledger, args.name)
+    if args.as_json:
+        print(json.dumps({"experiment": args.name, "regret": points},
+                         indent=2))
+        return 0
+    if not points:
+        print("no completed trials")
+        return 0
+    bests = [p["best"] for p in points]
+    lo, hi = min(bests), max(bests)
+    span = (hi - lo) or 1.0
+    height = 8
+    rows = [[" "] * len(bests) for _ in range(height)]
+    for x, b in enumerate(bests):
+        # row 0 is printed first and labelled `hi`, so b == hi maps to row 0
+        rows[int((hi - b) / span * (height - 1))][x] = "*"
+    print(f"regret ({args.name}): best objective over {len(bests)} "
+          "completed trials")
+    for r, row in enumerate(rows):
+        label = hi - (span * r / (height - 1))
+        print(f"{label:>12.4g} |{''.join(row)}")
+    print(f"{'':>12} +{'-' * len(bests)}")
+    print(f"final best: {bests[-1]:.6g}")
+    return 0
+
+
+def _plot_pareto(args, ledger) -> int:
+    """Nondominated front of a multi-objective experiment.
+
+    ASCII scatter for the first two objectives (front points ``*``,
+    dominated ``.``) or the full front as JSON; the ranking computation is
+    shared with GET /experiments/{name}/pareto and the motpe algorithm.
+    """
+    from metaopt_tpu_torch.io.webapi import pareto_series
+
+    code, payload = pareto_series(ledger, args.name)
+    if code != 200:
+        print(payload.get("error", "pareto front unavailable"))
+        return 1
+    if args.as_json:
+        print(json.dumps(payload, indent=2))
+        return 0
+    front = payload["front"]
+    # one consistent snapshot: the payload carries the dominated points
+    # too, so the scatter needs no second (racy) ledger read
+    all_pts = ([(r["objectives"][0], r["objectives"][1], True)
+                for r in front]
+               + [(o[0], o[1], False) for o in payload["dominated"]])
+    xs = [p[0] for p in all_pts]
+    ys = [p[1] for p in all_pts]
+    lo_x, hi_x = min(xs), max(xs)
+    lo_y, hi_y = min(ys), max(ys)
+    sx = (hi_x - lo_x) or 1.0
+    sy = (hi_y - lo_y) or 1.0
+    width, height = 56, 14
+    grid = [[" "] * width for _ in range(height)]
+    for x, y, on_front in sorted(all_pts, key=lambda p: p[2]):
+        c = int((x - lo_x) / sx * (width - 1))
+        r = int((hi_y - y) / sy * (height - 1))  # row 0 = objective-2 max
+        grid[r][c] = "*" if on_front else "."
+    print(f"pareto front ({args.name}): {len(front)} nondominated of "
+          f"{payload['trials']} completed trials, "
+          f"{payload['n_objectives']} objectives"
+          + (" (showing the first two)" if payload["n_objectives"] > 2
+             else ""))
+    for r, row in enumerate(grid):
+        label = hi_y - sy * r / (height - 1)
+        print(f"{label:>12.4g} |{''.join(row)}")
+    print(f"{'':>12} +{'-' * width}")
+    print(f"{'':>12}  {lo_x:<.4g}{'':>{max(1, width - 16)}}{hi_x:>.4g}")
+    return 0
+
+
+def _plot_importance(args, ledger, device) -> int:
+    """Per-parameter importance from the ARD GP surrogate's lengthscales.
+
+    ref: the lineage's LPI (local parameter importance) plot — the
+    computation is shared with GET /experiments/{name}/importance so the
+    two surfaces can never disagree.
+    """
+    from metaopt_tpu_torch.io.webapi import importance_series
+
+    code, payload = importance_series(ledger, args.name, device)
+    if code != 200:
+        print(payload.get("error", "importance unavailable"))
+        return 1
+    if args.as_json:
+        print(json.dumps(payload, indent=2))
+        return 0
+    pairs = sorted(payload["importance"].items(), key=lambda p: -p[1])
+    print(f"parameter importance ({args.name}, ARD GP over "
+          f"{payload['trials']} completed trials):")
+    width = max(len(n) for n, _ in pairs)
+    for name, v in pairs:
+        bar = "#" * max(1, int(v * 40))
+        print(f"  {name:<{width}}  {v:6.1%}  {bar}")
+    return 0
+
+
+def _plot_pdp(args, ledger, device) -> int:
+    """1-D partial dependence per parameter (fitted ARD GP surrogate).
+
+    ref: the lineage's ``plot partial_dependencies`` — shared with
+    GET /experiments/{name}/pdp. Text mode renders each parameter's mean
+    curve as a sparkline (low objective = tall bar = better region) with
+    the minimizing x highlighted.
+    """
+    from metaopt_tpu_torch.io.webapi import pdp_series
+
+    code, payload = pdp_series(ledger, args.name, device)
+    if code != 200:
+        print(payload.get("error", "partial dependence unavailable"))
+        return 1
+    if args.as_json:
+        print(json.dumps(payload, indent=2))
+        return 0
+    blocks = "▁▂▃▄▅▆▇█"
+    print(f"partial dependence ({args.name}, ARD GP over "
+          f"{payload['trials']} completed trials; taller = lower "
+          f"objective = better):")
+    width = max(len(n) for n in payload["pdp"])
+    for pname, curve in payload["pdp"].items():
+        ys = curve["mean"]
+        lo, hi = min(ys), max(ys)
+        span = (hi - lo) or 1.0
+        spark = "".join(
+            blocks[int((hi - v) / span * (len(blocks) - 1))] for v in ys
+        )
+        bx = curve["x"][ys.index(lo)]
+        bxs = f"{bx:.4g}" if isinstance(bx, float) else str(bx)
+        print(f"  {pname:<{width}}  {spark}  min {lo:.4g} at {bxs}")
+    return 0
+
+
+def _plot_parallel(args, ledger) -> int:
+    """Parallel-coordinates export: one row per completed trial.
+
+    Always JSON (the natural input for any parallel-coordinates renderer);
+    without --json a compact table prints instead.
+    """
+    from metaopt_tpu_torch.io.webapi import parallel_series
+
+    dims, rows = parallel_series(ledger, args.name)
+    if args.as_json:
+        print(json.dumps({"experiment": args.name, "dimensions": dims,
+                          "trials": rows}, indent=2))
+        return 0
+    if not rows:
+        print("no completed trials")
+        return 0
+    widths = {d: max(len(d), 10) for d in dims}
+    header = "  ".join(d.ljust(widths[d]) for d in dims) + "  objective"
+    print(header)
+    for r in sorted(rows, key=lambda r: r["objective"])[:40]:
+        cells = []
+        for d in dims:
+            v = r[d]
+            s = f"{v:.4g}" if isinstance(v, float) else str(v)
+            cells.append(s.ljust(widths[d]))
+        print("  ".join(cells) + f"  {r['objective']:.6g}")
+    if len(rows) > 40:
+        print(f"... {len(rows) - 40} more (use --json for all)")
+    return 0
+
+
+def _plot_lcurve(args, ledger) -> int:
+    """Objective vs fidelity budget per lineage (ASHA/Hyperband/PBT/DEHB)."""
+    from metaopt_tpu_torch.io.webapi import lcurve_series
+
+    fid_name, curves = lcurve_series(ledger, args.name)
+    if fid_name is None:
+        raise SystemExit(
+            f"{args.name!r} has no fidelity dimension — lcurve needs a "
+            "multi-fidelity experiment"
+        )
+    if args.as_json:
+        print(json.dumps({"experiment": args.name, "fidelity": fid_name,
+                          "lcurves": curves}, indent=2))
+        return 0
+    if not curves:
+        print("no completed trials")
+        return 0
+    budgets = sorted({p["budget"] for pts in curves.values() for p in pts})
+    header = "lineage".ljust(14) + "".join(f"{b:>12}" for b in budgets)
+    print(f"learning curves ({args.name}), objective per {fid_name}:")
+    print(header)
+    # deepest-then-best first; cap the table at 20 lineages
+    ranked = sorted(
+        curves.items(),
+        key=lambda kv: (-len(kv[1]), kv[1][-1]["objective"]),
+    )
+    for lineage, pts in ranked[:20]:
+        by_budget = {p["budget"]: p["objective"] for p in pts}
+        cells = "".join(
+            f"{by_budget[b]:>12.4g}" if b in by_budget else " " * 12
+            for b in budgets
+        )
+        print(lineage[:12].ljust(14) + cells)
+    if len(ranked) > 20:
+        print(f"... {len(ranked) - 20} more lineages (use --json for all)")
     return 0
 
 
@@ -1921,6 +2190,18 @@ def _cmd_simulate(args: argparse.Namespace, cfg: Dict[str, Any]) -> int:
     return 0
 
 
+def _cmd_web(args, cfg: Dict[str, Any]) -> int:
+    """``web``: the read-only REST API over the ledger until SIGINT. The
+    surrogate routes fit on ``cuda`` unless the config file's
+    ``surrogate.device`` names another (never stored with an experiment)."""
+    from metaopt_tpu_torch.io.webapi import make_server, serve_forever
+
+    ledger = _make_ledger_from_spec(args.ledger, cfg)
+    device = (cfg.get("surrogate") or {}).get("device")
+    serve_forever(make_server(ledger, host=args.host, port=args.port, device=device))
+    return 0
+
+
 _COMMANDS = {
     "hunt": _cmd_hunt,
     "benchmark": _cmd_benchmark,
@@ -1929,12 +2210,14 @@ _COMMANDS = {
     "insert": _cmd_insert,
     "info": _cmd_info,
     "list": _cmd_list,
+    "plot": _cmd_plot,
     "rebalance": _cmd_rebalance,
     "resume": _cmd_resume,
     "serve": _cmd_serve,
     "simulate": _cmd_simulate,
     "status": _cmd_status,
     "tenants": _cmd_tenants,
+    "web": _cmd_web,
 }
 
 

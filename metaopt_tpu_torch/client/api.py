@@ -3,8 +3,9 @@
 Port of ``metaopt_tpu/client/api.py``: the client wraps a ledger-backed
 :class:`~metaopt_tpu_torch.ledger.experiment.Experiment`, runs ``workon``
 with the in-process executor, and shares the Producer (observe → suggest →
-dedup → register) with the manual ``suggest()``/``observe()`` loop. Not
-ported yet: ``to_pandas`` and ``pareto_front``.
+dedup → register) with the manual ``suggest()``/``observe()`` loop.
+``to_pandas`` needs pandas (imported at its call; it raises ImportError
+without it); ``pareto_front`` shares MOTPE's ranking.
 
 >>> from metaopt_tpu_torch import build_experiment
 >>> exp = build_experiment(
@@ -17,7 +18,7 @@ ported yet: ``to_pandas`` and ``pareto_front``.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from metaopt_tpu_torch.ledger.backends import LedgerBackend, ledger_from_spec
 from metaopt_tpu_torch.ledger.experiment import Experiment
@@ -196,6 +197,97 @@ class ExperimentClient:
 
     def fetch_trials(self, status: Optional[str] = None) -> List[Trial]:
         return self._exp.ledger.fetch(self._exp.name, status)
+
+    def to_pandas(self, with_evc_tree: bool = False):
+        """The experiment's trials as a DataFrame (lineage ``to_pandas``).
+
+        One row per trial: id, status, timing, worker, the objective, and
+        the params flattened into ``params.<name>`` columns. With
+        ``with_evc_tree`` the frame also includes every ancestor/child
+        version's trials (a ``experiment`` column disambiguates), walking
+        ``branch_parent`` links both ways the way the lineage's EVC
+        fetches do.
+        """
+        try:
+            import pandas as pd
+        except ImportError as err:  # the reference's message, word for word
+            raise ImportError(
+                "ExperimentClient.to_pandas needs pandas "
+                "(pip install metaopt-tpu[pandas])"
+            ) from err
+
+        from metaopt_tpu_torch.ledger.evc import branch_parent
+
+        ledger = self._exp.ledger
+        names = [self._exp.name]
+        if with_evc_tree:
+            doc = ledger.load_experiment(self._exp.name) or {}
+            seen = {self._exp.name}
+            parent = branch_parent(doc)
+            while parent and parent not in seen:  # ancestors
+                seen.add(parent)
+                names.insert(0, parent)
+                pdoc = ledger.load_experiment(parent) or {}
+                parent = branch_parent(pdoc)
+            # descendants: parent -> children map first, then expand to a
+            # fixpoint — a single sorted pass would drop a grandchild
+            # listed before its parent (e.g. fam-v10 < fam-v2)
+            children: Dict[str, List[str]] = {}
+            for other in ledger.list_experiments():
+                if other in seen:
+                    continue
+                odoc = ledger.load_experiment(other) or {}
+                p = branch_parent(odoc)
+                if p:
+                    children.setdefault(p, []).append(other)
+            frontier = list(names)
+            while frontier:
+                kids = [
+                    c for p in frontier for c in sorted(children.get(p, []))
+                    if c not in seen
+                ]
+                seen.update(kids)
+                names.extend(kids)
+                frontier = kids
+        rows = []
+        for name in names:
+            for t in ledger.fetch(name):
+                row = {
+                    "experiment": name,
+                    "id": t.id,
+                    "status": t.status,
+                    "worker": t.worker,
+                    "submit_time": t.submit_time,
+                    "start_time": t.start_time,
+                    "end_time": t.end_time,
+                    "objective": t.objective,
+                }
+                for k, v in t.params.items():
+                    row[f"params.{k}"] = v
+                rows.append(row)
+        base_cols = ["experiment", "id", "status", "worker", "submit_time",
+                     "start_time", "end_time", "objective"]
+        if not rows:  # keep the documented schema even when empty
+            return pd.DataFrame(columns=base_cols)
+        return pd.DataFrame(rows)
+
+    def pareto_front(self) -> List[Tuple[Dict[str, Any], List[float]]]:
+        """Nondominated ``(params, objective_vector)`` pairs (multi-
+        objective experiments; ranking shared with motpe / plot pareto)."""
+        import numpy as np
+
+        from metaopt_tpu_torch.algo.motpe import nondominated_ranks
+
+        done = [t for t in self._exp.fetch_completed_trials()
+                if len(t.objectives) >= 2
+                and np.all(np.isfinite(t.objectives))]
+        if not done:
+            return []
+        m = min(len(t.objectives) for t in done)
+        F = np.asarray([t.objectives[:m] for t in done])
+        ranks = nondominated_ranks(F)
+        return [(dict(done[i].params), F[i].tolist())
+                for i in np.where(ranks == 0)[0]]
 
 
 def build_experiment(

@@ -15,7 +15,10 @@ reference's ``libledgerstore.so``), and a hosted TPE hunt through the
 coordinator that ``serve`` runs (``hunt --producer coord``, two workers,
 the fleet-fused plane on), a live hand-off between two in-process shards
 (``coord/handoff.py``), the shard process's entry point refusing ``cuda``
-without CUDA, and a small simulation (``sim/``) with a hosted TPE.
+without CUDA, a small simulation (``sim/``) with a hosted TPE, and the
+read side: ``io/webapi.py``'s server answering ``/importance`` and ``plot
+pdp``, both fitting ``algo/gp_bo.py``'s ARD surrogate
+(``ard_importance``, ``partial_dependence``) on the CPU.
 """
 
 import ast
@@ -190,6 +193,31 @@ assert rc == 0, rc
 rc = main(["benchmark", "--algos", "random", "cmaes", "--task", "rastrigin",
            "--max-trials", "6", "--repetitions", "1", "--json"])
 assert rc == 0, rc
+# the read side: a web server's /importance and `plot pdp`, fitted on the CPU
+import urllib.request
+from metaopt_tpu_torch.algo.gp_bo import (_fit_ard, _fit_surrogate, _mean_from_alpha,
+                                          _posterior_alpha, ard_importance,
+                                          partial_dependence)
+from metaopt_tpu_torch.io.webapi import (_experiment_detail, _surrogate_inputs, importance_series,
+                                         lcurve_series, make_server, pareto_series, pdp_series,
+                                         start_in_thread)
+web_spec = "file:" + os.path.join(root, "web")
+exp = build_experiment("walled-imp", space={"a": "uniform(0, 1)", "b": "uniform(0, 1)"},
+                       algorithm={"random": {"seed": 0}}, max_trials=6, ledger=web_spec)
+stats = exp.workon(lambda p: 5 * (p["a"] - 0.5) ** 2)
+assert stats.completed == 6, stats.events
+server = make_server(exp.experiment.ledger, device="cpu")
+start_in_thread(server)
+host, port = server.server_address[:2]
+url = f"http://{host}:{port}/experiments/walled-imp/importance"
+with urllib.request.urlopen(url, timeout=60) as r:
+    assert set(json.loads(r.read())["importance"]) == {"a", "b"}
+server.shutdown()
+server.server_close()
+cfg = os.path.join(root, "surrogate.json")
+with open(cfg, "w") as f:
+    json.dump({"surrogate": {"device": "cpu"}}, f)
+assert main(["plot", "pdp", "-n", "walled-imp", "--ledger", web_spec, "--config", cfg]) == 0
 # the native engine behind a bare path, a branch and db test on it
 from metaopt_tpu_torch.ledger.native import NativeFileLedger
 import metaopt_tpu_torch.native as native
@@ -267,6 +295,27 @@ def test_port_runs_with_jax_unimportable():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "WALL-OK" in proc.stdout
     assert '"completed": 2' in proc.stdout
+
+
+WEBAPI_IMPORT = r'''
+import sys
+import metaopt_tpu_torch.io.webapi
+loaded = sorted(n for n in sys.modules if n.split(".")[0] == "torch")
+assert not loaded, loaded
+print("NO-TORCH")
+'''
+
+
+def test_the_webapi_module_loads_no_torch():
+    """``io/webapi.py`` backs ``list`` and ``status --workers``: importing it
+    loads no torch; its surrogate routes import the GP at their call."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-c", WEBAPI_IMPORT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO-TORCH" in proc.stdout
 
 
 HANDSHAKE = r'''
