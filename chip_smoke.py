@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through nineteen phases and exits non-zero if any fails:
+``metaopt_tpu``) through twenty phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -123,7 +123,7 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    masks: the loss and every gradient norm within 3e-2. (d) 20 timed and 5
    traced train steps at dropout 0.1. (e) BOHB (seed 0, one repetition,
    cut from two to fit phase 14) in-process over config 4's priors with
-   ``epochs~fidelity(1, 9, base=3)`` at 2 steps per epoch (cut from 50):
+   ``epochs~fidelity(1, 9, base=3)`` at 1 step per epoch (cut from 50, then 2):
    every rung filled, at
    least one point by EI on the card, K1-K3 launched 18 times per train
    step, every launch with dropout. (f) Hyperband (``hyperband.json``) on
@@ -302,6 +302,15 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    surrogate's within (c)'s bounds, ``/workers`` but for the ages), and
    ``plot regret|lcurve|parallel|importance|pdp|pareto --json``
    in-process equal to the routes; then the process is stopped.
+20. analysis: the checkers on the card's host. (a) ``python -m
+   metaopt_tpu_torch analyze`` (lint, race's static check and crashcheck's
+   static checks over the port's tree) in a subprocess: exit 0, no finding
+   beyond the port's (empty) baselines, its seconds. (b) While it runs, the
+   two device legs of ``race``'s coord suite at scale 1 on ``cuda``, each
+   under its own race runtime (two batched ``workon`` loops sharing one
+   ``BatchedExecutor``; the fuser's bucket launches over four hosted TPEs
+   racing the RPC threads): no MTR101/MTR102, the events recorded, more
+   than 0 bucket launches, each leg's seconds.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
@@ -309,7 +318,7 @@ line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
 line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line, a
 ``{"coord": {...}}`` line, a ``{"shards": {...}}`` line, a ``{"web":
-{...}}`` line and, last,
+{...}}`` line, an ``{"analysis": {...}}`` line and, last,
 the ``{"ok": true, "device": {...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
@@ -439,8 +448,9 @@ WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 5
 # a config-4 trial's wall-clock timeout, and its share of the CLI's deadline
 WMT_TIMEOUT_S, WMT_TRIAL_S = 300, 60
 # BOHB in-process: the example's fidelity, one repetition of 22 trials (cut
-# from two to fit the [lm] phase), cut from 50 steps per epoch to 2
-WMT_BOHB_FIDELITY, WMT_BOHB_STEPS_PER_EPOCH = "fidelity(1, 9, base=3)", 2
+# from two to fit the [lm] phase), cut from 50 steps per epoch to 2, and to 1
+# to fit the [analysis] phase
+WMT_BOHB_FIDELITY, WMT_BOHB_STEPS_PER_EPOCH = "fidelity(1, 9, base=3)", 1
 WMT_BOHB_REPETITIONS = 1
 WMT_BOHB_TABLE = [(0, 1, 9), (0, 3, 3), (0, 9, 1), (1, 3, 5), (1, 9, 1), (2, 9, 3)]
 WMT_RATES = (0.1, 0.3)          # attention dropout checked on the card
@@ -3189,7 +3199,7 @@ def batched_phase(torch, smi: str):
         params, cols = [t.params for t in trials], space.stack_points([t.params for t in trials])[0]
         split = {}
         for part, fn in (("stack_ms", lambda: space.stack_points(params)),
-                         ("eval_ms", lambda: ex._pool_eval(cols))):
+                         ("eval_ms", lambda: ex._pool_values(cols))):
             t0 = time.perf_counter()
             for _ in range(10):
                 fn()
@@ -5235,6 +5245,76 @@ def web_phase(torch, smi: str, ledger_root: Path):
     return out
 
 
+def analysis_phase(torch, smi: str):
+    """The checkers on the card's host and the race detector's device legs.
+
+    (a) ``python -m metaopt_tpu_torch analyze`` over the port's tree in a
+    subprocess (no torch there), running while (b) does: exit 0, and no
+    finding beyond the port's baselines (which are empty).
+    (b) The two legs of ``race``'s coord suite that drive device code, at
+    scale 1 on ``cuda``, each under its own ``RaceRuntime`` through the
+    port's ``instrument()`` (``analysis/runner.py::run_race_leg``, which
+    makes the CUDA context first): two batched ``workon`` loops sharing one
+    ``BatchedExecutor`` whose objective is a tensor expression on the card,
+    and the fuser's bucket launches racing the RPC threads' produce legs
+    over four hosted TPEs on the card. No MTR101/MTR102 may appear, and the
+    fuser must launch buckets (else the leg is vacuous).
+    """
+    from metaopt_tpu_torch.analysis import suites
+    from metaopt_tpu_torch.analysis.runner import run_race_leg
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = {"card": smi}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "metaopt_tpu_torch", "analyze",
+                             "--format", "json"], cwd=str(repo), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        legs = {}
+        for name, leg in (("batched", suites._coord_batched_phase),
+                          ("fuser", suites._coord_fuser_phase)):
+            t1 = time.perf_counter()
+            findings, events, tel = run_race_leg(leg, 1, "cuda")
+            legs[name] = {"seconds": time.perf_counter() - t1, "events": events,
+                          "findings": [f.render() for f in findings], "telemetry": tel}
+            log(f"[analysis] (b) race leg {name} on cuda: {len(findings)} MTR101/MTR102 "
+                f"finding(s), {events} events, {legs[name]['seconds']:.2f} s; {tel}; "
+                f"card {smi}")
+            for f in findings:
+                log("  " + f.render().replace("\n", "\n  "))
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    analyze_s = time.perf_counter() - t0
+    doc = json.loads(stdout) if proc.returncode in (0, 1) and stdout.strip() else {}
+    log(f"[analysis] (a) analyze over metaopt_tpu_torch: exit {proc.returncode}, "
+        f"{len(doc.get('findings', []))} finding(s) beyond the baselines "
+        f"({doc.get('grandfathered')} grandfathered), lint {doc.get('lint_runtime_s')} s + "
+        f"crashcheck {doc.get('crashcheck_runtime_s')} s, {analyze_s:.2f} s wall with (b) "
+        f"running beside it; card {smi}")
+    if proc.returncode != 0 or doc.get("findings"):
+        raise AssertionError(f"analyze failed (exit {proc.returncode}): "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    bad = {k: v["findings"] for k, v in legs.items() if v["findings"]}
+    if bad:
+        raise AssertionError(f"race findings on the card: {bad}")
+    fuser = legs["fuser"]["telemetry"]
+    if fuser["bucket_launches"] <= 0 or fuser["launch_errors"]:
+        raise AssertionError(f"the fuser leg launched no bucket on the card: {fuser}")
+    if legs["batched"]["telemetry"]["rows_evaluated"] != 16:
+        raise AssertionError(f"the batched leg: {legs['batched']['telemetry']}")
+    out.update(analyze={"exit": proc.returncode, "findings": doc["findings"],
+                        "total": doc["total"], "lint_runtime_s": doc["lint_runtime_s"],
+                        "crashcheck_runtime_s": doc["crashcheck_runtime_s"],
+                        "wall_s": analyze_s},
+               race_legs=legs)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5495,6 +5575,10 @@ def main() -> int:
         mark("web")
     finally:
         shutil.rmtree(ledger_root, ignore_errors=True)
+
+    # -- 20. the checkers: analyze, and race's device legs on the card --------
+    analysis_stats = analysis_phase(torch, smi)
+    mark("analysis")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -5547,6 +5631,7 @@ def main() -> int:
     print(json.dumps({"coord": coord_stats}), flush=True)
     print(json.dumps({"shards": shards_stats}), flush=True)
     print(json.dumps({"web": web_stats}), flush=True)
+    print(json.dumps({"analysis": analysis_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -707,6 +707,7 @@ class GPBO(SuggestAhead, BaseAlgorithm):
                         return  # nothing to fit — suggest() goes uniform
                 self._refill_pool()
 
+    # mtpu: holds(_launch_lock)
     def _refill_pool(self, min_points: Optional[int] = None) -> None:
         """One launch appended to the prefetch (caller holds _launch_lock);
         committed only if the fit is unchanged — a stale pool is discarded,
@@ -746,6 +747,7 @@ class GPBO(SuggestAhead, BaseAlgorithm):
                 served_hot = False
                 self._refill_pool(missing)
 
+    # mtpu: holds(_launch_lock)
     def _launch_ei(self, num: int) -> List[Dict[str, Any]]:
         """One acquisition launch covering ``num``; returns the whole pool.
 
@@ -807,6 +809,7 @@ class GPBO(SuggestAhead, BaseAlgorithm):
         return pts
 
     # -- fleet-fused suggest plane (coord/fuser.py) ------------------------
+    # mtpu: holds(_launch_lock)
     def fuse_snapshot(self):
         """Freeze one steady-state acquisition launch for a fleet bucket.
 
@@ -994,6 +997,7 @@ class GPBO(SuggestAhead, BaseAlgorithm):
         self._params_host = {k: list(v) if isinstance(v, list) else v
                              for k, v in p.items()}
 
+    # mtpu: holds(_launch_lock)
     def _aug_factor(self, pending, lie, n, fp):
         """Factor + buffers with pending lie rows appended (cached).
 

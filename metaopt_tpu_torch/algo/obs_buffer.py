@@ -103,13 +103,21 @@ class ObservationBuffer:
             self.cap = need
             self.reallocs += 1
         if missing > 0:
-            rows = np.stack(X_rows[self.n:n]).astype(np.float32, copy=False)
-            vals = np.asarray(y_vals[self.n:n], np.float32)
-            self.Xdev[self.n:n] = torch.from_numpy(rows).to(self.device)
-            self.ydev[self.n:n] = torch.from_numpy(vals).to(self.device)
-            self.n = n
-            self.h2d_bytes += rows.nbytes + vals.nbytes
-            self.appends += missing
+            self._append_rows(X_rows, y_vals, n)
+
+    # mtpu: hotpath
+    def _append_rows(self, X_rows: List[np.ndarray], y_vals: List[float],
+                     n: int) -> None:
+        """Rows ``[self.n, n)`` into the padded buffers in place: O(rows·d)
+        host→device, no read back (the reference's ``_append_row``)."""
+        rows = torch.from_numpy(
+            np.stack(X_rows[self.n:n]).astype(np.float32, copy=False))
+        vals = torch.tensor(y_vals[self.n:n], dtype=torch.float32)
+        self.Xdev[self.n:n] = rows.to(self.device)
+        self.ydev[self.n:n] = vals.to(self.device)
+        self.h2d_bytes += rows.nbytes + vals.nbytes
+        self.appends += n - self.n
+        self.n = n
 
     def mark_stale(self) -> None:
         """Force a full re-upload on the next ``sync`` (for callers that

@@ -180,6 +180,7 @@ class TPE(SuggestAhead, BaseAlgorithm):
         self._y.append(float(trial.objective))
 
     def _observe_batch(self, trials) -> bool:
+        # mtpu: holds(_kernel_lock)  (observe() wraps super().observe())
         columns = getattr(trials, "columns", None)
         if columns is None:
             return False

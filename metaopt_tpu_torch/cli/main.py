@@ -45,6 +45,15 @@ its own process; the supervisor never touches CUDA), ``rebalance`` moves
 one experiment between shards live, and ``simulate`` drives a
 coordinator with thousands of simulated workers on a virtual clock,
 hosting its algorithms on the same device as ``serve``.
+
+The checkers (:mod:`metaopt_tpu_torch.analysis`) scan the port's own code:
+``lint`` (lock discipline, host syncs in hot functions, the WAL durability
+contract), ``crashcheck`` (persistence order and every crash state of the
+five durable paths), ``race`` (the shared-attribute check and the
+instrumented concurrency suites, hosting on ``coordinator.device`` of its
+``--config``, ``cuda`` by default) and ``analyze`` (every static family
+at once). Their options are the reference's; ``race --config`` is the
+port's.
 """
 
 from __future__ import annotations
@@ -506,6 +515,87 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="N",
                     help="parallel assessment: worker counts to compare")
     bm.add_argument("--json", dest="as_json", action="store_true")
+
+    lint = sub.add_parser(
+        "lint",
+        help="repo-invariant static analysis (lock discipline, host "
+             "syncs in hot paths, WAL durability contract)",
+    )
+    lint.add_argument("paths", nargs="*", default=[],
+                      help="files/directories to scan (default: the "
+                           "metaopt_tpu_torch package, from any cwd)")
+    lint.add_argument("--baseline", default=None,
+                      help="grandfathered-findings file (default: the "
+                           "checked-in analysis/baseline.json)")
+    lint.add_argument("--update-baseline", action="store_true")
+    lint.add_argument("--no-baseline", action="store_true",
+                      help="report every finding, ignore the baseline")
+    lint.add_argument("--format", choices=("text", "json"),
+                      default="text", dest="lint_format")
+
+    race = sub.add_parser(
+        "race",
+        help="hybrid race detection: static shared-attribute check plus "
+             "lockset/vector-clock instrumented concurrency suites",
+    )
+    race.add_argument("--suite", action="append", default=None,
+                      choices=("coord", "algo", "wal", "sim", "all"),
+                      help="workload(s) to run instrumented (repeatable; "
+                           "default: all)")
+    race.add_argument("--scale", type=int, default=1,
+                      help="iteration multiplier (1 = fast CI run)")
+    race.add_argument("--static-only", action="store_true",
+                      help="run only the MTR001 static check, no workloads")
+    race.add_argument("--baseline", default=None,
+                      help="grandfathered-findings file (default: the "
+                           "checked-in analysis/race_baseline.json)")
+    race.add_argument("--update-baseline", action="store_true")
+    race.add_argument("--no-baseline", action="store_true",
+                      help="report every finding, ignore the baseline")
+    race.add_argument("--format", choices=("text", "json"),
+                      default="text", dest="race_format")
+    race.add_argument("--config", default=None,
+                      help="framework config YAML (or JSON); its "
+                           "coordinator.device places the coord and sim "
+                           "suites' servers and executors (default cuda)")
+
+    crash = sub.add_parser(
+        "crashcheck",
+        help="crash-consistency certification: static persistence-order "
+             "analysis plus exhaustive crash-point enumeration of every "
+             "durable path with real recovery",
+    )
+    crash.add_argument("--suite", action="append", default=None,
+                       choices=("wal", "snapshot", "archive", "evict",
+                                "handoff", "all"),
+                       help="durable path(s) to enumerate (repeatable; "
+                            "default: all)")
+    crash.add_argument("--static-only", action="store_true",
+                       help="run only the MTP static checks, no "
+                            "enumeration")
+    crash.add_argument("--baseline", default=None,
+                       help="grandfathered-findings file (default: the "
+                            "checked-in analysis/crash_baseline.json)")
+    crash.add_argument("--update-baseline", action="store_true")
+    crash.add_argument("--no-baseline", action="store_true",
+                       help="report every finding, ignore the baseline")
+    crash.add_argument("--format", choices=("text", "json"),
+                       default="text", dest="crash_format")
+
+    analyze = sub.add_parser(
+        "analyze",
+        help="umbrella static analysis: lint + race --static-only + "
+             "crashcheck --static-only, one combined report",
+    )
+    analyze.add_argument("paths", nargs="*", default=[],
+                         help="files/directories to scan (default: the "
+                              "metaopt_tpu_torch package, from any cwd)")
+    analyze.add_argument("--no-baseline", action="store_true",
+                         help="report every finding, ignore the "
+                              "baselines")
+    analyze.add_argument("--format", choices=("text", "json"),
+                         default="text", dest="analyze_format")
+
     return p
 
 
@@ -2202,15 +2292,85 @@ def _cmd_web(args, cfg: Dict[str, Any]) -> int:
     return 0
 
 
+def _cmd_lint(args: argparse.Namespace, cfg: Dict[str, Any]) -> int:
+    from metaopt_tpu_torch.analysis.runner import lint_main
+
+    argv: List[str] = list(args.paths or [])
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    if args.update_baseline:
+        argv.append("--update-baseline")
+    if args.no_baseline:
+        argv.append("--no-baseline")
+    argv += ["--format", args.lint_format]
+    return lint_main(argv)
+
+
+def _cmd_race(args: argparse.Namespace, cfg: Dict[str, Any]) -> int:
+    """``race``: the static MTR001 check and the instrumented suites. The
+    coord and sim suites host on ``coordinator.device`` of the config
+    file, ``cuda`` by default (without CUDA they raise), as ``serve``
+    does."""
+    from metaopt_tpu_torch.analysis.runner import race_main
+
+    argv: List[str] = []
+    for s in args.suite or []:
+        argv += ["--suite", s]
+    if args.scale != 1:
+        argv += ["--scale", str(args.scale)]
+    if args.static_only:
+        argv.append("--static-only")
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    if args.update_baseline:
+        argv.append("--update-baseline")
+    if args.no_baseline:
+        argv.append("--no-baseline")
+    argv += ["--format", args.race_format]
+    return race_main(argv, device=(cfg.get("coordinator") or {}).get("device"))
+
+
+def _cmd_crashcheck(args: argparse.Namespace, cfg: Dict[str, Any]) -> int:
+    from metaopt_tpu_torch.analysis.runner import crashcheck_main
+
+    argv: List[str] = []
+    for s in args.suite or []:
+        argv += ["--suite", s]
+    if args.static_only:
+        argv.append("--static-only")
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    if args.update_baseline:
+        argv.append("--update-baseline")
+    if args.no_baseline:
+        argv.append("--no-baseline")
+    argv += ["--format", args.crash_format]
+    return crashcheck_main(argv)
+
+
+def _cmd_analyze(args: argparse.Namespace, cfg: Dict[str, Any]) -> int:
+    from metaopt_tpu_torch.analysis.runner import analyze_main
+
+    argv: List[str] = list(args.paths or [])
+    if args.no_baseline:
+        argv.append("--no-baseline")
+    argv += ["--format", args.analyze_format]
+    return analyze_main(argv)
+
+
 _COMMANDS = {
     "hunt": _cmd_hunt,
+    "analyze": _cmd_analyze,
     "benchmark": _cmd_benchmark,
+    "crashcheck": _cmd_crashcheck,
     "db": _cmd_db,
     "init-only": _cmd_init_only,
     "insert": _cmd_insert,
     "info": _cmd_info,
+    "lint": _cmd_lint,
     "list": _cmd_list,
     "plot": _cmd_plot,
+    "race": _cmd_race,
     "rebalance": _cmd_rebalance,
     "resume": _cmd_resume,
     "serve": _cmd_serve,

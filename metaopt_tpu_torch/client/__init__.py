@@ -71,7 +71,7 @@ def report_results(data: List[Mapping[str, Any]]) -> None:
     # atomic, deliberately not durable: same-host IPC with the executor
     # that spawned us — if the HOST crashes the trial is re-run anyway,
     # so atomicity (never a torn read) is the whole contract here
-    os.replace(tmp, path)
+    os.replace(tmp, path)  # mtpu: lint-ok MTP001 same-host IPC, atomicity-only
 
 
 def report_objective(value: float, name: str = "objective") -> None:

@@ -115,7 +115,7 @@ class SuggestFuser:
                     continue  # mid-launch on its own thread — skip
                 snap = None
                 try:
-                    snap = algo.fuse_snapshot()
+                    snap = algo.fuse_snapshot()  # mtpu: lint-ok MTL004 the acquire above holds its _launch_lock
                 except Exception:
                     log.exception("fuse_snapshot failed for %r", name)
                 if snap is None:

@@ -85,6 +85,80 @@ from typing import Any, Dict, Optional
 _HDR = struct.Struct(">I")
 MAX_MSG_BYTES = 64 * 1024 * 1024  # a fetch of ~100k trial docs fits well under
 
+#: Durability-contract registry, enforced statically by ``lint``
+#: (metaopt_tpu_torch/analysis/durability.py). Ops listed here mutate ledger or
+#: signal state and their ``_dispatch`` branch MUST reach a journal point
+#: (a sharded-ledger mutator call or a direct ``wal.append``) before the
+#: reply is enqueued; all three sets must stay subsets of the server's
+#: ``_DURABLE_OPS`` so the reply actually waits on the fsync barrier.
+#: Adding a mutating op without declaring it here fails the lint gate.
+JOURNALED_OPS = frozenset({
+    "create_experiment", "update_experiment", "delete_experiment",
+    "register", "reserve", "update_trial", "release_stale", "set_signal",
+})
+#: ops journaled via their cached reply record: the journaled reply
+#: embeds the resulting docs and doubles as their redo (see
+#: ``CoordServer._journal_reply`` / ``_apply_wal_record``)
+REPLY_JOURNALED_OPS = frozenset({"worker_cycle"})
+#: ops that mutate only through nested ledger calls, each of which
+#: journals itself inside the sharded proxy
+NESTED_JOURNALED_OPS = frozenset({"produce"})
+#
+# Deliberately absent: the hand-off admin plane (``handoff_prepare`` /
+# ``handoff_apply`` / ``handoff_abort`` / ``shard_map_update``). Those ops
+# are handled in ``CoordServer._handle`` (not ``_dispatch``), journal
+# inside their own handlers, and are idempotent rather than reply-cached —
+# declaring them in JOURNALED_OPS would make MTD001 look for a dispatch
+# branch that intentionally does not exist. They ARE members of the
+# server's ``_DURABLE_OPS`` (a strict superset of these registries), so
+# their replies still wait on the fsync barrier.
+
+#: Ordered-step durable protocols, enforced statically by MTP003
+#: (metaopt_tpu_torch/analysis/crashcheck.py). Each entry names a function and
+#: the persistence-order steps every execution path through it must
+#: respect: a later step may never run on a path where an earlier
+#: non-optional step has not run (that is a reorder/skip), while stopping
+#: after any PREFIX of the steps is legal — each step is a crash barrier
+#: and recovery handles every prefix (that is the whole point of the
+#: ordering). Step vocabulary: ``publish:<suffix>`` = an atomic rename
+#: whose source is a tmp file matching <suffix>; ``wal.append:<op>`` = a
+#: WAL append of a record with that ``op``; ``wal.sync`` = a group-commit
+#: fsync; ``call:<name>`` = a call whose dotted tail is <name>.
+#: ``optional`` lists step indices that may be skipped (branch-dependent
+#: steps); the ORDER of the remaining steps is still enforced. Kept as a
+#: plain literal so the checker reads it via ast.literal_eval without
+#: importing this module (same doctrine as JOURNALED_OPS above).
+DURABLE_SEQUENCES = {
+    # evict: capture file durable -> journal record durable -> drop state.
+    # The drop is optional in code (disk-backed inners keep their docs);
+    # what MTP003 pins is that it can never precede the journaled record.
+    "evict": {
+        "function": "CoordServer._evict_fenced",
+        "steps": ["publish:.tmp", "wal.append:evict", "wal.sync",
+                  "call:delete_experiment"],
+        "optional": [3],
+    },
+    # archive seal: every referenced segment file durable -> manifest
+    # commit -> GC of unreferenced files. Seal is optional (a snapshot
+    # with no new segments commits directly); GC strictly last — until
+    # the manifest is durable the old one may still need the old files.
+    "archive_seal": {
+        "function": "CoordServer._snapshot_v2_locked",
+        "steps": ["call:_persist_segment", "call:_snapshot_commit",
+                  "call:_gc_segments"],
+        "optional": [0],
+    },
+    # snapshot commit: manifest published crash-atomically BEFORE the WAL
+    # is compacted — compaction drops records the manifest now carries,
+    # so the reverse order is acked-write loss on the next crash.
+    "snapshot_commit": {
+        "function": "CoordServer._snapshot_commit",
+        "steps": ["publish:.tmp", "call:compact"],
+        "optional": [],
+    },
+}
+
+
 class ProtocolError(RuntimeError):
     pass
 

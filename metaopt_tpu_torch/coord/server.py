@@ -581,7 +581,7 @@ class CoordServer:
                 lk = self._exp_locks[name] = threading.RLock()
             return lk
 
-    # caller holds EXP
+    # mtpu: holds(EXP)
     def _mutated(self, name: Optional[str]) -> None:
         """Record a commit against ``name`` (caller holds its exp lock)."""
         if name:
@@ -1122,7 +1122,7 @@ class CoordServer:
             else:
                 self._snapshot_v1_locked(path)
 
-    # caller holds _snap_lock
+    # mtpu: holds(_snap_lock)
     def _snapshot_v1_locked(self, path: str) -> None:
         wal = self._wal
         # read BEFORE capture: any record <= this seq was appended
@@ -1146,7 +1146,7 @@ class CoordServer:
         self._snapshot_globals(state, experiments)
         self._snapshot_commit(path, state, wal, wal_seq)
 
-    # caller holds _snap_lock
+    # mtpu: holds(_snap_lock)
     def _snapshot_v2_locked(self, path: str) -> None:
         wal = self._wal
         # read BEFORE capture, same ordering argument as v1
@@ -1215,7 +1215,7 @@ class CoordServer:
         self._snapshot_commit(path, state, wal, wal_seq)
         self._gc_segments(seg_dir, sections)
 
-    # caller holds _snap_lock
+    # mtpu: holds(_snap_lock)
     def _persist_segment(self, seg_dir: str, name: str, seg_id: str,
                          docs: List[Dict[str, Any]]) -> str:
         """Write one sealed segment's rows (dead included — the manifest's
@@ -1268,7 +1268,7 @@ class CoordServer:
             # adopted map or a restart falls back to its stale argv map
             state["shard_map"] = smap
 
-    # caller holds _snap_lock
+    # mtpu: holds(_snap_lock)
     def _snapshot_commit(self, path: str, state: Dict[str, Any],
                          wal, wal_seq: int) -> None:
         tmp = path + ".tmp"
@@ -1302,7 +1302,7 @@ class CoordServer:
             with wal.compaction_fence():
                 wal.compact(wal_seq)
 
-    # caller holds _snap_lock
+    # mtpu: holds(_snap_lock)
     def _gc_segments(self, seg_dir: str,
                      sections: Dict[str, Dict[str, Any]]) -> None:
         """Remove segment files the just-committed manifest does not
@@ -1873,7 +1873,7 @@ class CoordServer:
                 # (delete_experiment pops producers OUTSIDE the ledger
                 # locks for this reason); the reverse edge closing the
                 # cycle is the phantom mutating-dispatch edge above
-                exp = Experiment(name, ledger=self.ledger).configure()
+                exp = Experiment(name, ledger=self.ledger).configure()  # mtpu: lint-ok MTL001 canonical guard->EXP order; reverse edge is phantom
                 algo = make_algorithm(exp.space,
                                       self._placed(exp.algorithm))
                 if (self.suggest_prefetch_depth > 1
@@ -2292,7 +2292,7 @@ class CoordServer:
                     # EXP is fine: SIGKILL on the next line, nothing
                     # else ever runs in this incarnation)
                     if wal is not None:
-                        wal.sync(wal.appended_seq)
+                        wal.sync(wal.appended_seq)  # mtpu: lint-ok MTL002 chaos-only; process SIGKILLs itself next line
                     os.kill(os.getpid(), _signal_mod.SIGKILL)
                 self.inner.put_trial(Trial.from_dict(doc))
                 if wal is not None:
@@ -2586,7 +2586,7 @@ class CoordServer:
                     # here is phantom: this branch only dispatches
                     # _MUTATING_OPS, and the guard-taking read ops
                     # (tenant_stats) are dispatched lock-free below
-                    reply = {"ok": True, "result": self._dispatch(op, a)}
+                    reply = {"ok": True, "result": self._dispatch(op, a)}  # mtpu: lint-ok MTL001 mutating-ops-only dispatch never reaches tenant_stats
                 except Exception as e:  # marshal, don't crash the service
                     reply = {"ok": False, "error": type(e).__name__,
                              "msg": str(e)}

@@ -65,7 +65,8 @@ from metaopt_tpu_torch.coord.protocol import (HAVE_WIRE_V2, ProtocolError,
                                               decode_body, encode_body)
 from metaopt_tpu_torch.utils import fsjournal as fsj
 # re-exported: server.py and the snapshot/evict publishers import it from
-# here
+# here; the implementation lives in the FS seam so every directory fsync
+# lands in a recorded effect trace under `crashcheck`
 from metaopt_tpu_torch.utils.fsjournal import fsync_dir  # noqa: F401
 from metaopt_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 
@@ -238,8 +239,8 @@ class WriteAheadLog:
         os.makedirs(d, exist_ok=True)
         self._f = open(self.path, "ab")
         # single-threaded: open() runs before any serving thread exists
-        self._next_seq = max(1, next_seq)
-        self._appended = self._durable = (
+        self._next_seq = max(1, next_seq)  # mtpu: lint-ok MTL003 pre-serving
+        self._appended = self._durable = (  # mtpu: lint-ok MTL003 pre-serving
             self._next_seq - 1)
         return self
 
@@ -443,7 +444,7 @@ class WriteAheadLog:
             self._cv.notify_all()
 
     def _foreign_fences(self) -> int:
-        # caller holds _cv
+        # mtpu: holds(_cv)
         return self._fence - self._fence_owners.get(threading.get_ident(), 0)
 
     def fence_held(self) -> bool:
@@ -494,8 +495,12 @@ class WriteAheadLog:
             # rewritten in the log's own framing: compaction after an
             # upgrade is what migrates a mixed v1/v2 log to pure v2.
             # tmp is written + fsynced BEFORE the rename publishes it
-            # (crash-atomic doctrine).
+            # (crash-atomic doctrine — MTP001).
             fsj.write_file(tmp, b"".join(self._frame_rec(r) for r in tail))
+            # the marker precedes the rename: from the next effect on, a
+            # crash state may legitimately lack records <= upto_seq (the
+            # certifier must excuse them one event EARLY, never late)
+            fsj.mark("wal_compacted", upto=upto_seq)
             fsj.replace(tmp, self.path)
             fsync_dir(self.path)
             try:

@@ -135,14 +135,18 @@ class BatchedExecutor(Executor):
         return out  # type: ignore[return-value]  # every index was assigned
 
     # -- internals ---------------------------------------------------------
-    def _pool_eval(self, cols: Mapping[str, np.ndarray]) -> np.ndarray:
-        """One launch per pool: the columns to the device, the objective on
-        all rows at once, the ``(B,)`` values back in one copy."""
+    # mtpu: hotpath
+    def _pool_eval(self, cols: Mapping[str, np.ndarray]):
+        """One launch per pool: the columns to the device and the objective
+        on all rows at once; the ``(B,)`` f32 values stay on the device."""
         import torch
 
         dev_cols = {name: torch.from_numpy(col).to(self.device) for name, col in cols.items()}
-        values = torch.as_tensor(self.batch_fn(dev_cols)).reshape(-1).to(torch.float32)
-        return values.cpu().numpy().astype(np.float64)
+        return torch.as_tensor(self.batch_fn(dev_cols)).reshape(-1).to(torch.float32)
+
+    def _pool_values(self, cols: Mapping[str, np.ndarray]) -> np.ndarray:
+        """:meth:`_pool_eval` and the ``(B,)`` values back in one copy."""
+        return self._pool_eval(cols).cpu().numpy().astype(np.float64)
 
     def _run_chunk(
         self,
@@ -162,7 +166,7 @@ class BatchedExecutor(Executor):
         if live:
             try:
                 cols, _ = self.space.stack_points([trials[i].params for i in live])
-                values = self._pool_eval(cols)
+                values = self._pool_values(cols)
                 if values.shape != (len(live),):
                     raise ValueError(f"objective returned {values.shape[0]} values "
                                      f"for {len(live)} rows")

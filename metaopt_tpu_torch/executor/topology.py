@@ -108,7 +108,7 @@ class ChipRegistry:
                 # atomic, deliberately not durable: claims are leases —
                 # a power-lost registry is healed by _reap() on the next
                 # flock'd read (stale heartbeats expire the claims)
-                os.replace(tmp, self.state_path)
+                os.replace(tmp, self.state_path)  # mtpu: lint-ok MTP001 lease state, heal-on-read
                 return result
             finally:
                 fcntl.flock(lockf, fcntl.LOCK_UN)

@@ -680,7 +680,7 @@ class FileLedger(LedgerBackend):
         # atomic, deliberately not durable: FileLedger's documented
         # contract is torn-free reads (the reference's, whose coordinator
         # WAL owns durability) — an fsync here would tax every trial write
-        os.replace(tmp, path)
+        os.replace(tmp, path)  # mtpu: lint-ok MTP001 WAL owns durability
 
     @staticmethod
     def _read_json(path: str) -> Optional[Dict[str, Any]]:

@@ -114,7 +114,7 @@ def keep_threshold(rate: float) -> int:
 _Index = Union[range, Sequence[int], torch.Tensor]
 
 
-def _index(x: _Index, device) -> torch.Tensor:
+def _as_index(x: _Index, device) -> torch.Tensor:
     if isinstance(x, range):
         return torch.arange(x.start, x.stop, x.step, dtype=torch.int64, device=device)
     return torch.as_tensor(x, dtype=torch.int64, device=device).reshape(-1)
@@ -128,7 +128,7 @@ def philox_keep(seed: int, offset: int, bh: _Index, rows: _Index, cols: _Index,
     Philox4x32-10 on the counter (column // 4, row, b·h, offset) with the key
     (seed mod 2³², seed // 2³²) is below :func:`keep_threshold` (rate)."""
     _check_dropout(rate, seed, offset)
-    bh, rows, cols = (_index(x, device) for x in (bh, rows, cols))
+    bh, rows, cols = (_as_index(x, device) for x in (bh, rows, cols))
     ctr = ((cols >> 2)[None, None, :], rows[None, :, None], bh[:, None, None],
            torch.tensor(offset, dtype=torch.int64, device=cols.device))
     words = torch.stack(torch.broadcast_tensors(

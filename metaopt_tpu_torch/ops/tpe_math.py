@@ -182,6 +182,7 @@ def _mixture_logpdf(x, mu, sigma, logw):
                            dim=-2)
 
 
+# mtpu: hotpath
 def ei_scores(cand, good_mu, good_sigma, good_logw, bad_mu, bad_sigma, bad_logw,
               cont_mask, cand_cat_idx, good_cat_logp, bad_cat_logp):
     """EI ranking for TPE: log l(x) − log g(x), shape (..., C).

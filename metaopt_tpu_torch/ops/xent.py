@@ -96,6 +96,7 @@ class _BlockedXent(torch.autograd.Function):
         return dy.to(y.dtype), demb.to(emb.dtype), None, None
 
 
+# mtpu: hotpath
 def blocked_softmax_xent(y: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
                          block_v: int = 2048) -> torch.Tensor:
     """Per-token ``lse(y·embᵀ) − (y·embᵀ)[label]`` without (N, V) logits.

@@ -575,3 +575,30 @@ def test_simulate_json_gives_the_reference_report(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
+
+
+def _subcommand_options(build_parser, name):
+    """(flags, dest, nargs, choices, default, const) of every argument of one
+    subcommand, sorted, help texts aside."""
+    import argparse
+
+    sub = next(a for a in build_parser()._actions
+               if isinstance(a, argparse._SubParsersAction)).choices[name]
+    return sorted((tuple(a.option_strings), a.dest, a.nargs,
+                   tuple(a.choices) if a.choices else None, repr(a.default), repr(a.const))
+                  for a in sub._actions if not isinstance(a, argparse._HelpAction))
+
+
+@pytest.mark.parametrize("name", ["lint", "race", "crashcheck", "analyze"])
+def test_the_checkers_take_the_reference_options(name):
+    """``lint``, ``race``, ``crashcheck`` and ``analyze`` parse the reference
+    CLI's options; ``race`` adds ``--config``, whose ``coordinator.device``
+    places its suites, as ``simulate`` does."""
+    from metaopt_tpu.cli.main import build_parser as ref_build_parser
+    from metaopt_tpu_torch.cli.main import build_parser
+
+    ours = _subcommand_options(build_parser, name)
+    theirs = _subcommand_options(ref_build_parser, name)
+    extra = [o for o in ours if o not in theirs]
+    assert [o for o in theirs if o not in ours] == []
+    assert [o[0] for o in extra] == ([("--config",)] if name == "race" else [])

@@ -101,11 +101,21 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/sim/__init__.py",
                  "metaopt_tpu_torch/sim/clock.py",
                  "metaopt_tpu_torch/sim/certify.py",
-                 "metaopt_tpu_torch/sim/engine.py"):
+                 "metaopt_tpu_torch/sim/engine.py",
+                 "metaopt_tpu_torch/analysis/__init__.py",
+                 "metaopt_tpu_torch/analysis/core.py",
+                 "metaopt_tpu_torch/analysis/registry.py",
+                 "metaopt_tpu_torch/analysis/locks.py",
+                 "metaopt_tpu_torch/analysis/durability.py",
+                 "metaopt_tpu_torch/analysis/hotpath.py",
+                 "metaopt_tpu_torch/analysis/runner.py",
+                 "metaopt_tpu_torch/analysis/crashcheck.py",
+                 "metaopt_tpu_torch/analysis/dynrace.py",
+                 "metaopt_tpu_torch/analysis/suites.py"):
         assert must in names
 
 
-WALLED = r'''
+WALL_PREFIX = r'''
 import importlib, pkgutil, sys
 FORBIDDEN = %r
 for name in list(sys.modules):
@@ -119,6 +129,9 @@ class Wall:
         return None
 
 sys.meta_path.insert(0, Wall())
+''' % (FORBIDDEN,)
+
+WALLED = WALL_PREFIX + r'''
 
 import metaopt_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(metaopt_tpu_torch.__path__,
@@ -137,7 +150,10 @@ assert {"metaopt_tpu_torch.models.lm", "metaopt_tpu_torch.models.moe",
         "metaopt_tpu_torch.coord.client_backend",
         "metaopt_tpu_torch.coord.handoff", "metaopt_tpu_torch.sim",
         "metaopt_tpu_torch.sim.clock", "metaopt_tpu_torch.sim.certify",
-        "metaopt_tpu_torch.sim.engine"} <= set(mods), mods
+        "metaopt_tpu_torch.sim.engine", "metaopt_tpu_torch.analysis.runner",
+        "metaopt_tpu_torch.analysis.crashcheck", "metaopt_tpu_torch.analysis.dynrace",
+        "metaopt_tpu_torch.analysis.suites",
+        "metaopt_tpu_torch.analysis.hotpath"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 
 from metaopt_tpu_torch import build_experiment
@@ -283,7 +299,7 @@ assert rep.ok and rep.crashes == 1 and rep.acked_completions == 24, rep.to_dict(
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not leaked, leaked
 print("WALL-OK", len(mods))
-''' % (FORBIDDEN,)
+'''
 
 
 def test_port_runs_with_jax_unimportable():
@@ -295,6 +311,30 @@ def test_port_runs_with_jax_unimportable():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "WALL-OK" in proc.stdout
     assert '"completed": 2' in proc.stdout
+
+
+STATIC_CHECKERS = r'''
+import sys
+from metaopt_tpu_torch.analysis.runner import analyze_main, crashcheck_main, lint_main
+assert lint_main(["--format", "json"]) == 0
+assert analyze_main([]) == 0
+assert crashcheck_main(["--static-only"]) == 0
+loaded = sorted(n for n in sys.modules if n.split(".")[0] == "torch")
+assert not loaded, loaded
+print("NO-TORCH")
+'''
+
+
+def test_the_static_checkers_load_no_torch():
+    """``lint``, ``analyze`` and ``crashcheck --static-only`` read source
+    text only: none of them imports torch (or the JAX stack)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-c", WALL_PREFIX + STATIC_CHECKERS], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO-TORCH" in proc.stdout
 
 
 WEBAPI_IMPORT = r'''
