@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through twenty phases and exits non-zero if any fails:
+``metaopt_tpu``) through twenty-one phases and exits non-zero if any fails:
 
 1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
    csrc``, prints ptxas's registers and spills per kernel (and fails if
@@ -96,10 +96,11 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    card (seed 1 dropped to fit phase 14): the negated return above 50 after 2 iterations and below 5
    after 32; ms per iteration; one traced iteration's CUDA kernels, device
    busy share and device ms by kind; peak memory. (c) EvolutionES
-   (``evolution.json``'s seed 0, with population 3 and pool 2 instead of
-   10 and 5 to fit the script's time limit; population 4 until PR 13) on
+   (``evolution.json``'s seed 0, with population 2 and pool 2 instead of
+   10 and 5 to fit the script's time limit; population 4 until PR 13, 3
+   until PR 17) on
    ``metaopt_tpu_torch/examples/ppo_atari.py`` through ``hunt --n-chips 1``,
-   6 trials (two generations; the example runs 60), each a fresh process
+   4 trials (two generations; the example runs 60), each a fresh process
    on the card — all completed and finite, their points equal to the
    port's EvolutionES replayed on the CPU over the ledger's objectives, the
    GPU registry empty after, ``status --json`` from a fresh process
@@ -129,8 +130,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    step, every launch with dropout. (f) Hyperband (``hyperband.json``) on
    ``metaopt_tpu_torch/examples/transformer_wmt.py --tp 1`` at full width
    through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 3, base=3)`` (cut
-   from 1-9: 6 trials instead of 22) at 5 steps per epoch (cut from 50 to
-   10 to fit phase 14, to 5 for phase 18) — all completed and finite on the
+   from 1-9: 6 trials instead of 22) at 2 steps per epoch (cut from 50 to
+   10 to fit phase 14, to 5 for phase 18, to 2 for phase 21) — all completed and finite on the
    card, the rung table equal to Hyperband replayed over the ledger and to
    ``status --rungs --json`` from a fresh process, every trial's checkpoint
    published and none half-written, no ``torch._dynamo`` in a trial
@@ -311,6 +312,25 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    ``BatchedExecutor``; the fuser's bucket launches over four hosted TPEs
    racing the RPC threads): no MTR101/MTR102, the events recorded, more
    than 0 bucket launches, each leg's seconds.
+21. mesh: one launch of four ranks sharing ``cuda:0`` (``gloo``; NCCL
+   refuses two ranks on one device), started by
+   ``metaopt_tpu_torch.parallel.launch.RankPool``, runs five legs against
+   one-rank runs on the card: (a) full-width Transformer-base (B 32 x S 64)
+   on dp 2 x tp 2, 5 steps at dropout 0 (losses within 2e-3 of one rank's
+   from the same seeded weights, the CPU test's bound; K1-K3 counted on every rank, 18 launches
+   per step each) and 2 at rate 0.1; (b) one causal attention layer at
+   (8, 512, 8, 64) under ring and Ulysses sp 2 (x dp 2), forward and
+   backward, f32 and bf16, against one-rank ``flash_attention``; (c) the
+   full-width LM (B 4 x S 512) on dp 2 x sp 2, then the MoE LM
+   (``LM_MOE[0]``) on dp 2 x ep 2, 2 steps each, with the dropped fractions
+   equal; (d) ``make_pp_train_step`` at pp 2 x V 2 (x dp 2) against the
+   sequential stack; (e) ``start_pod_coordinator`` across the ranks, each
+   rank's ``workon`` against it, and ``run_signaled`` stopping every rank at
+   the same step. It prints the backend, the ranks per GPU, the
+   collectives copied through the host with their bytes, then times K1-K3
+   alone at the ranks' shapes (bound and SDPA beside them). Nothing in it is
+   a multi-GPU figure: NCCL across separate GPUs is not exercised on a
+   machine with one card.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
@@ -318,12 +338,14 @@ line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
 line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line, a
 ``{"coord": {...}}`` line, a ``{"shards": {...}}`` line, a ``{"web":
-{...}}`` line, an ``{"analysis": {...}}`` line and, last,
+{...}}`` line, an ``{"analysis": {...}}`` line, a ``{"mesh": {...}}`` line and, last,
 the ``{"ok": true, "device": {...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
 run; under ``"lm"`` the launches and device ms on the LM's path, with the
-bound and SDPA's time at the LM's shape).
+bound and SDPA's time at the LM's shape; under ``"mesh"`` the launches of
+``[mesh]``'s leg (a) on all ranks and the kernel's time, bound and SDPA's
+at the ranks' shapes).
 """
 
 from __future__ import annotations
@@ -407,10 +429,10 @@ PPO_SPACE = {  # BASELINE config 5: examples/ppo_atari.py's docstring
     "epochs": "fidelity(2, 32, base=2)",
 }
 # two full generations of evolution.json's EvolutionES (seed 0) at population
-# 3 and pool 2 (cut from 10 and 5 to fit the script's time limit, and from
-# population 4 to 3 in PR 13 to pay for phase 17): 3 trials at 2 iterations,
-# then 3 mutants at 4 (the example runs 60)
-EVOLUTION_TRIALS, POPULATION, EVOLUTION_POOL = 6, 3, 2
+# 2 and pool 2 (cut from 10 and 5 to fit the script's time limit, from
+# population 4 to 3 in PR 13 to pay for phase 17, and to 2 to pay for phase
+# 21): 2 trials at 2 iterations, then 2 mutants at 4 (the example runs 60)
+EVOLUTION_TRIALS, POPULATION, EVOLUTION_POOL = 4, 2, 2
 # a config-5 trial's wall-clock timeout, and its share of the CLI's deadline
 PPO_TIMEOUT_S, PPO_TRIAL_S = 120, 30
 PPO_TOL = 1e-4          # card against CPU, relative to each tensor's largest entry
@@ -443,8 +465,8 @@ WMT_PRIORS = {  # BASELINE config 4: examples/transformer_wmt.py's docstring
 # to 3, bracket 1 runs 2 at 3 epochs; (bracket, budget, capacity) below
 WMT_CLI_FIDELITY, WMT_CLI_TABLE = "fidelity(1, 3, base=3)", [(0, 1, 3), (0, 3, 1), (1, 3, 2)]
 # ... and from 50 steps per epoch to 10, to fit the [lm] phase, then to 5 to
-# pay for phase 18
-WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 5
+# pay for phase 18, then to 2 to pay for phase 21
+WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 2
 # a config-4 trial's wall-clock timeout, and its share of the CLI's deadline
 WMT_TIMEOUT_S, WMT_TRIAL_S = 300, 60
 # BOHB in-process: the example's fidelity, one repetition of 22 trials (cut
@@ -768,9 +790,10 @@ def check_autograd(torch, att, case, rate: float = 0.0):
 
 
 def time_case(torch, att, case, lse_delta, rate: float = 0.0):
-    """Per kernel: its time, its bound, the plain version's and SDPA's (with
-    ``dropout_p=rate``). The bound counts the matrix products' operations;
-    dropout's Philox rounds are integer work outside it."""
+    """Per kernel: its time, its bound, the plain version's and SDPA's
+    (with ``dropout_p=rate``). The
+    bound counts the matrix products' operations; dropout's Philox rounds
+    are integer work outside it."""
     import torch.nn.functional as F
 
     q, k, v, g, m = case["q"], case["k"], case["v"], case["g"], case["mask"]
@@ -818,9 +841,9 @@ def time_case(torch, att, case, lse_delta, rate: float = 0.0):
 
     saved = dict(att.launches), dict(att.dropout_launches)
     stats = {}
-    for name, (kern, plain, nbytes, flops) in work.items():
+    for name, (kern, plain_fn, nbytes, flops) in work.items():
         ms, src, ev = device_ms(torch, kern, match=name + "_kernel")
-        plain_ms, plain_src, plain_ev = device_ms(torch, plain, n=10)
+        plain_ms, plain_src, plain_ev = device_ms(torch, plain_fn, n=10)
         lib_ms, lib_src, lib_ev = library[name]
         bnd, by = bound_ms(nbytes, flops, case["dtype"])
         stats[name] = {
@@ -5315,6 +5338,391 @@ def analysis_phase(torch, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: several ranks sharing the card
+
+MESH_RANKS = 4              # one launch: four ranks on cuda:0 (gloo: NCCL refuses a shared GPU)
+MESH_CALL_S = 240           # one leg's deadline inside the ranks
+MESH_TFM = dict(n_train=64, batch_size=32, seq_len=64, seed=21)   # (a): config 4's model
+MESH_TFM_STEPS, MESH_DROP_STEPS = 5, 2
+# (a)'s losses against one rank's, relative: tests/test_torch_mesh_models.py's
+# bound for the mesh against one rank (1.6e-4 measured there on the CPU)
+MESH_TFM_TOL = 2e-3
+MESH_ATT = (8, 512, 8, 64)  # (b): B, S, H, D, causal
+MESH_LM = dict(n_train=8, batch_size=4, seq_len=512, steps=2, seed=22)   # (c): [lm]'s model
+MESH_PP = dict(d_model=512, n_heads=8, d_ff=2048, vocab=1000)  # (d): pp 2 x V 2, 4 layers
+MESH_PP_SHAPE = (8, 64)     # (d): batch x seq, 4 microbatches
+MESH_POD_TRIALS = 8
+
+
+def _mesh_rank():
+    """(torch, this rank's device, the attention module), TF32 off as in main."""
+    import torch
+
+    from metaopt_tpu_torch.ops import attention as att
+    from metaopt_tpu_torch.parallel import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch, launch.rank_device(), att
+
+
+def _mesh_counts(att, coll):
+    return {"launches": dict(att.launches), "dropout_launches": dict(att.dropout_launches),
+            "host_bytes": dict(coll.host_bytes), "calls": dict(coll.calls)}
+
+
+def mesh_leg_tfm():
+    """(a) Transformer-base at full width on dp 2 x tp 2: MESH_TFM_STEPS steps
+    at dropout 0 (the main path, counted), then MESH_DROP_STEPS at 0.1."""
+    torch, dev, att = _mesh_rank()
+    from metaopt_tpu_torch.models import transformer as tfm
+    from metaopt_tpu_torch.parallel import collectives as coll, make_mesh
+
+    mesh = make_mesh([("dp", 2), ("tp", 2)])
+    out = {}
+    for label, rate, steps in (("rate0", 0.0, MESH_TFM_STEPS), ("rate0.1", 0.1, MESH_DROP_STEPS)):
+        att.reset_launch_counts()
+        coll.reset_counts()
+        rep = {}
+        tfm.train_and_eval({"dropout": rate}, mesh=mesh, device=dev, steps=steps, report=rep,
+                           **MESH_TFM)
+        torch.cuda.synchronize()
+        out[label] = {"losses": rep["losses"], "ms_per_step": rep["train_s"] / steps * 1e3,
+                      "mesh": rep["mesh"], **_mesh_counts(att, coll)}
+    return out
+
+
+def mesh_leg_attention():
+    """(b) one attention layer at MESH_ATT, causal, on dp 2 x sp 2: ring and
+    Ulysses forward and backward, f32 and bf16, against the one-rank
+    ``flash_attention`` on the same card (its launches are comparisons)."""
+    torch, dev, att = _mesh_rank()
+    from metaopt_tpu_torch.ops.ring_attention import ring_attention
+    from metaopt_tpu_torch.ops.ulysses import ulysses_attention
+    from metaopt_tpu_torch.parallel import collectives as coll, make_mesh
+    from metaopt_tpu_torch.parallel.sharding import MeshAxes
+
+    mesh = make_mesh([("dp", 2), ("sp", 2)])
+    ax = MeshAxes(mesh)
+    b, s, h, d = MESH_ATT
+    res = {"errors": {}, "ulysses_launches": {}}
+    coll.reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        q = (torch.randn(b, s, h, d, generator=gen, device=dev) / math.sqrt(d)).to(dtype)
+        k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype) for _ in "kvg")
+        mask = torch.tril(torch.ones(s, s, dtype=torch.int8, device=dev))[None].expand(b, s, s)
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        ref = att.flash_attention(qr, kr, vr, mask)
+        ref.backward(g)
+        want = {"out": ref.detach(), "dq": qr.grad, "dk": kr.grad, "dv": vr.grad}
+        tol = TOL[str(dtype).split(".")[-1]]
+        for impl in ("ring", "ulysses"):
+            ql, kl, vl = (ax.local(t, ("dp", "sp")).detach().requires_grad_() for t in (q, k, v))
+            saved = dict(att.launches)
+            att.reset_launch_counts()
+            if impl == "ring":
+                out = ring_attention(ql, kl, vl, ax.local(mask, ("dp", "sp")), mesh=mesh)
+            else:
+                out = ulysses_attention(ql, kl, vl, ax.local(mask, ("dp",)), mesh=mesh)
+            out.backward(ax.local(g, ("dp", "sp")))
+            torch.cuda.synchronize()
+            if impl == "ulysses" and dtype == torch.bfloat16:
+                res["ulysses_launches"] = dict(att.launches)
+            att.launches.update(saved)
+            got = {"out": out.detach(), "dq": ql.grad, "dk": kl.grad, "dv": vl.grad}
+            for name, t in got.items():
+                ref = ax.local(want[name], ("dp", "sp"))
+                if dtype == torch.float32:
+                    e, ok = close(t, ref, tol["fwd" if name == "out" else "grad"])
+                else:
+                    # bf16: the bound relative to the tensor's scale (the ring's
+                    # f32 fold and autograd round once; the kernels round P and
+                    # dS to bf16 operands)
+                    scale = float(ref.float().abs().max())
+                    e = float((t.float() - ref.float()).abs().max()) / scale
+                    ok = e <= tol["grad"]
+                key = f"{impl} {str(dtype).split('.')[-1]} {name}"
+                res["errors"][key] = e
+                if not (ok and bool(torch.isfinite(t.float()).all())):
+                    raise AssertionError(f"[mesh] (b) {key}: {e:.3e} outside "
+                                         f"{tol} or non-finite")
+    res.update(_mesh_counts(att, coll))
+    return res
+
+
+def mesh_lm_dropped(lm, tfm, hp, mesh, dev):
+    """The MoE LM's dropped fraction per layer on MESH_LM's first batch."""
+    import torch
+
+    from metaopt_tpu_torch.parallel.mesh import use_mesh
+    from metaopt_tpu_torch.parallel.sharding import shard_batch
+
+    model = tfm.mesh_model(lm.make_lm, dict(hp, max_len=MESH_LM["seq_len"]), mesh, dev,
+                           MESH_LM["seed"])
+    toks = lm.synthetic_lm(MESH_LM["n_train"], MESH_LM["seq_len"] + 1, model.vocab,
+                           seed=MESH_LM["seed"], device=dev)[:MESH_LM["batch_size"]]
+    if mesh is not None:
+        toks = shard_batch(model.axes, toks)
+    stats = {}
+    with use_mesh(mesh), torch.no_grad():
+        lm.lm_loss_fn(model, toks, stats=stats)
+    return [float(t) for t in stats["moe_stats"]]
+
+
+def mesh_leg_lm():
+    """(c) the LM at full width on dp 2 x sp 2 (ring attention), then, with
+    LM_MOE[0], on dp 2 x ep 2: MESH_LM's steps each, and the MoE's dropped
+    fractions."""
+    torch, dev, att = _mesh_rank()
+    from metaopt_tpu_torch.models import lm, transformer as tfm
+    from metaopt_tpu_torch.parallel import collectives as coll, make_mesh
+
+    out = {}
+    for label, axes, hp in (("sp2", [("dp", 2), ("sp", 2)], {"dropout": 0.0}),
+                            ("ep2", [("dp", 2), ("ep", 2)], {"dropout": 0.0, **LM_MOE[0]})):
+        mesh = make_mesh(axes)
+        att.reset_launch_counts()
+        coll.reset_counts()
+        rep = {}
+        lm.train_lm(hp, mesh=mesh, device=dev, report=rep, **MESH_LM)
+        torch.cuda.synchronize()
+        out[label] = {"losses": rep["losses"], **_mesh_counts(att, coll)}
+        if "n_experts" in hp:
+            out[label]["dropped"] = mesh_lm_dropped(lm, tfm, hp, mesh, dev)
+    return out
+
+
+def mesh_leg_pp():
+    """(d) ``make_pp_train_step`` at pp 2 x V 2 (x dp 2): one step against
+    the same loss through ``reference_forward``'s sequential stack."""
+    torch, dev, att = _mesh_rank()
+    import torch.nn.functional as F
+
+    from metaopt_tpu_torch.models import pipeline_lm as plm
+    from metaopt_tpu_torch.parallel import collectives as coll, make_mesh
+    from metaopt_tpu_torch.parallel.sharding import MeshAxes
+
+    mesh = make_mesh([("pp", 2), ("dp", 2)])
+    b, s = MESH_PP_SHAPE
+    fns, params = plm.make_pipeline_lm(MESH_PP, 2, 2, seq=s, seed=3, device=dev)
+    toks = torch.randint(1, MESH_PP["vocab"], (b, s),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    att.reset_launch_counts()
+    coll.reset_counts()
+    loss, grads = plm.make_pp_train_step(fns, mesh, n_microbatches=4, virtual_stages=2)(
+        params, MeshAxes(mesh).chunk(toks, 0, "dp"))
+    torch.cuda.synchronize()
+    counts = _mesh_counts(att, coll)
+    leaves = [t.detach().clone().requires_grad_() for t in plm.tree_leaves(params)]
+    it = iter(leaves)
+    tree = plm.tree_map(lambda _: next(it), params)
+    logits = plm.reference_forward(fns, tree, toks)
+    want = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]), toks[:, 1:].reshape(-1))
+    want.backward()
+    # every gradient against its tensor's scale, but the k projections'
+    # biases: zero in exact arithmetic (softmax ignores a shift along the
+    # keys), so both hold bf16 noise only
+    names = [f"stage.{k}" for k in params[0]] + [f"pre.{k}" for k in params[1]] + \
+        [f"post.{k}" for k in params[2]]
+    worst = max(float((g - t.grad).abs().max() / t.grad.abs().max().clamp_min(1e-30))
+                for name, g, t in zip(names, plm.tree_leaves(grads), leaves)
+                if not name.endswith("k.bias"))
+    return {"loss": float(loss), "sequential_loss": float(want.detach()), "grad_rel_err": worst,
+            **counts}
+
+
+def mesh_leg_pod():
+    """(e) ``start_pod_coordinator`` across the ranks, every rank's
+    ``workon`` against it, and ``run_signaled`` with one rank asking to
+    stop."""
+    torch, dev, att = _mesh_rank()
+    import torch.distributed as dist
+
+    from metaopt_tpu_torch.coord.client_backend import CoordLedgerClient
+    from metaopt_tpu_torch.coord.pod import start_pod_coordinator
+    from metaopt_tpu_torch.executor import InProcessExecutor
+    from metaopt_tpu_torch.ledger import Experiment
+    from metaopt_tpu_torch.parallel import collectives as coll, make_mesh, run_signaled
+    from metaopt_tpu_torch.space import build_space
+    from metaopt_tpu_torch.worker import workon
+
+    rank = dist.get_rank()
+    host, port, server = start_pod_coordinator(stale_timeout_s=60.0, device=dev)
+    try:
+        ledger = CoordLedgerClient(host=host, port=port, io_timeout_s=30.0)
+        if rank == 0:
+            exp = Experiment("mesh-pod", ledger, space=build_space({"x": "uniform(-5, 5)"}),
+                             max_trials=MESH_POD_TRIALS, pool_size=2,
+                             algorithm={"random": {"seed": 0}}).configure()
+        coll.any_flag(False)
+        if rank != 0:
+            exp = Experiment("mesh-pod", ledger).configure()
+        stats = workon(exp, InProcessExecutor(lambda p: (p["x"] - 1.0) ** 2),
+                       worker_id=f"mesh-w{rank}")
+        done = exp.count("completed")
+        state = {"n": 0}
+
+        def step(c):
+            state["n"] += 1
+            return c + torch.ones((), device=dev)
+
+        carry, steps, stopped = run_signaled(
+            step, torch.zeros((), device=dev), mesh=make_mesh([("dp", 4)]),
+            should_stop=lambda: rank == 1 and state["n"] >= 3, max_steps=100, check_every=2)
+        coll.any_flag(False)   # the host outlives every other rank's last call
+        return {"server": server is not None, "addr": [host, port], "done": done,
+                "events": [e["trial"] for e in stats.events], "steps": steps,
+                "stopped": stopped, "carry": float(carry)}
+    finally:
+        if server is not None:
+            server.stop()
+
+
+def mesh_phase(torch, smi: str):
+    """Phase 21: one launch of MESH_RANKS ranks sharing ``cuda:0`` runs legs
+    (a)-(e); the one-rank references run in this process first, the kernel
+    times at the ranks' shapes after the ranks are gone."""
+    from metaopt_tpu_torch.models import lm, transformer as tfm
+    from metaopt_tpu_torch.ops import attention as att
+    from metaopt_tpu_torch.parallel import collectives as coll
+    from metaopt_tpu_torch.parallel.launch import RankPool
+
+    t0 = time.perf_counter()
+    saved = dict(att.launches), dict(att.dropout_launches)
+    one = {}
+    rep = {}
+    tfm.train_and_eval({"dropout": 0.0}, device="cuda", steps=MESH_TFM_STEPS, report=rep,
+                       **MESH_TFM)
+    one["tfm"] = rep["losses"]
+    for label, hp in (("sp2", {"dropout": 0.0}), ("ep2", {"dropout": 0.0, **LM_MOE[0]})):
+        rep = {}
+        lm.train_lm(hp, device="cuda", report=rep, **MESH_LM)
+        one[label] = rep["losses"]
+    one["dropped"] = mesh_lm_dropped(lm, tfm, {"dropout": 0.0, **LM_MOE[0]}, None,
+                                     torch.device("cuda"))
+    torch.cuda.synchronize()
+    att.launches.update(saved[0])     # the references' launches are comparisons
+    att.dropout_launches.update(saved[1])
+    ref_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    with RankPool(["cuda:0"] * MESH_RANKS, timeout_s=MESH_CALL_S) as pool:
+        start_s = time.perf_counter() - t1
+        log(f"[mesh] {MESH_RANKS} ranks on cuda:0 (ranks per GPU {MESH_RANKS}), backend "
+            f"{pool.backend}, started in {start_s:.1f} s; the ring hop alone goes through the "
+            f"host (gloo's point-to-point refuses CUDA tensors); NCCL across separate GPUs "
+            f"was not exercised on this machine (one card)")
+        legs, leg_s = {}, {}
+        for name, fn in (("tfm", mesh_leg_tfm), ("attention", mesh_leg_attention),
+                         ("lm", mesh_leg_lm), ("pp", mesh_leg_pp), ("pod", mesh_leg_pod)):
+            tl = time.perf_counter()
+            legs[name] = pool.run(fn)
+            leg_s[name] = time.perf_counter() - tl
+    ranks_s = time.perf_counter() - t1
+
+    # (a) the counted path: every rank, 18 launches per step and kernel
+    tf = legs["tfm"]
+    want = {n: 18 * MESH_TFM_STEPS for n in att.launches}
+    for r, part in enumerate(tf):
+        if part["rate0"]["launches"] != want:
+            raise AssertionError(f"[mesh] (a) rank {r} launches {part['rate0']['launches']} "
+                                 f"!= {want}")
+        if part["rate0.1"]["dropout_launches"] != {n: 18 * MESH_DROP_STEPS for n in want}:
+            raise AssertionError(f"[mesh] (a) rank {r} dropout launches "
+                                 f"{part['rate0.1']['dropout_launches']}")
+    tf_err = max(abs(a - b) / abs(b) for a, b in zip(tf[0]["rate0"]["losses"], one["tfm"]))
+    drop_ok = all(math.isfinite(x) for x in tf[0]["rate0.1"]["losses"])
+    log(f"[mesh] (a) Transformer-base dp 2 x tp 2, B {MESH_TFM['batch_size']} x S "
+        f"{MESH_TFM['seq_len']}: losses {tf[0]['rate0']['losses']} against one rank "
+        f"{one['tfm']}: max rel {tf_err:.2e} (bound {MESH_TFM_TOL:g}); {tf[0]['rate0']['ms_per_step']:.1f} "
+        f"ms/step on rank 0 (4 ranks sharing the card, gloo); launches per rank "
+        f"{tf[0]['rate0']['launches']} = 18/step; rate 0.1 losses {tf[0]['rate0.1']['losses']}")
+    if not (tf_err <= MESH_TFM_TOL and drop_ok):
+        raise AssertionError("[mesh] (a) the mesh run disagrees with one rank")
+    # (b)
+    at_errs = {k: max(p["errors"][k] for p in legs["attention"])
+               for k in legs["attention"][0]["errors"]}
+    log("[mesh] (b) ring / Ulysses sp 2 (x dp 2) at (8, 512, 8, 64) causal against one-rank "
+        "flash_attention (f32: max abs error, bounds 1e-5 / 1e-4; bf16: max error over the "
+        "tensor's scale, bound 3e-2): " + ", ".join(f"{k} {e:.2e}" for k, e in at_errs.items())
+        + f"; Ulysses bf16 launches per rank {legs['attention'][0]['ulysses_launches']}")
+    # (c)
+    lmr = legs["lm"][0]
+    lm_err = {k: max(abs(a - b) / abs(b) for a, b in zip(lmr[k]["losses"], one[k]))
+              for k in ("sp2", "ep2")}
+    drop_diff = max(abs(a - b) for a, b in zip(lmr["ep2"]["dropped"], one["dropped"]))
+    item = 1.0 / (MESH_LM["batch_size"] * MESH_LM["seq_len"])   # one item's share
+    log(f"[mesh] (c) LM d_model 512 x 6 layers, B {MESH_LM['batch_size']} x S "
+        f"{MESH_LM['seq_len']}: sp 2 losses {lmr['sp2']['losses']} vs one rank {one['sp2']} "
+        f"(rel {lm_err['sp2']:.2e}); ep 2 {LM_MOE[0]} losses {lmr['ep2']['losses']} vs "
+        f"{one['ep2']} (rel {lm_err['ep2']:.2e}); dropped fractions {lmr['ep2']['dropped']} "
+        f"vs {one['dropped']} (max diff {drop_diff:.2e}, one item {item:.2e})")
+    if not (max(lm_err.values()) <= 3e-2 and drop_diff <= 2 * item):
+        raise AssertionError("[mesh] (c) the LM on the mesh disagrees with one rank")
+    # (d)
+    pp = legs["pp"][0]
+    pp_rel = abs(pp["loss"] - pp["sequential_loss"]) / abs(pp["sequential_loss"])
+    log(f"[mesh] (d) pp 2 x V 2 (x dp 2) pipeline LM step: loss {pp['loss']:.6f} vs sequential "
+        f"{pp['sequential_loss']:.6f} (rel {pp_rel:.2e}); gradients max rel to scale "
+        f"{pp['grad_rel_err']:.2e} (bound 3e-2); launches {pp['launches']}")
+    if not (pp_rel <= 1e-3 and pp["grad_rel_err"] <= 3e-2):
+        raise AssertionError("[mesh] (d) the pipeline step disagrees with the sequential stack")
+    # (e)
+    pods = legs["pod"]
+    executed = [t for p in pods for t in p["events"]]
+    log(f"[mesh] (e) pod: rank 0 hosts {pods[0]['addr']}, agreed by all "
+        f"{len({tuple(p['addr']) for p in pods}) == 1}; {len(executed)} trials, none twice "
+        f"{len(executed) == len(set(executed))}; run_signaled stopped at steps "
+        f"{[p['steps'] for p in pods]}")
+    if not ([p["server"] for p in pods] == [True, False, False, False]
+            and len({tuple(p["addr"]) for p in pods}) == 1
+            and len(executed) == len(set(executed))
+            and all(p["done"] >= MESH_POD_TRIALS for p in pods)
+            and [(p["steps"], p["stopped"]) for p in pods] == [(4, True)] * MESH_RANKS):
+        raise AssertionError("[mesh] (e) the pod coordinator or the agreed stop failed")
+    staged = {}
+    for leg in ("tfm", "attention", "lm", "pp"):
+        for part in legs[leg]:
+            for sub in ([part] if "host_bytes" in part else part.values()):
+                for op, nb in sub.get("host_bytes", {}).items():
+                    staged[op] = staged.get(op, 0) + nb
+    log(f"[mesh] collectives copied through the host (all ranks, legs a-d): "
+        f"{staged or 'none'} bytes; legs' seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in leg_s.items()))
+
+    # K1-K3 at the ranks' shapes, timed alone (the ranks are gone)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, s, h, d = MESH_ATT
+    shard_cases = {
+        "tp": make_case(torch, "mesh (a) shard bf16 (16,64,4,64)", MESH_TFM["batch_size"] // 2,
+                        MESH_TFM["seq_len"], MESH_TFM["seq_len"], 4, 64, torch.bfloat16,
+                        "pad", gen),
+        "ulysses": make_case(torch, "mesh (b) Ulysses shard bf16 (4,512,4,64)", b // 2, s, s,
+                             h // 2, d, torch.bfloat16, "causal", gen),
+    }
+    times = {}
+    for key, case in shard_cases.items():
+        log(f"[mesh] times at {case['name']}:")
+        lse_delta = check_case(torch, att, case)[1]
+        times[key] = time_case(torch, att, case, lse_delta)
+    phase_s = time.perf_counter() - t0
+    log(f"[mesh] phase {phase_s:.1f} s (references {ref_s:.1f}, ranks {ranks_s:.1f} of which "
+        f"start {start_s:.1f}); card {smi}; nothing here is a multi-GPU figure")
+    launches = {n: sum(p["rate0"]["launches"][n] for p in tf) for n in att.launches}
+    return {"phase_s": phase_s, "reference_s": ref_s, "ranks_s": ranks_s, "start_s": start_s,
+            "leg_s": leg_s, "backend": "gloo", "ranks_per_gpu": MESH_RANKS,
+            "host_staged_ops": sorted(staged), "host_bytes": staged,
+            "nccl_separate_gpus": "not exercised (one card)",
+            "tfm": {"losses": tf[0]["rate0"]["losses"], "one_rank": one["tfm"],
+                    "max_rel": tf_err, "ms_per_step": tf[0]["rate0"]["ms_per_step"],
+                    "dropout_losses": tf[0]["rate0.1"]["losses"]},
+            "attention_errors": at_errs, "lm": {"rel": lm_err, "dropped_diff": drop_diff},
+            "pp": pp, "pod_steps": [p["steps"] for p in pods],
+            "launches": launches, "launches_per_step": 18, "times": times, "card": smi}
+
+
 def main() -> int:
     import torch
 
@@ -5579,6 +5987,10 @@ def main() -> int:
     # -- 20. the checkers: analyze, and race's device legs on the card --------
     analysis_stats = analysis_phase(torch, smi)
     mark("analysis")
+
+    # -- 21. several ranks sharing the card: the meshes, K1-K3 per shard -------
+    mesh_stats = mesh_phase(torch, smi)
+    mark("mesh")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -5611,6 +6023,13 @@ def main() -> int:
                                               / kernels[-1]["lm"]["launches_per_step"])
         kernels[-1]["lm"].update(lm_stats["yardstick"][name])
         kernels[-2]["max_abs_err_by_case"] = case_err[name]
+        # the [mesh] path: launches of leg (a)'s counted steps (all ranks),
+        # and the kernel alone at the ranks' shapes
+        kernels[-2]["mesh"] = {
+            "launches": mesh_stats["launches"][name],
+            "launches_per_step_per_rank": mesh_stats["launches_per_step"],
+            **{f"{key}_shard": {k: v for k, v in t[name].items() if k not in ("bytes", "flops")}
+               for key, t in mesh_stats["times"].items()}}
     print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,
                       "phase_s": phase_s,
                       "autograd_max_abs_err": autograd_err, "slice": {
@@ -5632,6 +6051,8 @@ def main() -> int:
     print(json.dumps({"shards": shards_stats}), flush=True)
     print(json.dumps({"web": web_stats}), flush=True)
     print(json.dumps({"analysis": analysis_stats}), flush=True)
+    mesh_stats.pop("times")
+    print(json.dumps({"mesh": mesh_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

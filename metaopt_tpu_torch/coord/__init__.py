@@ -22,8 +22,8 @@ surrogate.
   learn the map from the ping ``caps`` and route directly).
 - :mod:`~metaopt_tpu_torch.coord.handoff` — live migration of one
   experiment between shards, and the offline recovery failover uses.
-
-``pod.py`` (several hosts) is not ported.
+- :mod:`~metaopt_tpu_torch.coord.pod` — one coordinator per pod, its
+  address broadcast over the ranks' process group.
 """
 
 from metaopt_tpu_torch.coord.client_backend import CoordLedgerClient

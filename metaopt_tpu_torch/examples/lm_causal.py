@@ -9,9 +9,12 @@
         --n-layers~'uniform(1, 4, discrete=True)'
 
 (``tpe.json`` holds ``examples/tpe.yaml``'s settings). The flags and
-defaults are the reference's (``examples/lm_causal.py``); the port trains
-on one device and raises for ``--tp``, ``--sp`` or ``--ep`` above 1. Every attention call runs the flash-attention kernels under the
-causal mask. When orchestrated, the trial saves its parameters and
+defaults are the reference's (``examples/lm_causal.py``). With ``--tp``,
+``--sp`` or ``--ep`` above 1 (or a block of more than one GPU) the trial
+runs one rank per GPU of its block (``hunt --n-chips N``) on the mesh those
+flags carve, ``dp`` filling the rest. Every attention call runs the
+flash-attention kernels under the causal mask (under ``--sp``, Ulysses
+attention's; ring attention folds in plain PyTorch). When orchestrated, the trial saves its parameters and
 optimizer state under ``client.checkpoint_paths()``'s own directory and
 restores from its parent's (or its own) where one is published; the
 checkpoints are the port's own format, not orbax.
@@ -21,7 +24,7 @@ given ``--device cpu``). Besides the objective (the last step's loss) it
 reports the statistics ``transformer_wmt.py`` reports: the device's name,
 the seconds from this process's start to its first finished device op, the
 seconds before the training loop, of the loop and of saving the
-checkpoint, ms per step, the first loss, whether it restored, the AdamW
+checkpoint, ms per step, the first loss, whether it restored, the mesh it ran on (``dp=1,tp=2``), the AdamW
 update count after the restore and at the end, whether ``torch._dynamo``
 was imported, and the seconds of the whole ``train_lm`` call.
 """
@@ -46,9 +49,9 @@ def main():
     p.add_argument("--steps", type=int, default=80)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1,
-                   help=">1 shards the sequence (not ported: raises)")
+                   help=">1 shards the sequence (ring attention over the ranks)")
     p.add_argument("--ep", type=int, default=1,
-                   help=">1 carves an expert-parallel mesh axis (not ported: raises)")
+                   help=">1 carves an expert-parallel mesh axis")
     p.add_argument("--n-experts", dest="n_experts", type=int, default=0)
     p.add_argument("--device", default="cuda")
     a = p.parse_args()
@@ -91,6 +94,8 @@ def main():
          "value": rep["train_s"] / rep["steps"] * 1e3},
         {"name": "first_loss", "type": "statistic", "value": rep["losses"][0]},
         {"name": "restored", "type": "statistic", "value": rep["restored"]},
+        {"name": "mesh", "type": "statistic",
+         "value": ",".join(f"{k}={n}" for k, n in rep["mesh"].items()) or "one rank"},
         {"name": "restored_updates", "type": "statistic", "value": rep["restored_updates"]},
         {"name": "updates", "type": "statistic", "value": rep["updates"]},
         {"name": "torch_dynamo_imported", "type": "statistic",

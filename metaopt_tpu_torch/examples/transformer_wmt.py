@@ -10,8 +10,11 @@
         --epochs~'fidelity(1, 9, base=3)'
 
 The flags and defaults are the reference's (``examples/transformer_wmt.py``),
-``--tp 2`` included; the port trains on one device and raises for tp, sp or
-ep above 1, so one GPU runs with ``--tp 1``. Attention dropout runs inside
+``--tp 2`` included. With ``--tp``, ``--sp`` or ``--ep`` above 1 (or a block
+of more than one GPU) the trial runs one rank per GPU of its block
+(``hunt --n-chips N``) on the mesh those flags carve, ``dp`` filling the
+rest; ``--tp 2`` needs a block of at least 2 GPUs (on one GPU it raises the
+mesh's error), so one GPU runs with ``--tp 1``. Attention dropout runs inside
 the flash-attention kernels. When orchestrated, the trial saves its
 parameters and optimizer state under ``client.checkpoint_paths()``'s own
 directory and restores from its parent's (or its own) where one is
@@ -23,7 +26,7 @@ reports statistics: the device's name, the seconds from this process's
 start to its first finished device op (interpreter, ``import torch``, the
 CUDA context), the seconds before the training loop (model, optimizer,
 restore, data), of the loop, of saving the checkpoint, ms per step, the
-first and last losses, whether it restored, the AdamW update count after
+first and last losses, whether it restored, the mesh it ran on (``dp=1,tp=2``), the AdamW update count after
 the restore and at the end, whether ``torch._dynamo`` was
 imported, and the seconds of the whole ``train_and_eval`` call.
 """
@@ -50,9 +53,9 @@ def main():
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--tp", type=int, default=2)
     p.add_argument("--sp", type=int, default=1,
-                   help=">1 shards the sequence (not ported: raises)")
+                   help=">1 shards the sequence (ring attention over the ranks)")
     p.add_argument("--ep", type=int, default=1,
-                   help=">1 carves an expert-parallel mesh axis (not ported: raises)")
+                   help=">1 carves an expert-parallel mesh axis")
     p.add_argument("--n-experts", dest="n_experts", type=int, default=0,
                    help=">0 swaps FFNs for a top-1-routed MoE with this many experts")
     p.add_argument("--steps-per-epoch", type=int, default=50)
@@ -102,6 +105,8 @@ def main():
          "value": rep["train_s"] / rep["steps"] * 1e3},
         {"name": "first_loss", "type": "statistic", "value": rep["losses"][0]},
         {"name": "restored", "type": "statistic", "value": rep["restored"]},
+        {"name": "mesh", "type": "statistic",
+         "value": ",".join(f"{k}={n}" for k, n in rep["mesh"].items()) or "one rank"},
         {"name": "restored_updates", "type": "statistic", "value": rep["restored_updates"]},
         {"name": "updates", "type": "statistic", "value": rep["updates"]},
         {"name": "torch_dynamo_imported", "type": "statistic",

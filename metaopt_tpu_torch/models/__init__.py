@@ -2,7 +2,9 @@
 
 - :mod:`objectives`  — closed-form CPU objectives (Rosenbrock; config 1)
 - :mod:`mlp`         — MLP/MNIST-shaped, 4 hparams (BASELINE config 2)
-- :mod:`transformer` — Transformer-base on one device (config 4's model)
+- :mod:`transformer` — Transformer-base (config 4's model), on one device or a
+  tp/sp/ep mesh
+- :mod:`pipeline_lm` — a transformer LM as pipeline stages (pp × dp)
 - :mod:`checkpoint`  — per-trial checkpoints (``torch.save``, published by rename)
 
 Only :mod:`objectives` is imported here: a trial process that reports a

@@ -1,6 +1,6 @@
 """Transformer-base seq2seq — the demo trial workload, on PyTorch.
 
-Port of ``metaopt_tpu/models/transformer.py`` for one device: an
+Port of ``metaopt_tpu/models/transformer.py``: an
 encoder-decoder Transformer-base (d_model 512, 8 heads, 6+6 layers, d_ff
 2048) trained on the synthetic translation-shaped task. Every attention
 call goes through :func:`metaopt_tpu_torch.ops.attention.flash_attention`,
@@ -57,8 +57,18 @@ The port matches the reference's numerics where the two frameworks differ:
 Transformer's or the decoder-only LM's) so both packages compute the same
 function in the tests. Trial checkpoints (``train_and_eval(restore_dir=...,
 save_dir=...)``) are the port's own format
-(:mod:`metaopt_tpu_torch.models.checkpoint`), not orbax. Not ported yet
-(queued in ROADMAP.md): the dp/tp/sp/ep meshes.
+(:mod:`metaopt_tpu_torch.models.checkpoint`), not orbax; on a mesh each
+rank saves and restores its own slice.
+
+With more than one trial device the model runs on a mesh (the reference's
+GSPMD shardings, cut explicitly by :mod:`metaopt_tpu_torch.parallel`):
+batch over ``dp``; heads and the feed-forward hidden over ``tp``
+(Megatron's column split of q/k/v and wi, row split of out and wo, the
+row products summed in f32 and rounded to bf16 once); the sequence over
+``sp`` (ring or Ulysses attention, the rest of the layer per position);
+experts over ``ep`` (:mod:`metaopt_tpu_torch.models.moe`). Each rank's
+loss is its share of the one-rank loss and the gradients are summed over
+``dp`` × ``sp`` (:func:`make_train_step`).
 """
 
 from __future__ import annotations
@@ -75,7 +85,12 @@ from torch import nn
 
 from metaopt_tpu_torch.models.checkpoint import has_state, restore_state, save_state
 from metaopt_tpu_torch.models.data import synthetic_seq2seq
-from metaopt_tpu_torch.ops.attention import draw_seed, flash_attention
+from metaopt_tpu_torch.ops.attention import draw_seed, flash_attention, sharded_flash_attention
+from metaopt_tpu_torch.parallel import collectives as coll
+from metaopt_tpu_torch.parallel import launch
+from metaopt_tpu_torch.parallel.mesh import (active_mesh, make_mesh, mesh_shape, mesh_sizes,
+                                             trial_devices, use_mesh)
+from metaopt_tpu_torch.parallel.sharding import MeshAxes, local_sizes, shard_batch, shard_params
 from metaopt_tpu_torch.ops.xent import blocked_softmax_xent, pick_block_v
 from metaopt_tpu_torch.utils.device import resolve_device
 
@@ -99,6 +114,25 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """flax ``Dense(dtype=bf16)``: input, kernel and bias all cast to bf16;
     the product is rounded to bf16 before the bias add, as in flax."""
     return F.linear(x.bfloat16(), layer.weight.bfloat16()) + layer.bias.bfloat16()
+
+
+def _dense_col(layer: nn.Linear, x: torch.Tensor, axes) -> torch.Tensor:
+    """A column-split (``tp``) dense layer: Megatron's f on the input
+    (identity forward, gradient summed over ``tp``), then this rank's
+    output columns."""
+    return _dense(layer, coll.copy_to_group(x, axes.group("tp") if axes else None))
+
+
+def _dense_row(layer: nn.Linear, x: torch.Tensor, axes) -> torch.Tensor:
+    """A row-split (``tp``) dense layer: this rank's f32 partial product of
+    the bf16 operands, summed over ``tp`` (Megatron's g), rounded to bf16
+    once, then the bias — the one-rank ``_dense`` but for the summation
+    order."""
+    group = axes.group("tp") if axes else None
+    if group is None:
+        return _dense(layer, x)
+    part = F.linear(x.bfloat16().float(), layer.weight.bfloat16().float())
+    return coll.reduce_from_group(part, group).bfloat16() + layer.bias.bfloat16()
 
 
 def _check_mask(mask: torch.Tensor, shape) -> torch.Tensor:
@@ -187,16 +221,30 @@ class LayerDraws:
         return _check_mask(self._ffn[self._f - 1], shape)
 
 
-def ffn_dropout(h: torch.Tensor, rate: float, draws) -> torch.Tensor:
+def global_shape(shape, axes, spec) -> tuple:
+    """The whole tensor's shape of a local slice cut along ``spec``."""
+    if axes is None:
+        return tuple(shape)
+    return tuple(n * (axes.size(a) if a else 1) for n, a in zip(shape, spec))
+
+
+def ffn_dropout(h: torch.Tensor, rate: float, draws, axes=None,
+                spec=("dp", "sp", "tp")) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode (``draws`` given): kept activations
     over keep_prob, the rest 0. flax divides the bf16 activations by its
     weak-typed keep_prob, which takes their dtype first: keep_prob is
-    rounded to bf16 before the division."""
+    rounded to bf16 before the division. Under a mesh the mask is drawn
+    whole, as one rank draws it, and this rank keeps its slice (``spec``
+    names the axis each dim is cut along), so a mesh run drops what the
+    one-rank run drops."""
     if draws is None or rate <= 0.0:
         return h
     keep = 1.0 - rate
     divisor = float(torch.tensor(keep, dtype=h.dtype))
-    return torch.where(draws.ffn_keep(h.shape, keep), h / divisor, torch.zeros_like(h))
+    mask = draws.ffn_keep(global_shape(h.shape, axes, spec), keep)
+    if axes is not None:
+        mask = axes.local(mask, spec)
+    return torch.where(mask, h / divisor, torch.zeros_like(h))
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -209,76 +257,116 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class MHA(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0):
+    """Multi-head attention; under a mesh (``axes``) the heads split over
+    ``tp`` (q/k/v column-split, out row-split) and the route follows the
+    reference: ``sp`` > 1 goes to ring or Ulysses attention
+    (``METAOPT_TPU_SP_IMPL``), any other mesh of more than one rank to
+    :func:`sharded_flash_attention`, one rank to :func:`flash_attention`."""
+
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0, axes=None):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by {n_heads} heads")
-        self.n_heads = n_heads
+        self.axes = axes
+        self.n_heads = local_sizes(axes, heads=(n_heads, "tp"))["heads"] if axes else n_heads
         self.d_head = d_model // n_heads
         self.dropout = dropout
-        self.q = nn.Linear(d_model, d_model)
-        self.k = nn.Linear(d_model, d_model)
-        self.v = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        width = self.n_heads * self.d_head
+        self.q = nn.Linear(d_model, width)
+        self.k = nn.Linear(d_model, width)
+        self.v = nn.Linear(d_model, width)
+        self.out = nn.Linear(width, d_model)
 
     def forward(self, q_in, kv_in, mask=None, draws=None):
-        """``draws`` given: training, attention dropout at ``self.dropout``."""
+        """``draws`` given: training, attention dropout at ``self.dropout``.
+        Under ``sp`` the inputs are this rank's sequence slices and ``mask``
+        (b, 1, q|1, k) covers the whole sequences."""
+        axes = self.axes
         b, sq, sk = q_in.shape[0], q_in.shape[1], kv_in.shape[1]
         heads = lambda t, s: t.view(b, s, self.n_heads, self.d_head)  # noqa: E731
-        q = heads(_dense(self.q, q_in), sq) / math.sqrt(self.d_head)
-        k = heads(_dense(self.k, kv_in), sk)
-        v = heads(_dense(self.v, kv_in), sk)
+        q = heads(_dense_col(self.q, q_in, axes), sq) / math.sqrt(self.d_head)
+        k = heads(_dense_col(self.k, kv_in, axes), sk)
+        v = heads(_dense_col(self.v, kv_in, axes), sk)
+        rate = self.dropout if draws is not None else 0.0
+        # a copy: under remat the layer's draws are replayed, whole
+        drop = dict(draws.attention_draw()) if rate > 0.0 else {}
+        sp = axes.size("sp") if axes else 1
         # masks here are (b, 1, q|1, k) with heads shared — a broadcast view
         # of the kernel's (b, q, k) convention, read through its strides
         m3 = None
         if mask is not None:
-            m3 = mask[:, 0].to(torch.int8).expand(b, sq, sk)
-        rate = self.dropout if draws is not None else 0.0
-        out = flash_attention(q, k, v, m3, dropout_rate=rate,
-                              **(draws.attention_draw() if rate > 0.0 else {}))
-        return _dense(self.out, out.reshape(b, sq, -1))
+            m3 = mask[:, 0].to(torch.int8).expand(b, sq * sp, sk * sp)
+        if axes is None:
+            out = flash_attention(q, k, v, m3, dropout_rate=rate, **drop)
+        elif sp > 1:
+            from metaopt_tpu_torch.ops.ulysses import sp_impl, ulysses_attention
+
+            if sp_impl() == "ulysses":
+                if "keep" in drop:
+                    drop["keep"] = axes.local(drop["keep"], ("dp", "tp"))
+                    drop["keep"] = axes.chunk(drop["keep"], 1, "sp")
+                out = ulysses_attention(q, k, v, m3, mesh=axes.mesh, dropout_rate=rate, **drop)
+            else:
+                from metaopt_tpu_torch.ops.ring_attention import ring_attention
+
+                if "keep" in drop:
+                    drop["keep"] = axes.local(drop["keep"], ("dp", "tp", "sp"))
+                out = ring_attention(q, k, v, None if m3 is None else axes.chunk(m3, 1, "sp"),
+                                     mesh=axes.mesh, dropout_rate=rate, **drop)
+        else:
+            if "keep" in drop:
+                drop["keep"] = axes.local(drop["keep"], ("dp", "tp"))
+            out = sharded_flash_attention(axes.mesh, q, k, v, m3, dropout_rate=rate, **drop)
+        return _dense_row(self.out, out.reshape(b, sq, -1), axes)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0, axes=None):
         super().__init__()
-        self.wi = nn.Linear(d_model, d_ff)
-        self.wo = nn.Linear(d_ff, d_model)
+        self.axes = axes
+        f = local_sizes(axes, d_ff=(d_ff, "tp"))["d_ff"] if axes else d_ff
+        self.wi = nn.Linear(d_model, f)
+        self.wo = nn.Linear(f, d_model)
         self.dropout = dropout
 
     def mask_shapes(self, b: int, s: int) -> List[tuple]:
-        """The dropout masks one call on a (b, s, d) input draws, in order."""
-        return [(b, s, self.wo.in_features)] if self.dropout > 0.0 else []
+        """The dropout masks one call on a (b, s, d) input draws, in order
+        (whole masks: under a mesh each rank keeps its slice)."""
+        if self.dropout <= 0.0:
+            return []
+        return [global_shape((b, s, self.wo.in_features), self.axes, ("dp", "sp", "tp"))]
 
     def forward(self, x, draws=None, aux=None):
         """``nn.Dropout`` after the relu when ``draws`` is given
         (:func:`ffn_dropout`). ``aux`` is the MoE's statistics sink, unused
         here."""
-        h = ffn_dropout(torch.relu(_dense(self.wi, x)), self.dropout, draws)
-        return _dense(self.wo, h)
+        h = torch.relu(_dense_col(self.wi, x, self.axes))
+        return _dense_row(self.wo, ffn_dropout(h, self.dropout, draws, self.axes), self.axes)
 
 
 def _make_mlp(d_model: int, d_ff: int, dropout: float, n_experts: int,
-              capacity_factor: float, router_top_k: int) -> nn.Module:
+              capacity_factor: float, router_top_k: int, axes=None) -> nn.Module:
     if n_experts > 0:
         from metaopt_tpu_torch.models.moe import MoEFeedForward
 
         return MoEFeedForward(d_model, d_ff, n_experts, dropout, capacity_factor,
-                              router_top_k)
-    return FeedForward(d_model, d_ff, dropout)
+                              router_top_k, axes)
+    return FeedForward(d_model, d_ff, dropout, axes)
 
 
 class EncoderLayer(nn.Module):
     n_attention = 1  # attention calls per forward
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0,
-                 n_experts: int = 0, capacity_factor: float = 1.25, router_top_k: int = 1):
+                 n_experts: int = 0, capacity_factor: float = 1.25, router_top_k: int = 1,
+                 axes=None):
         super().__init__()
         self.dropout = dropout
         self.ln1 = nn.LayerNorm(d_model)
-        self.self_attn = MHA(d_model, n_heads, dropout)
+        self.self_attn = MHA(d_model, n_heads, dropout, axes)
         self.ln2 = nn.LayerNorm(d_model)
-        self.mlp = _make_mlp(d_model, d_ff, dropout, n_experts, capacity_factor, router_top_k)
+        self.mlp = _make_mlp(d_model, d_ff, dropout, n_experts, capacity_factor, router_top_k,
+                             axes)
 
     def forward(self, x, pad_mask, draws=None, aux=None):
         y = _layer_norm(self.ln1, x)
@@ -290,15 +378,17 @@ class DecoderLayer(nn.Module):
     n_attention = 2
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0,
-                 n_experts: int = 0, capacity_factor: float = 1.25, router_top_k: int = 1):
+                 n_experts: int = 0, capacity_factor: float = 1.25, router_top_k: int = 1,
+                 axes=None):
         super().__init__()
         self.dropout = dropout
         self.ln1 = nn.LayerNorm(d_model)
-        self.self_attn = MHA(d_model, n_heads, dropout)
+        self.self_attn = MHA(d_model, n_heads, dropout, axes)
         self.ln2 = nn.LayerNorm(d_model)
-        self.cross_attn = MHA(d_model, n_heads, dropout)
+        self.cross_attn = MHA(d_model, n_heads, dropout, axes)
         self.ln3 = nn.LayerNorm(d_model)
-        self.mlp = _make_mlp(d_model, d_ff, dropout, n_experts, capacity_factor, router_top_k)
+        self.mlp = _make_mlp(d_model, d_ff, dropout, n_experts, capacity_factor, router_top_k,
+                             axes)
 
     def forward(self, x, enc, causal_mask, cross_mask, draws=None, aux=None):
         y = _layer_norm(self.ln1, x)
@@ -415,12 +505,13 @@ class Transformer(nn.Module):
     def __init__(self, vocab: int = 1000, d_model: int = 512, n_heads: int = 8,
                  n_layers: int = 6, d_ff: int = 2048, dropout: float = 0.1,
                  max_len: int = 512, n_experts: int = 0, capacity_factor: float = 1.25,
-                 router_top_k: int = 1, remat: bool = False):
+                 router_top_k: int = 1, remat: bool = False, mesh=None):
         super().__init__()
         self.vocab = vocab
         self.max_len = max_len
         self.remat = remat
-        moe = (n_experts, capacity_factor, router_top_k)
+        self.axes = axes = None if mesh is None else MeshAxes(mesh)
+        moe = (n_experts, capacity_factor, router_top_k, axes)
         self.embed = nn.Embedding(vocab, d_model)
         # zeros until init_like_flax or a loaded state: never uninitialized memory
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
@@ -441,7 +532,9 @@ class Transformer(nn.Module):
         features (B, T, d) f32 for the blocked xent. ``draws`` given:
         training, with dropout drawn from it (the reference's ``train=True``);
         else deterministic. ``aux``, a dict, receives the MoE layers'
-        ``aux_loss`` and ``moe_stats`` lists."""
+        ``aux_loss`` and ``moe_stats`` lists. Under a mesh ``src`` and
+        ``tgt_in`` are this rank's ``dp`` rows, whole; the output is this
+        rank's ``sp`` slice of the target positions."""
         s_len, t_len = src.shape[1], tgt_in.shape[1]
         if max(s_len, t_len) > self.max_len:
             raise ValueError(
@@ -449,6 +542,7 @@ class Transformer(nn.Module):
                 f"table (max_len={self.max_len}); pass max_len>=seq to "
                 f"make_model"
             )
+        check_sp(self.axes, s_len, t_len)
         src_pad = (src != 0)[:, None, None, :]                   # (b,1,1,k)
         causal = torch.tril(torch.ones(t_len, t_len, dtype=torch.bool,
                                        device=src.device))[None, None]
@@ -456,16 +550,31 @@ class Transformer(nn.Module):
 
         emb = self.embed.weight.bfloat16()
         pos = self.pos_embed.bfloat16()
-        x = emb[src] + pos[None, :s_len]
+        x = seq_slice(self.axes, emb[src] + pos[None, :s_len])
         for layer in self.enc:
             x = run_layer(layer, x, (src_pad,), draws, aux, self.remat)
         enc = _layer_norm(self.enc_ln, x).bfloat16()
 
-        y = emb[tgt_in] + pos[None, :t_len]
+        y = seq_slice(self.axes, emb[tgt_in] + pos[None, :t_len])
         for layer in self.dec:
             y = run_layer(layer, y, (enc, causal_mask, src_pad), draws, aux, self.remat)
         y = _layer_norm(self.dec_ln, y)
         return y if features else tied_readout(y, self.embed.weight)
+
+
+def check_sp(axes, *lengths: int) -> None:
+    """Sequence lengths must split over ``sp``: never a silent fallback to
+    attention replicated over the sp ranks."""
+    sp = axes.size("sp") if axes else 1
+    if sp > 1 and any(n % sp for n in lengths):
+        raise ValueError(
+            f"seq lengths ({', '.join(map(str, lengths))}) must be multiples of the sp "
+            f"mesh axis ({sp}); pad the batch or drop sp from the trial mesh")
+
+
+def seq_slice(axes, x: torch.Tensor) -> torch.Tensor:
+    """This rank's ``sp`` slice of (b, S, ...) along S."""
+    return x if axes is None else axes.chunk(x, 1, "sp")
 
 
 def tied_readout(y: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -495,10 +604,14 @@ def model_kwargs(h: Mapping[str, Any]) -> Dict[str, Any]:
     )
 
 
-def make_model(hparams: Optional[Dict[str, Any]] = None, **overrides) -> Transformer:
+def make_model(hparams: Optional[Dict[str, Any]] = None, mesh=None,
+               **overrides) -> Transformer:
+    """The Transformer of ``hparams``; with ``mesh``, this rank's shard of it
+    (load :func:`~metaopt_tpu_torch.parallel.sharding.shard_params` of the
+    whole model's state)."""
     h = dict(hparams or {})
     h.update(overrides)
-    return Transformer(**model_kwargs(h))
+    return Transformer(**model_kwargs(h), mesh=mesh)
 
 
 def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -572,11 +685,18 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 _BLOCKED_XENT_MIN_LOGITS_BYTES = 4 << 30
 
 
-def blocked_xent_enabled(batch: int, seq: int, vocab: int, shards: int = 1) -> bool:
+def blocked_xent_enabled(batch: int, seq: int, vocab: int,
+                         shards: Optional[int] = None) -> bool:
     """True when the losses fold the readout into the blocked xent: the
     f32 logits per device, ``4 · batch · seq · vocab / shards`` bytes, reach
-    ``4 << 30``. The port has no mesh, so ``shards`` (the ways the batch
-    dims are split) is 1 unless a caller says otherwise."""
+    ``4 << 30``. ``shards`` is the ways the (B, T) dims are split; with the
+    default None it is read from the ambient mesh (``dp · sp``; tp does not
+    split them), 1 outside any mesh, as the reference reads it."""
+    if shards is None:
+        from metaopt_tpu_torch.parallel.mesh import axis_size
+
+        mesh = active_mesh()
+        shards = axis_size(mesh, "dp") * axis_size(mesh, "sp")
     return 4 * batch * seq * vocab // max(shards, 1) >= _BLOCKED_XENT_MIN_LOGITS_BYTES
 
 
@@ -596,12 +716,23 @@ def readout_xent(out: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
 
 def masked_mean_with_aux(loss: torch.Tensor, mask: torch.Tensor,
                          aux: Mapping[str, Sequence[torch.Tensor]],
-                         moe_aux_weight: float) -> torch.Tensor:
-    """Masked token mean plus the MoE switch load-balancing terms."""
-    total = (loss * mask).sum() / mask.sum().clamp_min(1.0)
+                         moe_aux_weight: float, axes=None) -> torch.Tensor:
+    """Masked token mean plus the MoE switch load-balancing terms.
+
+    Under a mesh ``loss`` and ``mask`` are this rank's tokens and the result
+    is this rank's share: its masked sum over the mask count of every rank
+    holding other tokens (``dp`` × ``sp``), plus its share of the balance
+    terms (each already a global value). The shares sum to the one-rank
+    loss, and the gradients summed over those ranks to its gradient."""
+    group = axes.data if axes is not None else None
+    count = mask.sum()
+    if group is not None:
+        count = coll.all_reduce_(count.detach().clone(), group)
+    total = (loss * mask).sum() / count.clamp_min(1.0)
     terms = aux.get("aux_loss", [])
     if terms:
-        total = total + moe_aux_weight * sum(t.sum() for t in terms)
+        n = axes.size("dp") * axes.size("sp") if axes is not None else 1
+        total = total + moe_aux_weight * sum(t.sum() for t in terms) / n
     return total
 
 
@@ -611,17 +742,22 @@ def loss_fn(model: Transformer, batch, draws=None, moe_aux_weight: float = 0.01,
     plus ``moe_aux_weight`` times the MoE balance losses. ``draws`` given:
     in training mode, dropout drawn from it. ``stats``, a dict, receives
     ``blocked_xent`` (the route taken) and the MoE layers' ``aux_loss`` and
-    ``moe_stats`` lists."""
+    ``moe_stats`` lists. For a model on a mesh, ``batch`` is this rank's
+    ``dp`` rows and the loss this rank's share (:func:`masked_mean_with_aux`)."""
     src, tgt = batch
+    axes = model.axes
     bos = torch.ones_like(tgt[:, :1])
     tgt_in = torch.cat([bos, tgt[:, :-1]], dim=1)
-    blocked = blocked_xent_enabled(tgt.shape[0], tgt.shape[1], model.vocab)
+    dp = axes.size("dp") if axes else 1
+    blocked = blocked_xent_enabled(tgt.shape[0] * dp, tgt.shape[1], model.vocab,
+                                   dp * axes.size("sp") if axes else None)
     aux: Dict[str, List[torch.Tensor]] = {}
     out = model(src, tgt_in, draws, features=blocked, aux=aux)
     if stats is not None:
         stats.update(aux, blocked_xent=blocked)
+    tgt = seq_slice(axes, tgt)
     loss = readout_xent(out, model.embed.weight, tgt, model.vocab, blocked)
-    return masked_mean_with_aux(loss, (tgt != 0).float(), aux, moe_aux_weight)
+    return masked_mean_with_aux(loss, (tgt != 0).float(), aux, moe_aux_weight, axes)
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -706,11 +842,11 @@ class ScheduledAdamW:
 
 def trial_setup(hparams: Dict[str, Any], params, steps: int,
                 tp: int = 1, sp: int = 1, ep: int = 1) -> ScheduledAdamW:
-    """The trial-harness optimizer: AdamW over the reference's schedule."""
-    if tp > 1 or sp > 1 or ep > 1:
-        raise NotImplementedError(
-            "tp/sp/ep meshes are not ported yet: the one-device path runs "
-            "with tp = sp = ep = 1")
+    """The trial-harness optimizer: AdamW over the reference's schedule.
+    The mesh of ``tp``/``sp``/``ep`` is :func:`trial_axes`'s; the training
+    entry points build it inside the trial's ranks."""
+    if min(tp, sp, ep) < 1:
+        raise ValueError(f"tp, sp, ep must be >= 1, got {tp}, {sp}, {ep}")
     lr = float(hparams.get("lr", 1e-3))
     warmup = int(hparams.get("warmup", 10))
     sched = warmup_cosine_decay_schedule(0.0, lr, warmup, max(steps, warmup + 1))
@@ -718,30 +854,62 @@ def trial_setup(hparams: Dict[str, Any], params, steps: int,
                           weight_decay=float(hparams.get("weight_decay", 0.0)))
 
 
-def make_train_step(model: Transformer, opt: ScheduledAdamW):
+def trial_axes(n_devices: int, tp: int = 1, sp: int = 1, ep: int = 1):
+    """The trial mesh's axes over ``n_devices`` ranks: ``dp`` fills what tp,
+    sp and ep leave (the reference's ``trial_mesh(tp, extra_axes)``), with
+    its errors where they do not divide."""
+    extra = [(name, n) for name, n in (("sp", sp), ("ep", ep)) if n > 1]
+    return mesh_sizes([("dp", -1), ("tp", tp), *extra], n_devices)
+
+
+def make_train_step(model: Transformer, opt: ScheduledAdamW, loss=None):
     """One optimizer update on a batch, dropout drawn from ``draws`` (none
-    without); returns the pre-update loss."""
+    without); returns the pre-update loss. On a mesh each rank backpropagates
+    its share of the loss; the gradients are summed over the ranks that hold
+    other tokens (``dp`` × ``sp``) before the update, and the returned loss
+    is the sum of the shares. ``loss`` is the loss function (:func:`loss_fn`
+    unless given)."""
+    group = model.axes.data if getattr(model, "axes", None) is not None else None
+    fn = loss_fn if loss is None else loss
 
     def train_step(batch, draws=None) -> torch.Tensor:
         opt.zero_grad()
-        loss = loss_fn(model, batch, draws)
-        loss.backward()
+        value = fn(model, batch, draws)
+        value.backward()
+        sync_grads(opt.params, group)
         opt.step()
-        return loss.detach()
+        return coll.all_reduce_(value.detach().clone(), group)
 
     return train_step
+
+
+def sync_grads(params, group) -> None:
+    """Sum the gradients over ``group`` in one flat all-reduce."""
+    if group is None:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = coll.all_reduce_(torch.cat([g.reshape(-1).float() for g in grads]), group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def ckpt_file(restore_or_save_dir: str) -> str:
+    """The trial checkpoint's file: ``<dir>/state``, or on a mesh each
+    rank's own slice, ``<dir>/state.rank<r>`` (restored on the same mesh)."""
+    name = CKPT_FILE if not launch.in_rank() else f"{CKPT_FILE}.rank{launch.rank()}"
+    return os.path.join(restore_or_save_dir, name)
 
 
 def maybe_restore(restore_dir: Optional[str], model: Transformer,
                   opt: ScheduledAdamW) -> bool:
     """Load a trial checkpoint's parameters and optimizer state when
-    ``restore_dir`` holds a published one (``CKPT_FILE``, trees ``params``
+    ``restore_dir`` holds a published one (:func:`ckpt_file`, trees ``params``
     and ``opt_state``); returns whether it did. How a PBT continuation inherits its parent's
     training state and a re-run trial resumes its own."""
-    if not restore_dir or not has_state(os.path.join(restore_dir, CKPT_FILE)):
+    if not restore_dir or not has_state(ckpt_file(restore_dir)):
         return False
     params = list(model.parameters())
-    trees = restore_state(os.path.join(restore_dir, CKPT_FILE),
+    trees = restore_state(ckpt_file(restore_dir),
                           {"params": params, "opt_state": opt.state_leaves()})
     with torch.no_grad():
         for dst, src in zip(params, trees["params"]):
@@ -750,9 +918,53 @@ def maybe_restore(restore_dir: Optional[str], model: Transformer,
     return True
 
 
+def mesh_model(make, hparams: Dict[str, Any], mesh, device, seed: int):
+    """The model of ``make(hparams)`` initialized like flax from ``seed`` on
+    ``device``; with ``mesh``, this rank's shard of that same model (every
+    rank initializes the whole model and keeps its slice, so a mesh trial
+    starts from the one-rank trial's weights)."""
+    with device:
+        model = make(hparams)
+    model.init_like_flax(torch.Generator(device=device).manual_seed(seed))
+    if mesh is None:
+        return model
+    with device:
+        local = make(hparams, mesh=mesh)
+    local.load_state_dict(shard_params(mesh, model.state_dict()), strict=True)
+    return local
+
+
+def launch_trial(fn, hparams: Dict[str, Any], kw: Dict[str, Any], tp: int, sp: int, ep: int,
+                 device, report: Optional[Dict[str, Any]]) -> Optional[float]:
+    """Run a training entry point on the trial's ranks when its mesh has
+    more than one: one rank per :func:`trial_devices` device, the mesh
+    :func:`trial_axes`; rank 0's loss (and report). None when the trial
+    runs on one rank (or already runs inside ranks)."""
+    if launch.in_rank():
+        return None
+    devices = trial_devices(device)
+    axes = trial_axes(len(devices), tp, sp, ep)
+    if len(devices) == 1:
+        return None
+    out = launch.launch(_trial_rank, fn, hparams, kw, axes, devices=devices,
+                        timeout_s=3600.0)
+    if report is not None:
+        report.update(out["report"])
+    return out["loss"]
+
+
+def _trial_rank(fn, hparams, kw, axes):
+    """One rank of a launched trial: the mesh over the ranks, then ``fn``."""
+    mesh = make_mesh(axes)
+    report: Dict[str, Any] = {}
+    loss = fn(hparams, mesh=mesh, device=launch.rank_device(), report=report, **kw)
+    return {"loss": loss, "report": report}
+
+
 def train_and_eval(
     hparams: Dict[str, Any],
     *,
+    mesh=None,
     tp: int = 1,
     sp: int = 1,
     ep: int = 1,
@@ -777,9 +989,24 @@ def train_and_eval(
     (one per step), ``setup_s`` (model, optimizer, restore and data before
     the loop), ``train_s`` (the step loop, device-synchronized),
     ``save_s``, ``restored``, ``restored_updates`` and ``updates`` (the
-    optimizer's update count after the restore and at the end), ``steps``
-    and ``tokens_per_step`` (source + target tokens).
+    optimizer's update count after the restore and at the end), ``steps``,
+    ``tokens_per_step`` (source + target tokens) and ``mesh`` (the axes the
+    trial ran on, {} for one rank).
+
+    With more than one trial device (:func:`trial_devices`) the trial runs
+    one rank per device on the mesh of ``tp``, ``sp`` and ``ep`` (``dp``
+    fills the rest) and returns rank 0's loss; inside ranks, ``mesh`` is the
+    mesh and ``device`` the rank's device. A mesh trial draws the one-rank
+    trial's dropout masks and keeps its slices (attention dropout excepted:
+    its Philox seed is made distinct per mesh coordinate).
     """
+    kw = dict(n_train=n_train, batch_size=batch_size, seq_len=seq_len, steps=steps,
+              seed=seed, restore_dir=restore_dir, save_dir=save_dir)
+    if mesh is None:
+        loss = launch_trial(train_and_eval, hparams, dict(kw, tp=tp, sp=sp, ep=ep), tp, sp, ep,
+                            device, report)
+        if loss is not None:
+            return loss
     t_call = time.perf_counter()
     if n_train < batch_size:
         raise ValueError(
@@ -787,29 +1014,31 @@ def train_and_eval(
     device = resolve_device(device)
     # built and initialized on the device it trains on: on the CPU, the init
     # of Transformer-base's 45 M parameters takes seconds per trial
-    with device:
-        model = make_model(hparams)
-    model.init_like_flax(torch.Generator(device=device).manual_seed(seed))
+    model = mesh_model(make_model, hparams, mesh, device, seed)
     opt = trial_setup(hparams, model.parameters(), steps, tp, sp, ep)
     restored = maybe_restore(restore_dir, model, opt)
     restored_updates = opt.updates
     src, tgt = synthetic_seq2seq(n_train, seq_len, model.vocab, seed=seed,
                                  device=device)
     step_fn = make_train_step(model, opt)
+    axes = model.axes
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
     losses = []
-    for i in range(steps):
-        lo = (i * batch_size) % (n_train - batch_size + 1)
-        losses.append(step_fn((src[lo:lo + batch_size], tgt[lo:lo + batch_size]),
-                              Draws(seed, i, device)))
+    with use_mesh(mesh):
+        for i in range(steps):
+            lo = (i * batch_size) % (n_train - batch_size + 1)
+            batch = (src[lo:lo + batch_size], tgt[lo:lo + batch_size])
+            if axes is not None:
+                batch = shard_batch(axes, batch)
+            losses.append(step_fn(batch, Draws(seed, i, device)))
     sync()
     train_s = time.perf_counter() - t0
     t_save = time.perf_counter()
     if save_dir:
-        save_state(os.path.join(save_dir, CKPT_FILE),
+        save_state(ckpt_file(save_dir),
                    {"params": list(model.parameters()), "opt_state": opt.state_leaves()})
     if report is not None:
         report.update(
@@ -822,6 +1051,7 @@ def train_and_eval(
             updates=opt.updates,
             steps=steps,
             tokens_per_step=2 * batch_size * seq_len,
+            mesh=mesh_shape(mesh),
         )
     return float(losses[-1])
 

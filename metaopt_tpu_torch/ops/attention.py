@@ -528,3 +528,47 @@ def reference_attention(q, k, v, mask=None):
     if mask is not None:
         p = torch.where((mask != 0).any(-1)[:, None, :, None], p, 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# one rank's shard of a mesh
+
+
+_MIX = 0x9E3779B97F4A7C15
+_M64 = (1 << 64) - 1
+
+
+def shard_philox(philox: Tuple[int, int], coordinate: Sequence[int]) -> Tuple[int, int]:
+    """The Philox pair of one mesh coordinate: the seed mixed with each
+    coordinate (splitmix64's finalizer), the offset kept. The reference folds
+    the mesh coordinates into its key (``jax.random.fold_in``); this keeps
+    two ranks from drawing one stream for different heads or rows."""
+    seed, offset = philox
+    for c in coordinate:
+        z = (seed + _MIX * (int(c) + 1)) & _M64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+        seed = z ^ (z >> 31)
+    return seed, offset
+
+
+def sharded_flash_attention(mesh, q, k, v, mask=None, *, dropout_rate: float = 0.0,
+                            philox: Optional[Tuple[int, int]] = None,
+                            keep: Optional[torch.Tensor] = None,
+                            batch_axis: str = "dp", head_axis: str = "tp", **kwargs):
+    """One rank's (B/dp, S, H/tp, D) slab of attention over the mesh: batch
+    on ``dp``, heads on ``tp``, no collective (attention is independent
+    over batch and heads), so the Megatron column split of q/k/v stays local
+    and K1–K3 run on the slab.
+
+    q, k, v and ``mask`` are this rank's slices; ``keep`` (CPU only) its
+    (B/dp, H/tp, Sq, Sk) keep bits. The Philox pair is made distinct per
+    (dp, tp) coordinate (:func:`shard_philox`), as the reference folds the
+    coordinates into its key."""
+    from metaopt_tpu_torch.parallel.mesh import axis_index
+
+    if dropout_rate > 0.0 and philox is not None:
+        philox = shard_philox(philox, [axis_index(mesh, batch_axis),
+                                       axis_index(mesh, head_axis)])
+    return flash_attention(q, k, v, mask, dropout_rate=dropout_rate, philox=philox,
+                           keep=keep, **kwargs)

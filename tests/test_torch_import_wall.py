@@ -111,7 +111,18 @@ def test_scan_sees_the_whole_port():
                  "metaopt_tpu_torch/analysis/runner.py",
                  "metaopt_tpu_torch/analysis/crashcheck.py",
                  "metaopt_tpu_torch/analysis/dynrace.py",
-                 "metaopt_tpu_torch/analysis/suites.py"):
+                 "metaopt_tpu_torch/analysis/suites.py",
+                 "metaopt_tpu_torch/parallel/__init__.py",
+                 "metaopt_tpu_torch/parallel/launch.py",
+                 "metaopt_tpu_torch/parallel/mesh.py",
+                 "metaopt_tpu_torch/parallel/collectives.py",
+                 "metaopt_tpu_torch/parallel/sharding.py",
+                 "metaopt_tpu_torch/parallel/control.py",
+                 "metaopt_tpu_torch/parallel/pipeline.py",
+                 "metaopt_tpu_torch/ops/ring_attention.py",
+                 "metaopt_tpu_torch/ops/ulysses.py",
+                 "metaopt_tpu_torch/models/pipeline_lm.py",
+                 "metaopt_tpu_torch/coord/pod.py"):
         assert must in names
 
 

@@ -345,9 +345,13 @@ def test_train_lm_saves_and_restores_its_checkpoint(tmp_path):
     assert second["updates"] == 5
 
 
-def test_meshes_raise_as_for_the_transformer():
+def test_meshes_raise_as_for_the_transformer(monkeypatch):
+    """On one device (no chip block assigned) a tp, sp or ep mesh of 2 does
+    not fit: the reference's ``trial_mesh`` error, as for the Transformer
+    (the meshes themselves: tests/test_torch_mesh_models.py)."""
+    monkeypatch.delenv("MTPU_ASSIGNED_CHIPS", raising=False)
     for kw in ({"tp": 2}, {"sp": 2}, {"ep": 2}):
-        with pytest.raises(NotImplementedError, match="tp/sp/ep"):
+        with pytest.raises(ValueError, match="1 devices not divisible by fixed axes 2"):
             lm.train_lm({"d_model": 32, "n_heads": 1, "n_layers": 1, "d_ff": 64,
                          "vocab": 32}, n_train=8, batch_size=4, seq_len=4, steps=1,
                         device="cpu", **kw)

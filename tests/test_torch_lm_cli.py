@@ -88,7 +88,7 @@ def test_tpe_drives_the_port_lm_example(isolated, capsys):
 
 @pytest.mark.parametrize("args,message", [
     (["--lr=1e-3"], "CUDA is not available"),
-    (["--lr=1e-3", "--device=cpu", "--sp=2"], "tp/sp/ep meshes are not ported"),
+    (["--lr=1e-3", "--device=cpu", "--sp=2"], "1 devices not divisible by fixed axes 2"),
 ], ids=["no-cuda", "sp-2"])
 def test_example_raises_without_cuda_or_with_a_mesh(tmp_path, args, message):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO),

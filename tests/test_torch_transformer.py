@@ -166,11 +166,17 @@ def test_fresh_model_holds_no_uninitialized_memory():
 
 
 def test_unported_options_raise():
-    """The meshes are still unported; MoE feed-forwards and remat are ported
+    """Every option is ported now: ``trial_setup`` takes tp/sp/ep above 1
+    (the meshes run on the trial's ranks, tests/test_torch_mesh_models.py),
+    and a mesh that does not fit the trial's devices raises the reference's
+    ``trial_mesh`` error; MoE feed-forwards and remat are ported
     (tests/test_torch_moe.py, tests/test_torch_remat.py) and build."""
     for kw in ({"tp": 2}, {"sp": 2}, {"ep": 2}):
-        with pytest.raises(NotImplementedError):
-            tt.trial_setup({}, tt.make_model(HP).parameters(), 10, **kw)
+        opt = tt.trial_setup({}, tt.make_model(HP).parameters(), 10, **kw)
+        assert isinstance(opt, tt.ScheduledAdamW)
+        with pytest.raises(ValueError, match="1 devices not divisible by fixed axes 2"):
+            tt.trial_axes(1, **kw)
+    assert tt.trial_axes(4, tp=2) == [("dp", 2), ("tp", 2)]
     assert tt.make_model(dict(HP, n_experts=4)).enc[0].mlp.n_experts == 4
     assert tt.make_model(dict(HP, remat=True)).remat
 

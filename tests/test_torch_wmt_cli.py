@@ -72,12 +72,13 @@ def test_config4_hyperband_hunt_on_the_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("args,message", [
     (["--lr=1e-3", "--tp=1"], "CUDA is not available"),
-    (["--lr=1e-3", "--device=cpu"], "tp/sp/ep meshes are not ported"),
+    (["--lr=1e-3", "--device=cpu"], "1 devices not divisible by fixed axes 2"),
 ], ids=["no-cuda", "tp-2-default"])
 def test_example_raises_without_cuda_or_at_the_reference_tp(tmp_path, args, message):
     """Without CUDA the example raises unless given ``--device cpu``; at the
-    reference's default ``--tp 2`` it raises, as the port trains on one
-    device. Neither reports a result."""
+    reference's default ``--tp 2`` on one device (no block of two chips) it
+    raises the reference's mesh error (tp 2 on two chips:
+    tests/test_torch_mesh_cli.py). Neither reports a result."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO),
                METAOPT_TPU_RESULTS_PATH=str(tmp_path / "results.json"), OMP_NUM_THREADS="1",
                TMPDIR=str(tmp_path))
