@@ -7,10 +7,12 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
 ``metaopt_tpu``) through twenty-one phases and exits non-zero if any fails:
 
-1. build: compiles the flash-attention kernels from ``metaopt_tpu_torch/
-   csrc``, prints ptxas's registers and spills per kernel (and fails if
-   the bf16 K1 ``flash_fwd_kernel_mma`` is missing for a head dim, with or
-   without dropout), and prints the card's name and power limit;
+1. build: compiles the flash-attention kernels and TPE's EI scorer
+   (``tpe_ei.cu``) from ``metaopt_tpu_torch/csrc``, one ``nvcc`` for each
+   source, started together, prints ptxas's registers and spills per
+   kernel (and fails if the bf16 K1 ``flash_fwd_kernel_mma`` is missing
+   for a head dim, with or without dropout), and prints the card's name
+   and power limit;
 2. kernels: holds each kernel (K1 forward, K2 dK/dV, K3 dQ) against its
    plain PyTorch version on the same inputs, at the Transformer's shapes
    (B 32, S 64, H 8, D 64, bf16; padding, causal and cross masks), at
@@ -39,12 +41,18 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
 6. tpe: ``tpe_suggest_fused`` on the card against the CPU on the same
    inputs and injected draws (n 16 and 4096, d 4 with one categorical
    column, a NaN objective, a liar overlay): fit tensors within 1e-5,
-   identical winners; the card's own draws against the CPU generator's by a
+   identical winners but in slots whose two best scores tie within 1e-5;
+   the ``tpe_ei`` kernel against its plain version on the card on the
+   same launches' inputs (scores within 1e-5, winners equal but in such
+   tie slots, which it counts), its time, bound and the plain version's
+   time at n 16 and 4096; the card's own draws against the CPU generator's by a
    two-sample KS test; then ``build_experiment(algorithm={"tpe": ...})
    .workon`` of BASELINE config 2 (the 4-hparam MLP, full-size trials: 8192
    train and 2048 validation images, batch 256, 3 epochs), 10 random then 6
-   EI trials; then the suggest side's times: host ms per EI launch, device
-   ms and CUDA kernels per ``tpe_suggest_fused`` and of its scorer alone,
+   EI trials, every EI launch through ``tpe_ei`` (its launches counted over
+   the hunt); then the suggest side's times: host ms per EI launch, device
+   ms and CUDA kernels per ``tpe_suggest_fused`` (failing if its trace holds
+   no ``tpe_ei`` kernel or an ``ndtr`` one) and of its scorer alone,
    at n 10-16 and 4096, H2D bytes per suggest, prefetch hits and misses,
    ms per MLP train step and per trial;
 7. gp: GP-BO (``examples/gp.yaml``: seed 0, 8 initial points, 60 Adam
@@ -224,7 +232,9 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    dump``, its document at version 2 with ``metadata.branch``, every EI
    launch on the card, TPE's fit (split, weights, bandwidths) card against
    CPU within 1e-5; the warm start's seconds, and host ms, device ms and
-   CUDA kernels per EI launch at n ~10k. (d) Transfer priors
+   CUDA kernels per EI launch at n ~10k; ``tpe_ei`` launched in the child
+   hunt, and held against its plain version on one EI launch's inputs at
+   n ~10k, with its time and bound. (d) Transfer priors
    (``metadata.transfer_from``): ``n_prior`` equal to the adapted count,
    the discounted fit card against CPU within 1e-5. (e) 50,000 completed
    trials in a ``MemoryLedger`` with the archive on and off, each in a
@@ -253,7 +263,9 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    the bucket launches against the same members' solo launches (CUDA
    kernels, host ms, device ms per bucket and per member), each fused row
    against the member's solo row (winners equal except at f32 ties of
-   1e-5), then one live fuser tick. (e) 4 client threads x 64
+   1e-5), ``tpe_ei`` against its plain version on the bucket launches'
+   inputs, its time and bound at a bucket of 32, then one live fuser tick,
+   whose TPE buckets must launch ``tpe_ei``. (e) 4 client threads x 64
    ``worker_cycle`` round trips over TCP and over the socket, WAL
    fsync'd: p50 and p99 microseconds.
 18. shards: sharded serving. (a) ``python -m metaopt_tpu_torch -v serve
@@ -332,7 +344,7 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    a multi-GPU figure: NCCL across separate GPUs is not exercised on a
    machine with one card.
 
-It prints a ``{"kernels": [...]}`` line, a ``{"tpe": {...}}`` line, a
+It prints a ``{"kernels": [...]}`` line (K1-K3 and ``tpe_ei``), a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
 line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
@@ -345,7 +357,10 @@ run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
 run; under ``"lm"`` the launches and device ms on the LM's path, with the
 bound and SDPA's time at the LM's shape; under ``"mesh"`` the launches of
 ``[mesh]``'s leg (a) on all ranks and the kernel's time, bound and SDPA's
-at the ranks' shapes).
+at the ranks' shapes) and ``tpe_ei``, its launches summed over [tpe]'s
+hunt, [ledger]'s child hunt and [coord] (d)'s tick (each counted from 0
+just before that run), its times at the [ledger] shape (n ~10k) and under
+``"shapes"`` at every shape it was timed.
 """
 
 from __future__ import annotations
@@ -557,7 +572,17 @@ REPLACES = {
     "flash_fwd": "metaopt_tpu/ops/attention.py:77 (_flash_fwd_kernel)",
     "flash_bwd_dkv": "metaopt_tpu/ops/attention.py:181 (_flash_bwd_dkv_kernel)",
     "flash_bwd_dq": "metaopt_tpu/ops/attention.py:238 (_flash_bwd_dq_kernel)",
+    "tpe_ei": "metaopt_tpu/ops/tpe_math.py:67 (_truncnorm_mixture_logpdf_1d, vmapped :86-89, "
+              "in ei_scores :94 and the winner pick :342-350; XLA, not Pallas)",
 }
+TPE_EI_SOURCE = "metaopt_tpu_torch/csrc/tpe_ei.cu"
+# f32 operations per (candidate, live component, continuous column) of the
+# EI scorer: one exponential and ~10 others (z, z*z/2, four adds, the
+# log-sum-exp's compare and add)
+TPE_EI_OPS = 11
+# kernels per EI launch before the tpe_ei kernel, as PERF.md §6 records
+# them: at n 16 and 4096, at n ~10k, per bucket of 32
+TPE_EI_KERNELS_BEFORE = {"tpe": "254-273", "ledger": "285", "coord": "~384 a bucket of 32"}
 
 
 def log(msg: str) -> None:
@@ -981,10 +1006,11 @@ def tpe_on(torch, np, P, ObservationBuffer, case, dev):
     return fit, win, (args, kw)
 
 
-def profile_calls(torch, fn, n: int = 10):
+def profile_calls(torch, fn, n: int = 10, names=None):
     """(host ms per call, device ms per call, CUDA kernels per call) of
     ``fn``: host time around ``n`` synchronized calls untraced, device
-    time and kernel count from torch.profiler over ``n`` more."""
+    time and kernel count from torch.profiler over ``n`` more; the traced
+    kernels' names are appended to ``names`` when it is a list."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -1002,6 +1028,8 @@ def profile_calls(torch, fn, n: int = 10):
             torch.cuda.synchronize()
         rows = kernel_rows(prof, n)
         dev_ms, kernels = sum(r[1] for r in rows), sum(r[2] for r in rows)
+        if names is not None:
+            names.extend(r[0] for r in rows)
     except Exception as err:  # the profiler is a measurement aid only
         log(f"  (torch.profiler unavailable: {type(err).__name__}: {err})")
         dev_ms, kernels = None, None
@@ -1011,6 +1039,108 @@ def profile_calls(torch, fn, n: int = 10):
 def median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2] if xs else None
+
+
+# ---------------------------------------------------------------------------
+# the tpe_ei kernel (TPE's EI scorer) against its plain version, in the
+# phases that already build its shapes: [tpe], [ledger], [coord] (d)
+
+
+def capture_ei(P, run):
+    """(the (args, kwargs) of every ``ei_argmax`` call ``run()`` makes,
+    ``run()``'s result)."""
+    calls, real = [], P.ei_argmax
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    P.ei_argmax = spy
+    try:
+        out = run()
+    finally:
+        P.ei_argmax = real
+    return calls, out
+
+
+def ei_tie_slots(torch, scores, n_out: int, n_cand: int):
+    """(B, n_out) bool: slots whose two best scores lie within TPE_TOL of
+    each other (rtol and atol), where the winner may go either way."""
+    top = scores.reshape(scores.shape[0], n_out, n_cand).topk(min(2, n_cand), dim=2).values
+    if n_cand < 2:
+        return torch.zeros(top.shape[:2], dtype=torch.bool, device=scores.device)
+    return (top[..., 0] - top[..., 1]).abs() <= TPE_TOL + TPE_TOL * top[..., 1].abs()
+
+
+def ei_check(torch, P, call, tag: str):
+    """The kernel against ``ei_argmax_plain`` on the card, on one call's
+    inputs: scores within TPE_TOL and the same NaN and -inf pattern, and
+    winners equal except in tie slots. These launches are not counted."""
+    (fit, cand, nch, cont), kw = call
+    saved = P.launches["tpe_ei"]
+    ks, kwin = P.ei_argmax(fit, cand, nch, cont, **kw)
+    ps, pwin = P.ei_argmax_plain(fit, cand, nch, cont, **kw)
+    torch.cuda.synchronize()
+    P.launches["tpe_ei"] = saved
+    fin = torch.isfinite(ps)
+    if not (torch.equal(torch.isnan(ks), torch.isnan(ps))
+            and torch.equal(torch.isinf(ks) & (ks < 0), torch.isinf(ps) & (ps < 0))):
+        raise AssertionError(f"[{tag}] tpe_ei: the NaN/-inf pattern differs from the plain version")
+    err = float((ks[fin] - ps[fin]).abs().max()) if fin.any() else 0.0
+    if not torch.allclose(ks[fin], ps[fin], rtol=TPE_TOL, atol=TPE_TOL):
+        raise AssertionError(f"[{tag}] tpe_ei: scores off the plain version's by {err:.3e}")
+    ties = ei_tie_slots(torch, ps, kw["n_out"], kw["n_cand"])
+    differ = kwin != pwin
+    untied = int((differ & ~ties).sum())
+    if untied:
+        raise AssertionError(f"[{tag}] tpe_ei: {untied} slot(s) pick another winner than the "
+                             f"plain version without a tie")
+    return {"max_abs_err": err, "slots": differ.numel(), "tie_slots": int(ties.sum()),
+            "winners_differ_in_ties": int(differ.sum())}
+
+
+def ei_work(torch, call):
+    """(bytes, operations) of one ``ei_argmax`` call: each input read once
+    and each output written once; an operation count of what these inputs
+    need: candidates x live (finite-weight) components x continuous
+    columns x TPE_EI_OPS, member by member."""
+    (fit, cand, nch, cont), kw = call
+    B, C, _ = cand.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (cand, *fit, nch, cont))
+    nbytes += B * C * 4 + B * kw["n_out"] * 8
+    live = (torch.isfinite(fit.g_logw[:, :, 0]).sum(1) + torch.isfinite(fit.b_logw[:, :, 0]).sum(1))
+    ops = float((live * cont.sum(1)).sum()) * C * TPE_EI_OPS
+    return nbytes, ops
+
+
+def ei_times(torch, P, call, label: str):
+    """The kernel's device ms (profiler, its own launches), the plain
+    version's and the bound, on one call's inputs. Not counted."""
+    (fit, cand, nch, cont), kw = call
+    saved = P.launches["tpe_ei"]
+    ms, src, _ = device_ms(torch, lambda: P.ei_argmax(fit, cand, nch, cont, **kw), n=20,
+                           match="tpe_ei")
+    plain, _, _ = device_ms(torch, lambda: P.ei_argmax_plain(fit, cand, nch, cont, **kw), n=20)
+    P.launches["tpe_ei"] = saved
+    nbytes, ops = ei_work(torch, call)
+    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    B, C, d = cand.shape
+    return {"shape": f"{label}: B {B}, C {C} ({kw['n_out']} x {kw['n_cand']}), d {d}, "
+                     f"Ng {fit.g_mu.shape[1]}, Nb {fit.b_mu.shape[1]}, "
+                     f"kmax {fit.g_cat.shape[2]}",
+            "ms": ms, "ms_source": src, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "bytes": nbytes, "flops": ops}
+
+
+def log_ei(tag: str, check, times, kernels, host_ms, dev_ms, smi: str) -> None:
+    log(f"[{tag}] tpe_ei at {times['shape']}: {times['ms']:.4f} ms ({times['ms_source']}) "
+        f"against its bound {times['bound_ms']:.5f} ms ({times['bound_by']}) and the plain "
+        f"version's {times['plain_ms']:.4f} ms; library — (no single PyTorch call); scores "
+        f"max |kernel - plain| {check['max_abs_err']:.3e} (tol {TPE_TOL}), {check['tie_slots']} "
+        f"tie slot(s) of {check['slots']}, winners differing in them "
+        f"{check['winners_differ_in_ties']}; per EI launch {kernels} CUDA kernels (before "
+        f"the kernel: {TPE_EI_KERNELS_BEFORE[tag]}), host {host_ms:.3f} ms, device {dev_ms} ms; "
+        f"card {smi}")
 
 
 def tpe_phase(torch, smi: str):
@@ -1025,11 +1155,14 @@ def tpe_phase(torch, smi: str):
 
     out = {"card": smi}
     # -- card against CPU on the same inputs and draws ---------------------
-    agree = {}
+    agree, ei_calls = {}, {}
     for n in (16, 4096):
         case = tpe_case(np, n, seed=n)
-        fit_c, win_c, _ = tpe_on(torch, np, P, ObservationBuffer, case, "cuda")
-        fit_h, win_h, _ = tpe_on(torch, np, P, ObservationBuffer, case, "cpu")
+        calls_c, (fit_c, win_c, _) = capture_ei(
+            P, lambda: tpe_on(torch, np, P, ObservationBuffer, case, "cuda"))
+        calls_h, (fit_h, win_h, _) = capture_ei(
+            P, lambda: tpe_on(torch, np, P, ObservationBuffer, case, "cpu"))
+        ei_calls[n] = calls_c
         errs = {}
         for name, a, b in zip(P.TPEFit._fields, fit_c, fit_h):
             a = a.cpu()
@@ -1039,14 +1172,26 @@ def tpe_phase(torch, smi: str):
             errs[name] = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
             if not torch.allclose(a[fin], b[fin], rtol=TPE_TOL, atol=TPE_TOL):
                 raise AssertionError(f"[tpe] n {n}: {name} off by {errs[name]:.3e}")
-        same = torch.equal(win_c.cpu(), win_h)
+        # the card's kernel and the CPU's plain version may split a slot
+        # whose two best scores tie within TPE_TOL, and no other
+        ties = torch.cat([ei_tie_slots(torch, P.ei_argmax_plain(*a, **k)[0], k["n_out"],
+                                       k["n_cand"])[0] for a, k in calls_h])
+        rows = (win_c.cpu() != win_h).any(dim=1)
+        same = not bool(rows.any())
         agree[n] = {"fit_max_abs_err": max(errs.values()), "winners_identical": same,
+                    "winners_differ_in_ties": int(rows.sum()), "tie_slots": int(ties.sum()),
                     "winners_max_abs_diff": float((win_c.cpu() - win_h).abs().max())}
         log(f"[tpe] card vs cpu, n {n} (+3 pending): fit max |diff| "
-            f"{max(errs.values()):.3e} (tol {TPE_TOL}); winners identical: {same}")
-        if not same:
-            raise AssertionError(f"[tpe] n {n}: the card's winners differ from the CPU's")
+            f"{max(errs.values()):.3e} (tol {TPE_TOL}); winners identical: {same} "
+            f"({int(rows.sum())} differ, in {int(ties.sum())} tie slot(s) of {len(ties)})")
+        if bool((rows & ~ties).any()):
+            raise AssertionError(f"[tpe] n {n}: the card's winners differ from the CPU's "
+                                 f"outside a tie")
     out["card_vs_cpu"] = agree
+    # -- the tpe_ei kernel against its plain version on the card -------------
+    ei_check_rows = {n: [ei_check(torch, P, c, "tpe") for c in calls] for n, calls in
+                     ei_calls.items()}
+    ei_time_rows = {n: ei_times(torch, P, calls[0], f"n {n}") for n, calls in ei_calls.items()}
 
     # the card's own draws against the CPU generator's, one fit, 512 winners
     case = tpe_case(np, 64, seed=5)
@@ -1084,9 +1229,11 @@ def tpe_phase(torch, smi: str):
         return err
 
     t0 = time.perf_counter()
+    P.reset_launch_counts()
     stats = exp.workon(objective, algorithm=algo)
     algo.drain_suggest_ahead()
     torch.cuda.synchronize()
+    ei_launches = P.launches["tpe_ei"]
     hunt_s = time.perf_counter() - t0
     done = exp.fetch_trials("completed")
     tel = algo.telemetry()
@@ -1100,6 +1247,8 @@ def tpe_phase(torch, smi: str):
                              f"{[(t.status, t.objective) for t in exp.fetch_trials()]}")
     if tel["kernel_launches"] < 1 or ei_suggests < TPE_TRIALS - TPE_INITIAL:
         raise AssertionError(f"[tpe] the EI path ran too little: {tel}")
+    if ei_launches < 1:
+        raise AssertionError("[tpe] the hunt's EI launches never ran the tpe_ei kernel")
     if not all(t.params in exp.space for t in done):
         raise AssertionError("[tpe] a trial's point lies outside the space")
     if algo._buf.Xdev is None or algo._buf.Xdev.device.type != "cuda":
@@ -1118,8 +1267,9 @@ def tpe_phase(torch, smi: str):
         "mlp_ms_per_step": step_ms, "mlp_s_per_trial": trial_s,
         "mlp_ms_per_step_median": median(step_ms), "mlp_s_per_trial_median": median(trial_s),
         "producer_timings": stats.producer_timings,
-        "best": min(t.objective for t in done),
+        "best": min(t.objective for t in done), "tpe_ei_launches": ei_launches,
     }
+    log(f"[tpe] hunt: tpe_ei launched {ei_launches} times")
 
     # -- suggest-side times at n 16 and 4096 --------------------------------
     sizes = {}
@@ -1162,14 +1312,23 @@ def tpe_phase(torch, smi: str):
         torch.cuda.reset_peak_memory_stats()
         P.tpe_suggest_fused(*args, **kw).cpu()
         peak = torch.cuda.max_memory_allocated() - base
+        names = []
         call_host, call_dev, call_kernels = profile_calls(
-            torch, lambda: P.tpe_suggest_fused(*args, **kw).cpu())
-        fit = P._tpe_fit(*args[:3], args[5], *args[7:], kmax=kw["kmax"],
-                         equal_weight=kw["equal_weight"], n_good_pad=g_pad, n_bad_pad=b_pad)
-        cand = P._sample_candidates(fit, P.pool_draws(0, 0, 8 * 24, 4, "cuda"), args[5],
-                                    args[6], kw["kmax"])
+            torch, lambda: P.tpe_suggest_fused(*args, **kw).cpu(), names=names)
+        if names and (not any("tpe_ei" in k for k in names) or any("ndtr" in k for k in names)):
+            raise AssertionError(f"[tpe] n {n}: the EI launch's kernels are not the tpe_ei "
+                                 f"kernel's path: {sorted(set(names))}")
+        fit = P._batched(P._tpe_fit(*args[:3], args[5], *args[7:], kmax=kw["kmax"],
+                                    equal_weight=kw["equal_weight"], n_good_pad=g_pad,
+                                    n_bad_pad=b_pad))
+        nch, cont = args[5][None], args[6][None]
+        cand = P._sample_rows(fit, [t[None] for t in P.pool_draws(0, 0, 8 * kw["n_cand"], 4,
+                                                                   "cuda")],
+                              nch, cont, kw["kmax"])
+        saved = P.launches["tpe_ei"]
         sc_host, sc_dev, sc_kernels = profile_calls(
-            torch, lambda: P._score_candidates(fit, cand, args[5], args[6]))
+            torch, lambda: P.ei_argmax(fit, cand, nch, cont, n_out=8, n_cand=kw["n_cand"]))
+        P.launches["tpe_ei"] = saved
         row = {
             "launch_host_ms_median": median(host), "launch_host_ms": host,
             "first_launch_host_ms": first_ms, "syncs_per_launch": syncs,
@@ -1185,8 +1344,20 @@ def tpe_phase(torch, smi: str):
         log(f"[tpe] n {n}: _launch_ei host {median(host):.3f} ms median (first "
             f"{first_ms:.3f}), {syncs} device sync(s); tpe_suggest_fused host {call_host:.3f} ms, device "
             f"{call_dev} ms in {call_kernels} CUDA kernels, peak {peak} bytes; "
-            f"scorer device {sc_dev} ms in {sc_kernels} kernels; card {smi}")
+            f"scorer (tpe_ei) device {sc_dev} ms in {sc_kernels} kernels; card {smi}")
     out["sizes"] = sizes
+    ei = {"launches": ei_launches}
+    for n in (16, 4096):
+        st = sizes[n]
+        chk = {"max_abs_err": max(c["max_abs_err"] for c in ei_check_rows[n]),
+               **{k: sum(c[k] for c in ei_check_rows[n])
+                  for k in ("slots", "tie_slots", "winners_differ_in_ties")}}
+        ei[f"n{n}"] = {**ei_time_rows[n], **chk, "kernels_per_ei_launch": st["fused_cuda_kernels"],
+                       "launch_host_ms": st["launch_host_ms_median"],
+                       "launch_device_ms": st["fused_device_ms"]}
+        log_ei("tpe", chk, ei_time_rows[n], st["fused_cuda_kernels"],
+               st["launch_host_ms_median"], st["fused_device_ms"], smi)
+    out["tpe_ei"] = ei
     return out
 
 
@@ -3536,6 +3707,7 @@ def ledger_phase(torch, smi: str, hunt_stats, keep_root: bool = False):
     from metaopt_tpu_torch.ledger.backends import ledger_from_spec
     from metaopt_tpu_torch.ledger.native import NativeFileLedger
     from metaopt_tpu_torch.models.objectives import rosenbrock
+    from metaopt_tpu_torch.ops import tpe_math as P
     from metaopt_tpu_torch.space import build_space
     from metaopt_tpu_torch.utils import cuda_build
     from metaopt_tpu_torch.worker.producer import Producer
@@ -3673,6 +3845,7 @@ def ledger_phase(torch, smi: str, hunt_stats, keep_root: bool = False):
         Producer.produce = recording_produce
         child_space = {"x": "uniform(-5, 10)", "y": "uniform(-5, 5)"}
         t0 = time.perf_counter()
+        P.reset_launch_counts()
         try:
             rc, text = cli_in_process(
                 ["hunt", "-n", "child", "--branch-from", "parent", "--ledger", bare, "--algo",
@@ -3681,6 +3854,8 @@ def ledger_phase(torch, smi: str, hunt_stats, keep_root: bool = False):
         finally:
             TPE._launch_ei, Producer._adapt_foreign = real_launch, real_adapt
             Producer.produce = real_produce
+        torch.cuda.synchronize()
+        ei_launches = P.launches["tpe_ei"]
         child_wall = time.perf_counter() - t0
         summary = json.loads(text)
         if rc != 0 or summary["total"] != {"completed": LEDGER_CHILD_TRIALS}:
@@ -3713,6 +3888,8 @@ def ledger_phase(torch, smi: str, hunt_stats, keep_root: bool = False):
                             f"replay {len(replay)}")
         if any(dev != "cuda" for *_, dev in launches):
             problems.append("an EI launch ran off the card")
+        if ei_launches < 1:
+            problems.append("the hunt's EI launches never ran the tpe_ei kernel")
         if (child_doc.get("version") != 2
                 or (child_doc.get("metadata") or {}).get("branch", {}).get("parent") != "parent"):
             problems.append(f"child doc version {child_doc.get('version')}, metadata "
@@ -3725,6 +3902,11 @@ def ledger_phase(torch, smi: str, hunt_stats, keep_root: bool = False):
         algo.drain_suggest_ahead()
         algo._suggest_ahead_async = lambda: None   # launches only when timed
         ei_host, ei_dev, ei_kernels = profile_calls(torch, lambda: algo._launch_ei(8))
+        # the tpe_ei kernel on one EI launch's own inputs at n ~10k
+        calls, _ = capture_ei(P, lambda: algo._launch_ei(8))
+        ei_chk = ei_check(torch, P, calls[0], "ledger")
+        ei_t = ei_times(torch, P, calls[0], f"n {len(algo._y)}")
+        log_ei("ledger", ei_chk, ei_t, ei_kernels, ei_host, ei_dev, smi)
         warm_s = producers[0].warm_start_s if producers else None
         out["evc"] = {
             "parent_trials": LEDGER_PARENT, "db_load_s": load_s, "adapted": len(replay),
@@ -3736,6 +3918,9 @@ def ledger_phase(torch, smi: str, hunt_stats, keep_root: bool = False):
             "ei_cuda_kernels": ei_kernels, "n_obs_timed": len(algo._y),
             "dump_and_replay_s": replay_s, "fit_check_s": fit_s,
             "producer_timings": summary["producer_timings"],
+            "tpe_ei": {"launches": ei_launches, **ei_t, **ei_chk,
+                       "kernels_per_ei_launch": ei_kernels, "launch_host_ms": ei_host,
+                       "launch_device_ms": ei_dev},
         }
         log(f"[ledger] (c) db load of {LEDGER_PARENT} parent trials {load_s:.2f} s; the child "
             f"(y narrowed to uniform(-5, 5)) observed {first_n} adapted trials = the CPU replay "
@@ -4261,7 +4446,8 @@ def fleet_phase(torch, smi, CoordServer, Trial, P, G, build_space, np):
                         rows.append(r.cpu())
                     return rows
 
-                fused = [torch.from_numpy(r) for out_ in bucket_launches() for r in out_]
+                calls, outs = capture_ei(P, bucket_launches)
+                fused = [torch.from_numpy(r) for out_ in outs for r in out_]
                 solo = solo_launches(snaps)
                 b_host, b_dev, b_kern = profile_calls(torch, bucket_launches, n=2)
                 # the solo launches timed over the first COORD_SOLO_TIMED
@@ -4292,6 +4478,19 @@ def fleet_phase(torch, smi, CoordServer, Trial, P, G, build_space, np):
                 out[family] = row
                 if len(keys) != 1 or cmp["winners_differ_untied"]:
                     raise AssertionError(f"[coord] (d) {family}: {row}")
+                if family == "tpe":
+                    # the tpe_ei kernel on the bucket launches' own inputs
+                    chks = [ei_check(torch, P, c, "coord") for c in calls]
+                    chk = {"max_abs_err": max(c["max_abs_err"] for c in chks),
+                           **{k: sum(c[k] for c in chks)
+                              for k in ("slots", "tie_slots", "winners_differ_in_ties")}}
+                    ei_t = ei_times(torch, P, calls[0], f"a bucket of {len(chunks[0])}")
+                    b = row["bucket_launch"]
+                    row["tpe_ei"] = {**ei_t, **chk, "kernels_per_ei_launch": b["cuda_kernels"],
+                                     "launch_host_ms": b["host_ms"],
+                                     "launch_device_ms": b["device_ms"]}
+                    log_ei("coord", chk, ei_t, b["cuda_kernels"], b["host_ms"], b["device_ms"],
+                           smi)
                 log(f"[coord] (d) {family}: {n} members, {len(chunks)} bucket launch(es) of "
                     f"<= 32 at one static key; per bucket launch {b_host / len(chunks):.3f} ms "
                     f"host, {row['bucket_launch']['device_ms']} ms device, "
@@ -4308,14 +4507,19 @@ def fleet_phase(torch, smi, CoordServer, Trial, P, G, build_space, np):
                     a._launch_lock.release()
         # one live tick: every member demands, the fuser serves them all
         t0 = time.perf_counter()
+        P.reset_launch_counts()
         stats = fuser.tick()
         torch.cuda.synchronize()
+        ei_launches = P.launches["tpe_ei"]
         out["tick"] = {"host_ms": (time.perf_counter() - t0) * 1e3, **stats,
-                       "telemetry": fuser.telemetry()}
+                       "telemetry": fuser.telemetry(), "tpe_ei_launches": ei_launches}
         if stats["fused"] != COORD_FLEET + COORD_GP_FLEET:
             raise AssertionError(f"[coord] (d) one tick fused {stats}")
+        if ei_launches < 1:
+            raise AssertionError("[coord] (d) the tick's TPE buckets never ran the tpe_ei kernel")
         log(f"[coord] (d) one fuser tick: {stats['launches']} bucket launches served "
-            f"{stats['fused']} members in {out['tick']['host_ms']:.1f} ms; card {smi}")
+            f"{stats['fused']} members in {out['tick']['host_ms']:.1f} ms, tpe_ei launched "
+            f"{ei_launches} times; card {smi}")
     return out
 
 
@@ -5738,6 +5942,7 @@ def main() -> int:
     from metaopt_tpu_torch import build_experiment
     from metaopt_tpu_torch.models import transformer as tfm
     from metaopt_tpu_torch.ops import attention as att
+    from metaopt_tpu_torch.ops import tpe_math as P
     from metaopt_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5752,12 +5957,26 @@ def main() -> int:
         last[0] = now
 
     # -- 1. build -------------------------------------------------------------
+    # one nvcc per source, started together: tpe_ei.cu in a thread while
+    # flash_attention.cu builds here
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    att.build()
+    ei_src = [cuda_build.CSRC_DIR / "tpe_ei.cu"]
+    with ThreadPoolExecutor(1) as pool:
+        ei_built = pool.submit(cuda_build.build, "tpe_ei", ei_src)
+        att.build()
+        ei_built.result()
+    P.build_kernel()
     build_s = time.perf_counter() - t0
     lib = cuda_build.library_path("flash_attention",
                                   [cuda_build.CSRC_DIR / "flash_attention.cu"])
-    log(f"[build] flash_attention built/loaded in {build_s:.2f} s ({lib.name})")
+    log(f"[build] flash_attention and tpe_ei built/loaded in {build_s:.2f} s ({lib.name}, "
+        f"{cuda_build.library_path('tpe_ei', ei_src).name})")
+    for line in cuda_build.library_path("tpe_ei", ei_src).with_suffix(".log").read_text() \
+            .splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log("  ptxas (tpe_ei): " + line.strip())
     ptxas_log = lib.with_suffix(".log").read_text()
     for line in ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -6030,6 +6249,28 @@ def main() -> int:
             "launches_per_step_per_rank": mesh_stats["launches_per_step"],
             **{f"{key}_shard": {k: v for k, v in t[name].items() if k not in ("bytes", "flops")}
                for key, t in mesh_stats["times"].items()}}
+    # the tpe_ei kernel: launches of the three main-path runs that reach it
+    # ([tpe]'s hunt, [ledger]'s EVC child hunt, [coord] (d)'s live tick);
+    # times, bound and error at the [ledger] EI launch (n ~10k), the
+    # other shapes beside them
+    ei_rows = {"tpe_n16": tpe_stats["tpe_ei"]["n16"], "tpe_n4096": tpe_stats["tpe_ei"]["n4096"],
+               "ledger": ledger_stats["evc"]["tpe_ei"],
+               "coord_bucket": coord_stats["fleet"]["tpe"]["tpe_ei"]}
+    ei_by_phase = {"tpe": tpe_stats["tpe_ei"]["launches"],
+                   "ledger": ledger_stats["evc"]["tpe_ei"]["launches"],
+                   "coord": coord_stats["fleet"]["tick"]["tpe_ei_launches"]}
+    main_row = ei_rows["ledger"]
+    kernels.append({
+        "name": "tpe_ei", "route": "cuda", "source": TPE_EI_SOURCE,
+        "replaces": REPLACES["tpe_ei"], "launches": sum(ei_by_phase.values()),
+        "launches_by_phase": ei_by_phase,
+        "max_abs_err": max(r["max_abs_err"] for r in ei_rows.values()),
+        **{k: main_row[k] for k in ("ms", "ms_source", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "shapes": {label: {k: v for k, v in r.items() if k not in ("launches",)}
+                   for label, r in ei_rows.items()},
+    })
+    log(f"[tpe_ei] launches by phase {ei_by_phase}; card {smi}")
     print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,
                       "phase_s": phase_s,
                       "autograd_max_abs_err": autograd_err, "slice": {

@@ -333,12 +333,16 @@ class ShardRouter:
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind(self._bind)
         self._sock.listen(128)
+        # counted before the accept thread starts: from then on a
+        # connection's ping may swap _addrs under _map_lock (update_map)
+        with self._map_lock:
+            n_shards = len(self._addrs)
         t = threading.Thread(target=self._accept_loop,
                              name="coord-router-accept", daemon=True)
         t.start()
         self._threads.append(t)
         log.info("shard router listening on %s:%d (%d shards)",
-                 *self.address, len(self._addrs))
+                 *self.address, n_shards)
         return self
 
     def stop(self) -> None:

@@ -27,6 +27,12 @@ match the reference's.
 - Category counts are a one-hot product summed over observations, not a
   scatter-add: CUDA's ``index_add_`` uses atomics, whose order, and so
   whose float32 sum, changes from run to run.
+- The EI scorer and each slot's argmax run as one hand-written kernel on
+  the card (``csrc/tpe_ei.cu``, through :func:`ei_argmax` and
+  :func:`ei_scores`), counted in :data:`launches`; on CPU tensors the same
+  wrappers run the plain PyTorch version (:func:`ei_argmax_plain`), which
+  is also what the kernel is checked against on the card. There is no
+  fallback from a CUDA tensor to the plain path.
 - Random draws come in as tensors (``draws``) to ``_tpe_suggest_body``.
   ``tpe_suggest_fused`` makes them from one ``torch.Generator`` per pool,
   seeded by an integer hash of (kernel seed, observation count, pool
@@ -42,13 +48,23 @@ count grows with B.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import ctypes
+import functools
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _HALF_LOG_2PI = float(np.float32(0.5) * np.log(np.float32(2.0 * np.pi)))
 _BIG = 1e9
+
+#: kernel launches per wrapper since the last :func:`reset_launch_counts`
+launches: Dict[str, int] = {"tpe_ei": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def pad_pow2(n: int, minimum: int = 8) -> int:
@@ -189,8 +205,29 @@ def ei_scores(cand, good_mu, good_sigma, good_logw, bad_mu, bad_sigma, bad_logw,
 
     Continuous columns use the truncated-Gaussian Parzen mixtures;
     categorical columns (``cont_mask`` 0) look up the per-dim category
-    log-probs (..., d, K) at ``cand_cat_idx`` (..., C, d).
+    log-probs (..., d, K) at ``cand_cat_idx`` (..., C, d). On a CUDA
+    tensor this is the score output of the ``tpe_ei`` kernel (one launch,
+    counted in :data:`launches`); on a CPU tensor, :func:`_ei_scores_plain`.
     """
+    if cand.device.type == "cpu":
+        return _ei_scores_plain(cand, good_mu, good_sigma, good_logw, bad_mu, bad_sigma,
+                                bad_logw, cont_mask, cand_cat_idx, good_cat_logp,
+                                bad_cat_logp)
+    lead, (C, d) = cand.shape[:-2], cand.shape[-2:]
+    rows = cand.reshape(-1, C, d)
+    B = rows.shape[0]
+    fit = TPEFit(*(t.reshape(B, *t.shape[-2:]) for t in (
+        good_mu, good_sigma, good_logw, bad_mu, bad_sigma, bad_logw, good_cat_logp,
+        bad_cat_logp)))
+    cont = torch.broadcast_to(cont_mask > 0, (*lead, d)).reshape(B, d)
+    scores, _ = _ei_kernel(fit, rows, None, cand_cat_idx.reshape(B, C, d), cont, n_out=1,
+                           n_cand=C, winners=False)
+    return scores.reshape(*lead, C)
+
+
+def _ei_scores_plain(cand, good_mu, good_sigma, good_logw, bad_mu, bad_sigma, bad_logw,
+                     cont_mask, cand_cat_idx, good_cat_logp, bad_cat_logp):
+    """:func:`ei_scores` in plain PyTorch, on any device."""
     log_l_cont = _mixture_logpdf(cand, good_mu, good_sigma, good_logw)
     log_g_cont = _mixture_logpdf(cand, bad_mu, bad_sigma, bad_logw)
     idx = cand_cat_idx.transpose(-1, -2)                          # (..., d, C)
@@ -423,12 +460,108 @@ def _sample_rows(fit: TPEFit, draws, n_choices, cont_mask, kmax: int):
 
 
 def _score_rows(fit: TPEFit, cand, n_choices, cont_mask):
-    """EI score log l(x) − log g(x) of each member's candidate rows, (B, C)."""
+    """EI score log l(x) − log g(x) of each member's candidate rows, (B, C),
+    in plain PyTorch on any device."""
     k = torch.clamp(n_choices, min=1)
     cand_cat = torch.minimum((cand * k[:, None, :]).to(torch.int64), (k - 1)[:, None, :])
-    return ei_scores(cand, fit.g_mu, fit.g_sig, fit.g_logw, fit.b_mu, fit.b_sig,
-                     fit.b_logw, cont_mask.to(torch.float32), cand_cat,
-                     fit.g_cat, fit.b_cat)
+    return _ei_scores_plain(cand, fit.g_mu, fit.g_sig, fit.g_logw, fit.b_mu, fit.b_sig,
+                            fit.b_logw, cont_mask.to(torch.float32), cand_cat,
+                            fit.g_cat, fit.b_cat)
+
+
+def ei_argmax_plain(fit: TPEFit, cand, n_choices, cont_mask, *, n_out: int, n_cand: int):
+    """:func:`ei_argmax` in plain PyTorch, on any device: the scores of
+    :func:`_score_rows` and ``torch.argmax`` over each slot's candidates."""
+    scores = _score_rows(fit, cand, n_choices, cont_mask)
+    return scores, torch.argmax(scores.reshape(scores.shape[0], n_out, n_cand), dim=2)
+
+
+def ei_argmax(fit: TPEFit, cand, n_choices, cont_mask, *, n_out: int, n_cand: int):
+    """EI scores (B, C) of each member's candidates (B, C, d), C = n_out ×
+    n_cand, and each output slot's winner (B, n_out): the index of the
+    best of the slot's ``n_cand`` consecutive candidates, the first
+    maximum, a NaN counting as the maximum (``torch.argmax``'s rules).
+
+    ``fit`` is the members' :class:`TPEFit`; ``n_choices`` (B, d) int and
+    ``cont_mask`` (B, d) bool. On a CUDA tensor: one launch of the
+    ``tpe_ei`` kernel, counted in :data:`launches`, or an error. On a CPU
+    tensor: :func:`ei_argmax_plain`.
+    """
+    if cand.device.type == "cpu":
+        return ei_argmax_plain(fit, cand, n_choices, cont_mask, n_out=n_out, n_cand=n_cand)
+    return _ei_kernel(fit, cand, n_choices, None, cont_mask, n_out=n_out, n_cand=n_cand,
+                      winners=True)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA library (built at first use, never at import)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def build_kernel() -> ctypes.CDLL:
+    """Compile (if needed) and load the ``tpe_ei`` kernel's library."""
+    from metaopt_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("tpe_ei", [cuda_build.CSRC_DIR / "tpe_ei.cu"])
+    lib.tpe_ei.argtypes = [_P] * 14 + [_I] * 7 + [ctypes.c_float, _P]
+    lib.tpe_ei.restype = ctypes.c_int
+    return lib
+
+
+def _ei_kernel(fit: TPEFit, cand, n_choices, cat_idx, cont, *, n_out: int, n_cand: int,
+               winners: bool):
+    """One launch of ``tpe_ei``: (scores, winners or None). ``cat_idx``
+    (B, C, d), when given, replaces the indices computed from
+    ``n_choices``."""
+    dev = cand.device
+    if dev.type != "cuda":
+        raise ValueError(f"the tpe_ei kernel takes CUDA tensors, not {dev}")
+    if cand.dim() != 3 or cand.dtype != torch.float32:
+        raise ValueError(f"candidates must be float32 (B, C, d), got {cand.dtype} "
+                         f"{tuple(cand.shape)}")
+    B, C, d = cand.shape
+    ng, nb, kmax = fit.g_mu.shape[1], fit.b_mu.shape[1], fit.g_cat.shape[2]
+    if n_cand < 1 or n_out * n_cand != C:
+        raise ValueError(f"{C} candidates are not {n_out} slots of {n_cand}")
+    want = {"g_mu": (B, ng, d), "g_sig": (B, ng, d), "g_logw": (B, ng, d),
+            "b_mu": (B, nb, d), "b_sig": (B, nb, d), "b_logw": (B, nb, d),
+            "g_cat": (B, d, kmax), "b_cat": (B, d, kmax)}
+    for name, shape in want.items():
+        t = getattr(fit, name)
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"fit.{name} must be float32 {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if tuple(cont.shape) != (B, d) or cont.dtype != torch.bool or cont.device != dev:
+        raise ValueError(f"cont_mask must be bool {(B, d)} on {dev}")
+    if cat_idx is None:
+        if tuple(n_choices.shape) != (B, d) or n_choices.device != dev:
+            raise ValueError(f"n_choices must be {(B, d)} on {dev}")
+        n_choices = n_choices.to(torch.int32).contiguous()
+    elif tuple(cat_idx.shape) != (B, C, d) or cat_idx.device != dev:
+        raise ValueError(f"cat_idx must be {(B, C, d)} on {dev}")
+    else:
+        cat_idx = cat_idx.to(torch.int64).contiguous()
+    lib = build_kernel()
+    scores = torch.empty((B, C), dtype=torch.float32, device=dev)
+    win = torch.empty((B, n_out), dtype=torch.int64, device=dev) if winners else None
+    if B == 0:
+        return scores, win
+    ins = [t.contiguous() for t in (cand, *fit)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpe_ei(*(t.data_ptr() for t in ins),
+                         None if cat_idx is not None else n_choices.data_ptr(),
+                         None if cat_idx is None else cat_idx.data_ptr(),
+                         cont.contiguous().data_ptr(), scores.data_ptr(),
+                         None if win is None else win.data_ptr(),
+                         B, d, ng, nb, kmax, n_out, n_cand, _HALF_LOG_2PI, stream)
+    if err != 0:
+        raise RuntimeError(f"tpe_ei: CUDA launch failed with error {err}")
+    launches["tpe_ei"] += 1
+    return scores, win
 
 
 def _batched(fit: TPEFit) -> TPEFit:
@@ -460,8 +593,7 @@ def _tpe_suggest_rows(
     outs = []
     for pool in draws:
         cand = _sample_rows(fit, pool, n_choices, cont_mask, kmax)
-        scores = _score_rows(fit, cand, n_choices, cont_mask)
-        winners = torch.argmax(scores.reshape(B, n_out, n_cand), dim=2)
+        _, winners = ei_argmax(fit, cand, n_choices, cont_mask, n_out=n_out, n_cand=n_cand)
         picked = torch.gather(cand.reshape(B, n_out, n_cand, d), 2,
                               winners[:, :, None, None].expand(B, n_out, 1, d))
         outs.append(picked[:, :, 0])

@@ -6,12 +6,15 @@ Two compilers share one hashing and caching scheme: :func:`build` runs
 library is compiled at first use into ``metaopt_tpu_torch/_build/``, keyed
 by a hash of its sources and flags, so an edited source rebuilds and an
 unchanged one loads in milliseconds. Every build writes a per-process
-temporary file and publishes it with one ``os.replace``, so concurrent
-first uses (test workers, CLI workers) never load half a library. The
-sources expose a plain C interface: no PyTorch headers, so a build takes
-seconds, not minutes. The compiler's output (for ``nvcc``, ``-Xptxas=-v``:
-registers, shared memory, spills per kernel) is kept beside each library
-as ``<name>.log``. This module imports nothing outside the standard
+temporary file and publishes it with one ``os.link`` to the hashed name,
+which fails if another process published first; that process's file is
+then kept. So concurrent first uses (test workers, CLI workers) never
+load half a library, and a published library, which another process may
+have mapped, is never replaced under it. The sources expose a plain C
+interface: no PyTorch headers, so a build takes seconds, not minutes.
+The compiler's output (for ``nvcc``, ``-Xptxas=-v``: registers, shared
+memory, spills per kernel) is kept beside each library as
+``<name>.log``. This module imports nothing outside the standard
 library.
 """
 
@@ -100,18 +103,22 @@ def _compile(name: str, out: Path, cmd_of, timeout=None) -> Path:
     try:
         cmd = cmd_of(tmp)
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
-    except BaseException:
+        log = Path(tmp).with_suffix(".log")
+        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        os.replace(log, out.with_suffix(".log"))
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(cmd[0])} failed for {name} (exit "
+                f"{proc.returncode}):\n{proc.stderr[-4000:]}"
+            )
+        try:
+            # atomic, and never over a published file: a concurrent loader
+            # sees no half library, and no process's mapping loses its name
+            os.link(tmp, out)
+        except FileExistsError:
+            pass  # another process published the same sources first
+    finally:
         os.unlink(tmp)
-        raise
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"{os.path.basename(cmd[0])} failed for {name} (exit "
-            f"{proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 

@@ -210,6 +210,31 @@ def test_the_library_is_the_ports_own_build(tmp_path):
     assert str(native.lib_path) in mapped
 
 
+def test_a_later_build_never_replaces_a_published_library(tmp_path, monkeypatch):
+    """Two builds of one source into one ``_build/``, both past the check
+    for a built library: the first publishes and is loaded, and when the
+    second finishes it finds the name taken and keeps the first file, so
+    the first file's inode and this process's mapping of it stay."""
+    import ctypes
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    out = cuda_build.host_library_path("ledgerstore", [native.SOURCE])
+    first = {}
+
+    def cmd_of(tmp):  # the second build's compiler starts once the first is loaded
+        first["path"] = cuda_build.build_host("ledgerstore", [native.SOURCE])
+        first["lib"] = ctypes.CDLL(str(first["path"]))
+        first["ino"] = os.stat(first["path"]).st_ino
+        return [cuda_build.find_gxx(), *cuda_build.HOST_FLAGS, str(native.SOURCE), "-o", tmp]
+
+    assert cuda_build._compile("ledgerstore", out, cmd_of, timeout=120) == out
+    assert first["path"] == out and os.stat(out).st_ino == first["ino"]
+    with open("/proc/self/maps") as f:
+        mapped = [line.split(maxsplit=5)[-1].strip() for line in f if str(out) in line]
+    assert mapped and set(mapped) == {str(out)}  # none "(deleted)"
+    assert sorted(p.suffix for p in out.parent.iterdir()) == [".log", ".so"]
+
+
 BUILDER = r'''
 import sys
 from metaopt_tpu_torch.utils import cuda_build

@@ -22,6 +22,7 @@ own clean gate on the CPU.
 import importlib.util
 import json
 import os
+import socket
 import threading
 import time
 
@@ -216,6 +217,74 @@ def test_race_suites_clean_on_the_cpu(capsys):
     doc = json.loads(capsys.readouterr().out)
     assert doc["findings"] == [] and doc["suites"] == ["coord", "algo", "wal", "sim"]
     assert doc["stats"]["events"] > 10_000
+
+
+class _PingWhileListening:
+    """``shards.log`` whose "router listening" line first pings the router:
+    the first ping lands while ``ShardRouter.start`` is still running."""
+
+    def __init__(self, real):
+        self.real, self.replies = real, []
+
+    def info(self, msg, *args):
+        if msg.startswith("shard router listening"):
+            from metaopt_tpu_torch.coord.protocol import recv_msg, send_msg
+
+            with socket.create_connection(args[:2], timeout=30) as c:
+                send_msg(c, {"op": "ping", "args": {}})
+                self.replies.append(recv_msg(c))
+        self.real.info(msg, *args)
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def _ping_during_router_start(scale, device):
+    """A router over one stub shard that answers every ping with a newer
+    map, so the first ping's connection thread writes ``_addrs`` in
+    ``update_map`` while ``start`` has not returned."""
+    from metaopt_tpu_torch.coord import shards
+    from metaopt_tpu_torch.coord.protocol import recv_msg, send_msg
+
+    stub = socket.create_server(("127.0.0.1", 0))
+    host, port = stub.getsockname()[:2]
+    old = shards.make_shard_map([("s0", host, port)])
+    new = dict(old, version=shards.map_version(old) + 1)
+
+    def serve_stub():
+        conn, _ = stub.accept()
+        with conn:
+            while recv_msg(conn) is not None:
+                send_msg(conn, {"ok": True, "result": {"shard_map": new, "caps": []}})
+
+    t = threading.Thread(target=serve_stub, daemon=True)
+    t.start()
+    spy = _PingWhileListening(shards.log)
+    shards.log = spy
+    try:
+        router = shards.ShardRouter(old).start()
+    finally:
+        shards.log = spy.real
+    try:
+        with router._map_lock:
+            return spy.replies, shards.map_version(router.shard_map)
+    finally:
+        router.stop()
+        stub.close()
+        t.join(timeout=10)
+
+
+def test_a_ping_while_the_router_starts_races_nothing():
+    findings, events, (replies, version) = run_race_leg(_ping_during_router_start, 1, "cpu")
+    assert findings == [], "\n".join(f.render() for f in findings)
+    assert [r["result"]["shard_map"]["version"] for r in replies] == [version] and version > 1
+    assert events > 0
+
+
+def test_the_handoff_leg_is_clean_on_the_cpu():
+    findings, events, _ = run_race_leg(suites._coord_handoff_phase, 1, "cpu")
+    assert findings == [], "\n".join(f.render() for f in findings)
+    assert events > 1000
 
 
 @pytest.mark.slow
