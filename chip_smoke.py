@@ -11,8 +11,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    (``tpe_ei.cu``) from ``metaopt_tpu_torch/csrc``, one ``nvcc`` for each
    source, started together, prints ptxas's registers and spills per
    kernel (and fails if the bf16 K1 ``flash_fwd_kernel_mma`` is missing
-   for a head dim, with or without dropout), and prints the card's name
-   and power limit;
+   for a head dim, with or without dropout, or ``tpe_ei_kernel`` for one or
+   two candidates a lane), and prints the card's name and power limit;
 2. kernels: holds each kernel (K1 forward, K2 dK/dV, K3 dQ) against its
    plain PyTorch version on the same inputs, at the Transformer's shapes
    (B 32, S 64, H 8, D 64, bf16; padding, causal and cross masks), at
@@ -45,7 +45,11 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    the ``tpe_ei`` kernel against its plain version on the card on the
    same launches' inputs (scores within 1e-5, winners equal but in such
    tie slots, which it counts), its time, bound and the plain version's
-   time at n 16 and 4096; the card's own draws against the CPU generator's by a
+   time at n 16 and 4096, and the kernel alone the same way at n 50,000
+   (pads 16384 and 40960); the bound is the largest of the bytes at the
+   memory rate, the f32 operations at 67 TFLOP/s and one SFU exponential
+   per live term at 16 a clock per SM at ``nvidia-smi``'s maximum SM
+   clock; the card's own draws against the CPU generator's by a
    two-sample KS test; then ``build_experiment(algorithm={"tpe": ...})
    .workon`` of BASELINE config 2 (the 4-hparam MLP, full-size trials: 8192
    train and 2048 validation images, batch 256, 3 epochs), 10 random then 6
@@ -359,8 +363,9 @@ bound and SDPA's time at the LM's shape; under ``"mesh"`` the launches of
 ``[mesh]``'s leg (a) on all ranks and the kernel's time, bound and SDPA's
 at the ranks' shapes) and ``tpe_ei``, its launches summed over [tpe]'s
 hunt, [ledger]'s child hunt and [coord] (d)'s tick (each counted from 0
-just before that run), its times at the [ledger] shape (n ~10k) and under
-``"shapes"`` at every shape it was timed.
+just before that run), its times at the [ledger] shape (n ~10k), under
+``"shapes"`` at every shape it was timed (with its cluster size and CTAs),
+and its ptxas registers and spills.
 """
 
 from __future__ import annotations
@@ -580,9 +585,13 @@ TPE_EI_SOURCE = "metaopt_tpu_torch/csrc/tpe_ei.cu"
 # EI scorer: one exponential and ~10 others (z, z*z/2, four adds, the
 # log-sum-exp's compare and add)
 TPE_EI_OPS = 11
+# the exponentials of those terms run on the SFU: 16 a clock on each SM
+SFU_EXP_PER_CLOCK_PER_SM = 16
 # kernels per EI launch before the tpe_ei kernel, as PERF.md §6 records
 # them: at n 16 and 4096, at n ~10k, per bucket of 32
 TPE_EI_KERNELS_BEFORE = {"tpe": "254-273", "ledger": "285", "coord": "~384 a bucket of 32"}
+# the EI scorer alone at the 50,000-trial scale (pads 16384 good, 40960 bad)
+TPE_EI_BIG_N = 50_000
 
 
 def log(msg: str) -> None:
@@ -596,17 +605,30 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(text: str):
-    """{"kernel<D, dropout>": registers and spill bytes} from ``nvcc
-    -Xptxas=-v`` output: each "Compiling entry function" line names a kernel
-    by its mangled name, and the "spill" and "Used N registers" lines after
-    it belong to it."""
+def flash_kernel_name(line: str):
+    """"flash_fwd_kernel_mma<64, true>" from a ptxas "Compiling entry
+    function" line of flash_attention.cu, or None."""
+    m = re.search(r"'_Z\w*?\d+(flash_\w+?)I\w*?Li(\d+)ELb([01])E", line)
+    return (f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"
+            if m else None)
+
+
+def tpe_ei_kernel_name(line: str):
+    """"tpe_ei_kernel<1>" from a ptxas "Compiling entry function" line of
+    tpe_ei.cu, or None."""
+    m = re.search(r"tpe_ei_kernelILi(\d+)E", line)
+    return f"tpe_ei_kernel<{m.group(1)}>" if m else None
+
+
+def ptxas_summary(text: str, kernel_name=flash_kernel_name):
+    """{kernel: registers and spill bytes} from ``nvcc -Xptxas=-v`` output:
+    each "Compiling entry function" line names a kernel by its mangled name
+    (``kernel_name`` reads it), and the "spill" and "Used N registers" lines
+    after it belong to it."""
     out, cur = {}, None
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"'_Z\w*?\d+(flash_\w+?)I\w*?Li(\d+)ELb([01])E", line)
-            cur = (f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"
-                   if m else None)
+            cur = kernel_name(line)
             if cur:
                 out[cur] = {"registers": None, "spill_stores": None, "spill_loads": None}
             continue
@@ -1100,47 +1122,102 @@ def ei_check(torch, P, call, tag: str):
 
 
 def ei_work(torch, call):
-    """(bytes, operations) of one ``ei_argmax`` call: each input read once
-    and each output written once; an operation count of what these inputs
-    need: candidates x live (finite-weight) components x continuous
-    columns x TPE_EI_OPS, member by member."""
+    """(bytes, operations, exponentials) of one ``ei_argmax`` call: each
+    input read once and each output written once; the terms these inputs
+    need, member by member: candidates x live (finite-weight) components x
+    continuous columns, each one exponential and TPE_EI_OPS f32
+    operations."""
     (fit, cand, nch, cont), kw = call
     B, C, _ = cand.shape
     nbytes = sum(t.numel() * t.element_size() for t in (cand, *fit, nch, cont))
     nbytes += B * C * 4 + B * kw["n_out"] * 8
     live = (torch.isfinite(fit.g_logw[:, :, 0]).sum(1) + torch.isfinite(fit.b_logw[:, :, 0]).sum(1))
-    ops = float((live * cont.sum(1)).sum()) * C * TPE_EI_OPS
-    return nbytes, ops
+    terms = float((live * cont.sum(1)).sum()) * C
+    return nbytes, terms * TPE_EI_OPS, terms
+
+
+def sfu_exp_per_s(torch) -> tuple:
+    """(exponentials a second on the card's SFUs, SM clock MHz): 16 a clock
+    per SM at the card's maximum SM clock (``nvidia-smi
+    --query-gpu=clocks.max.sm``) on all its SMs."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6, mhz
 
 
 def ei_times(torch, P, call, label: str):
     """The kernel's device ms (profiler, its own launches), the plain
-    version's and the bound, on one call's inputs. Not counted."""
+    version's and the bound, on one call's inputs. Not counted. The bound
+    is the largest of the call's bytes at the memory rate, its f32
+    operations at 67 TFLOP/s and its exponentials at the SFUs' rate."""
     (fit, cand, nch, cont), kw = call
     saved = P.launches["tpe_ei"]
     ms, src, _ = device_ms(torch, lambda: P.ei_argmax(fit, cand, nch, cont, **kw), n=20,
                            match="tpe_ei")
     plain, _, _ = device_ms(torch, lambda: P.ei_argmax_plain(fit, cand, nch, cont, **kw), n=20)
     P.launches["tpe_ei"] = saved
-    nbytes, ops = ei_work(torch, call)
-    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    nbytes, ops, exps = ei_work(torch, call)
+    rate, mhz = sfu_exp_per_s(torch)
+    bounds = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+              "f32 operations": ops / PEAK_FLOPS["float32"] * 1e3,
+              "sfu exponentials": exps / rate * 1e3}
+    by = max(bounds, key=bounds.get)
     B, C, d = cand.shape
+    shape = P.ei_launch_shape(fit.g_mu.shape[1], fit.b_mu.shape[1], kw["n_cand"])
     return {"shape": f"{label}: B {B}, C {C} ({kw['n_out']} x {kw['n_cand']}), d {d}, "
                      f"Ng {fit.g_mu.shape[1]}, Nb {fit.b_mu.shape[1]}, "
                      f"kmax {fit.g_cat.shape[2]}",
-            "ms": ms, "ms_source": src, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "bytes": nbytes, "flops": ops}
+            "ms": ms, "ms_source": src, "plain_ms": plain, "bound_ms": bounds[by],
+            "bound_by": "bytes" if by == "bytes" else "operations", "bound_set_by": by,
+            "library_ms": None, "bytes": nbytes, "flops": ops, "exponentials": exps,
+            "sm_clock_mhz": mhz, "cluster": shape.cluster, "warps": shape.warps,
+            "ctas": B * kw["n_out"] * shape.cluster}
+
+
+def ei_cluster_choice(torch, P, call, label: str, smi: str):
+    """The kernel at clusters of 8 (the wrapper's cap) and of 16 on one
+    call's inputs: device ms of each (checked against the plain version
+    first), and how many clusters of each the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). Not counted."""
+    (fit, cand, nch, cont), kw = call
+    ng, nb, d = fit.g_mu.shape[1], fit.b_mu.shape[1], cand.shape[2]
+    lib, cap, row = P.build_kernel(), P._EI_MAX_CLUSTER, {}
+    try:
+        for cluster in (8, 16):
+            P._EI_MAX_CLUSTER = cluster
+            shape = P.ei_launch_shape(ng, nb, kw["n_cand"])
+            ei_check(torch, P, call, "tpe")
+            saved = P.launches["tpe_ei"]
+            ms, src, _ = device_ms(torch, lambda: P.ei_argmax(fit, cand, nch, cont, **kw),
+                                   n=20, match="tpe_ei")
+            P.launches["tpe_ei"] = saved
+            row[cluster] = {"ms": ms, "ms_source": src, "warps": shape.warps,
+                            "active_clusters": lib.tpe_ei_max_active_clusters(
+                                d, ng, nb, shape.cluster, shape.k, shape.warps)}
+    finally:
+        P._EI_MAX_CLUSTER = cap
+    log(f"[tpe] tpe_ei at {label} in clusters of 8: {row[8]['ms']:.4f} ms, "
+        f"{row[8]['active_clusters']} clusters resident at once; of 16: "
+        f"{row[16]['ms']:.4f} ms, {row[16]['active_clusters']}; card {smi}")
+    return row
 
 
 def log_ei(tag: str, check, times, kernels, host_ms, dev_ms, smi: str) -> None:
     log(f"[{tag}] tpe_ei at {times['shape']}: {times['ms']:.4f} ms ({times['ms_source']}) "
-        f"against its bound {times['bound_ms']:.5f} ms ({times['bound_by']}) and the plain "
+        f"on {times['ctas']} CTAs (clusters of {times['cluster']}) against its bound "
+        f"{times['bound_ms']:.3g} ms (set by {times['bound_set_by']}, SM clock "
+        f"{times['sm_clock_mhz']:.0f} MHz) and the plain "
         f"version's {times['plain_ms']:.4f} ms; library — (no single PyTorch call); scores "
         f"max |kernel - plain| {check['max_abs_err']:.3e} (tol {TPE_TOL}), {check['tie_slots']} "
         f"tie slot(s) of {check['slots']}, winners differing in them "
-        f"{check['winners_differ_in_ties']}; per EI launch {kernels} CUDA kernels (before "
-        f"the kernel: {TPE_EI_KERNELS_BEFORE[tag]}), host {host_ms:.3f} ms, device {dev_ms} ms; "
-        f"card {smi}")
+        f"{check['winners_differ_in_ties']}; "
+        + ("the kernel alone; " if kernels is None else
+           f"per EI launch {kernels} CUDA kernels (before the kernel: "
+           f"{TPE_EI_KERNELS_BEFORE[tag]}), host {host_ms:.3f} ms, device {dev_ms} ms; ")
+        + f"card {smi}")
 
 
 def tpe_phase(torch, smi: str):
@@ -1192,6 +1269,17 @@ def tpe_phase(torch, smi: str):
     ei_check_rows = {n: [ei_check(torch, P, c, "tpe") for c in calls] for n, calls in
                      ei_calls.items()}
     ei_time_rows = {n: ei_times(torch, P, calls[0], f"n {n}") for n, calls in ei_calls.items()}
+    # the kernel alone at the 50,000-trial scale that [ledger]'s archive
+    # holds: one fit's two pools on the card, against the plain version
+    big = tpe_case(np, TPE_EI_BIG_N, seed=50)
+    calls_big, _ = capture_ei(P, lambda: tpe_on(torch, np, P, ObservationBuffer, big, "cuda"))
+    chk_big = [ei_check(torch, P, c, "tpe") for c in calls_big]
+    ei_check_rows[TPE_EI_BIG_N] = chk_big
+    ei_time_rows[TPE_EI_BIG_N] = ei_times(torch, P, calls_big[0], f"n {TPE_EI_BIG_N} + 3")
+    # why the wrapper stops at clusters of 8
+    cluster_choice = {n: ei_cluster_choice(torch, P, c, f"n {n}", smi)
+                      for n, c in ((4096, ei_calls[4096][0]), (TPE_EI_BIG_N, calls_big[0]))}
+    del big, calls_big
 
     # the card's own draws against the CPU generator's, one fit, 512 winners
     case = tpe_case(np, 64, seed=5)
@@ -1347,16 +1435,21 @@ def tpe_phase(torch, smi: str):
             f"scorer (tpe_ei) device {sc_dev} ms in {sc_kernels} kernels; card {smi}")
     out["sizes"] = sizes
     ei = {"launches": ei_launches}
-    for n in (16, 4096):
-        st = sizes[n]
+    for n in (16, 4096, TPE_EI_BIG_N):
         chk = {"max_abs_err": max(c["max_abs_err"] for c in ei_check_rows[n]),
                **{k: sum(c[k] for c in ei_check_rows[n])
                   for k in ("slots", "tie_slots", "winners_differ_in_ties")}}
+        if n == TPE_EI_BIG_N:  # the kernel alone: no EI launch timed at this n
+            ei[f"n{n}"] = {**ei_time_rows[n], **chk}
+            log_ei("tpe", chk, ei_time_rows[n], None, None, None, smi)
+            continue
+        st = sizes[n]
         ei[f"n{n}"] = {**ei_time_rows[n], **chk, "kernels_per_ei_launch": st["fused_cuda_kernels"],
                        "launch_host_ms": st["launch_host_ms_median"],
                        "launch_device_ms": st["fused_device_ms"]}
         log_ei("tpe", chk, ei_time_rows[n], st["fused_cuda_kernels"],
                st["launch_host_ms_median"], st["fused_device_ms"], smi)
+    ei["clusters_8_vs_16"] = cluster_choice
     out["tpe_ei"] = ei
     return out
 
@@ -5973,10 +6066,16 @@ def main() -> int:
                                   [cuda_build.CSRC_DIR / "flash_attention.cu"])
     log(f"[build] flash_attention and tpe_ei built/loaded in {build_s:.2f} s ({lib.name}, "
         f"{cuda_build.library_path('tpe_ei', ei_src).name})")
-    for line in cuda_build.library_path("tpe_ei", ei_src).with_suffix(".log").read_text() \
-            .splitlines():
+    ei_log = cuda_build.library_path("tpe_ei", ei_src).with_suffix(".log").read_text()
+    for line in ei_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas (tpe_ei): " + line.strip())
+    ei_ptxas = ptxas_summary(ei_log, tpe_ei_kernel_name)
+    for kern, st in sorted(ei_ptxas.items()):
+        log(f"[build] {kern}: {st['registers']} registers, spill stores/loads "
+            f"{st['spill_stores']}/{st['spill_loads']} bytes")
+    if sorted(ei_ptxas) != ["tpe_ei_kernel<1>", "tpe_ei_kernel<2>"]:
+        raise AssertionError(f"[build] tpe_ei.cu's kernels are not K = 1 and 2: {sorted(ei_ptxas)}")
     ptxas_log = lib.with_suffix(".log").read_text()
     for line in ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -6254,6 +6353,7 @@ def main() -> int:
     # times, bound and error at the [ledger] EI launch (n ~10k), the
     # other shapes beside them
     ei_rows = {"tpe_n16": tpe_stats["tpe_ei"]["n16"], "tpe_n4096": tpe_stats["tpe_ei"]["n4096"],
+               f"tpe_n{TPE_EI_BIG_N}": tpe_stats["tpe_ei"][f"n{TPE_EI_BIG_N}"],
                "ledger": ledger_stats["evc"]["tpe_ei"],
                "coord_bucket": coord_stats["fleet"]["tpe"]["tpe_ei"]}
     ei_by_phase = {"tpe": tpe_stats["tpe_ei"]["launches"],
@@ -6269,6 +6369,7 @@ def main() -> int:
                                     "library_ms")},
         "shapes": {label: {k: v for k, v in r.items() if k not in ("launches",)}
                    for label, r in ei_rows.items()},
+        "ptxas": ei_ptxas,
     })
     log(f"[tpe_ei] launches by phase {ei_by_phase}; card {smi}")
     print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,

@@ -500,14 +500,59 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+#: the most CTAs a cluster takes (the kernel takes 16, but an H100 holds
+#: far fewer clusters of 16 at once than of 8: chip_smoke.py times both),
+#: and the fewest components (good and bad together) that one CTA of a
+#: cluster should get
+_EI_MAX_CLUSTER = 8
+_EI_MIN_COMPONENTS_PER_CTA = 256
+#: warps per CTA at most, and the components of one column each warp
+#: should get at least (8 at a time)
+_EI_MAX_WARPS = 16
+_EI_COMPONENTS_PER_WARP = 64
+
+
+class EILaunchShape(NamedTuple):
+    """How one ``tpe_ei`` launch splits a (member, output slot): a cluster
+    of ``cluster`` CTAs, each taking an equal range of both mixtures'
+    component rows, with ``warps`` warps that split those components; each
+    lane holds ``k`` candidates (a round of 32 k). The grid is B × n_out
+    clusters."""
+    cluster: int
+    k: int
+    warps: int
+
+
+def ei_launch_shape(ng: int, nb: int, n_cand: int) -> EILaunchShape:
+    """The launch shape for good and bad pads ``ng``, ``nb`` and ``n_cand``
+    candidates per slot. A function of these three alone, never of the
+    member count: the kernel's order of additions follows the shape, so a
+    bucket row stays the bits of the member's solo row. The cluster doubles
+    while each CTA keeps at least ``_EI_MIN_COMPONENTS_PER_CTA`` components,
+    so small pads spend no CTAs on ranges of nothing; the warps grow with
+    the CTA's components in the same way."""
+    cluster = 1
+    while (cluster < _EI_MAX_CLUSTER
+           and ng + nb >= 2 * cluster * _EI_MIN_COMPONENTS_PER_CTA):
+        cluster *= 2
+    per_cta = [-(-n // cluster) for n in (ng, nb)]       # rows of each mixture
+    comps = sum(-(-rows // 8) * 8 for rows in per_cta)   # staged 8 at a time
+    warps = max(1, min(_EI_MAX_WARPS, -(-comps // _EI_COMPONENTS_PER_WARP)))
+    return EILaunchShape(cluster, 1 if n_cand <= 32 else 2, warps)
+
+
 @functools.cache
 def build_kernel() -> ctypes.CDLL:
     """Compile (if needed) and load the ``tpe_ei`` kernel's library."""
     from metaopt_tpu_torch.utils import cuda_build
 
     lib = cuda_build.load("tpe_ei", [cuda_build.CSRC_DIR / "tpe_ei.cu"])
-    lib.tpe_ei.argtypes = [_P] * 14 + [_I] * 7 + [ctypes.c_float, _P]
+    lib.tpe_ei.argtypes = [_P] * 14 + [_I] * 10 + [ctypes.c_float, _P]
     lib.tpe_ei.restype = ctypes.c_int
+    lib.tpe_ei_error_string.argtypes = [_I]
+    lib.tpe_ei_error_string.restype = ctypes.c_char_p
+    lib.tpe_ei_max_active_clusters.argtypes = [_I] * 6
+    lib.tpe_ei_max_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -550,6 +595,7 @@ def _ei_kernel(fit: TPEFit, cand, n_choices, cat_idx, cont, *, n_out: int, n_can
     if B == 0:
         return scores, win
     ins = [t.contiguous() for t in (cand, *fit)]
+    shape = ei_launch_shape(ng, nb, n_cand)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpe_ei(*(t.data_ptr() for t in ins),
@@ -557,9 +603,12 @@ def _ei_kernel(fit: TPEFit, cand, n_choices, cat_idx, cont, *, n_out: int, n_can
                          None if cat_idx is None else cat_idx.data_ptr(),
                          cont.contiguous().data_ptr(), scores.data_ptr(),
                          None if win is None else win.data_ptr(),
-                         B, d, ng, nb, kmax, n_out, n_cand, _HALF_LOG_2PI, stream)
+                         B, d, ng, nb, kmax, n_out, n_cand, shape.cluster, shape.k,
+                         shape.warps, _HALF_LOG_2PI, stream)
     if err != 0:
-        raise RuntimeError(f"tpe_ei: CUDA launch failed with error {err}")
+        why = lib.tpe_ei_error_string(err).decode()
+        raise RuntimeError(f"tpe_ei: CUDA launch refused or failed with error {err} ({why}) "
+                           f"at {shape}")
     launches["tpe_ei"] += 1
     return scores, win
 

@@ -7,11 +7,13 @@ held to the reference's ``ei_scores`` (the XLA program that the ``tpe_ei``
 kernel replaces) and ``jnp.argmax`` on the same numpy inputs: scores within
 1e-5, winners equal, with categorical columns, -inf padding components, a
 slot whose best score is tied exactly (the first index wins) and a NaN
-score (it wins, in both frameworks). The kernel itself needs a CUDA card:
+score (it wins, in both frameworks). The kernel's launch shape, computed
+here from the pads alone, is checked too. The kernel itself needs a CUDA card:
 ``tests/test_torch_tpe_ei_card.py`` holds it to the plain version there,
 and ``chip_smoke.py`` at the main path's shapes.
 """
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -164,3 +166,31 @@ def test_a_cuda_tensor_without_a_card_raises_rather_than_drifting():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.count("raised:") == 2
+
+
+# the main path's launches: [tpe] n 16 and 4096, [ledger] n ~10k, [coord]
+# (d)'s bucket, the n 50,000 check; (ng, nb, n_cand) -> (cluster, warps, k)
+LAUNCHES = {
+    "n16": ((8, 16, 24), (1, 1, 1)),
+    "bucket": ((64, 256, 24), (1, 5, 1)),
+    "n4096": ((2048, 4096, 24), (8, 12, 1)),
+    "n10k": ((4096, 8192, 24), (8, 16, 1)),
+    "n50000": ((16384, 40960, 24), (8, 16, 1)),
+    "cand40": ((2048, 4096, 40), (8, 12, 2)),
+    "cand1": ((128, 512, 1), (2, 5, 1)),
+    "unpadded": ((17, 4100, 24), (8, 9, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(LAUNCHES))
+def test_the_launch_shape_follows_the_pads(case):
+    """The kernel's launch shape is a function of the pads and the slot's
+    candidates alone (``ei_launch_shape`` takes no member count): the order
+    of the kernel's additions follows it, so a bucket row stays the bits of
+    the member's solo row. A solo launch at n ~10k runs 8 slots x 8 CTAs,
+    against the 8 blocks of one per slot."""
+    (ng, nb, n_cand), want = LAUNCHES[case]
+    shape = P.ei_launch_shape(ng, nb, n_cand)
+    assert (shape.cluster, shape.warps, shape.k) == want
+    assert list(inspect.signature(P.ei_launch_shape).parameters) == ["ng", "nb", "n_cand"]
+    assert 32 * shape.k >= min(n_cand, 64)
