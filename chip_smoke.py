@@ -5,7 +5,13 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
-``metaopt_tpu``) through twenty-one phases and exits non-zero if any fails:
+``metaopt_tpu``) through twenty-two phases and exits non-zero if any fails.
+Before the first it prints a ``{"provenance": {...}}`` line: the port's
+``provenance(backend="cuda", card=...)`` stamp (commit, or "unknown" outside
+a git checkout; UTC time; the card's name and power limit from
+``nvidia-smi``). Every CLI process a phase starts carries a sweep marker of
+its own, and after it ends every process with that marker is killed and
+counted (``kill_by_env_marker``; 0 on a clean run):
 
 1. build: compiles the flash-attention kernels and TPE's EI scorer
    (``tpe_ei.cu``) from ``metaopt_tpu_torch/csrc``, one ``nvcc`` for each
@@ -91,10 +97,11 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    train steps (batch 128): ms per step, images per second, device busy
    share, device ms by kind of kernel, peak memory. (b) ASHA (``asha.json``,
    seed 0, pool 1) on ``metaopt_tpu_torch/examples/resnet_cifar.py`` at
-   full width through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 3,
-   base=3)`` on 1024 training images (cut from ``fidelity(1, 16, base=4)``
-   and 4096 to fit the script's time limit), 4 trials, each a fresh
-   process pinned to the card — all completed and finite, budgets 1 and 3
+   full width through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 2,
+   base=2)`` on 1024 training images (cut from ``fidelity(1, 16, base=4)``
+   and 4096 to fit the script's time limit; ``fidelity(1, 3, base=3)`` and
+   4 trials until phase 22), 3 trials, each a fresh
+   process pinned to the card — all completed and finite, budgets 1 and 2
    reached, promotions on their parents' lineage, every trial on the
    card, the GPU registry empty after, ``status --rungs --json`` from a
    fresh process equal to ASHA replayed over the ledger. (c) Config 3's
@@ -112,7 +119,8 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    10 and 5 to fit the script's time limit; population 4 until PR 13, 3
    until PR 17) on
    ``metaopt_tpu_torch/examples/ppo_atari.py`` through ``hunt --n-chips 1``,
-   4 trials (two generations; the example runs 60), each a fresh process
+   3 trials (the first generation and one mutant of the second; two whole
+   generations of 4 trials until phase 22; the example runs 60), each a fresh process
    on the card — all completed and finite, their points equal to the
    port's EvolutionES replayed on the CPU over the ledger's objectives, the
    GPU registry empty after, ``status --json`` from a fresh process
@@ -141,8 +149,9 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    least one point by EI on the card, K1-K3 launched 18 times per train
    step, every launch with dropout. (f) Hyperband (``hyperband.json``) on
    ``metaopt_tpu_torch/examples/transformer_wmt.py --tp 1`` at full width
-   through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 3, base=3)`` (cut
-   from 1-9: 6 trials instead of 22) at 2 steps per epoch (cut from 50 to
+   through ``hunt --n-chips 1`` with ``epochs~fidelity(1, 2, base=2)`` (cut
+   from 1-9 and base 3: 5 trials instead of 22; ``fidelity(1, 3, base=3)``
+   and 6 trials until phase 22) at 2 steps per epoch (cut from 50 to
    10 to fit phase 14, to 5 for phase 18, to 2 for phase 21) — all completed and finite on the
    card, the rung table equal to Hyperband replayed over the ledger and to
    ``status --rungs --json`` from a fresh process, every trial's checkpoint
@@ -150,10 +159,11 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    process, the GPU registry empty; trials per hour and each trial's
    split: process start -> first CUDA op, setup, training, checkpoint, the
    rest.
-12. pbt: PBT (``examples/pbt.yaml``: population 6, seed 0, min cohort 3,
-   exploit quantile 0.25, pool 2) on ``metaopt_tpu_torch/examples/
-   transformer_wmt.py --tp 1`` at full width through ``hunt --n-chips 1
-   --ckpt-root``, config 4's priors with ``epochs~fidelity(1, 4, base=2)``
+12. pbt: PBT (``examples/pbt.yaml``: seed 0, min cohort 3, exploit
+   quantile 0.25, pool 2; population cut from 6 to 4) on
+   ``metaopt_tpu_torch/examples/transformer_wmt.py --tp 1`` at full width
+   through ``hunt --n-chips 1 --ckpt-root``, config 4's priors with
+   ``epochs~fidelity(1, 2, base=2)`` (cut from ``fidelity(1, 4, base=2)``)
    at 10 steps per epoch (cut from 50), stopped at ``PBT_TRIALS`` — all
    completed and finite on the card, every checkpoint published; every
    continuation restored its parent's published state (its AdamW count
@@ -210,9 +220,10 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    the pool's speed over theirs. (b) A pool of 64 with one NaN row: that
    trial broken, the 63 others completed, one launch. (c) ``python -m
    metaopt_tpu_torch hunt --algo cmaes`` (seed 0, population 64)
-   ``--vector-objective mlp --batch-size auto --max-trials 512`` in one
+   ``--vector-objective mlp --batch-size auto --max-trials 256`` (512
+   until phase 22) in one
    fresh process on a ``file:`` ledger, under a shim that records the
-   process age at its first CUDA op and each pool's rows: 512 completed,
+   process age at its first CUDA op and each pool's rows: 256 completed,
    the points and pools equal to the batched hunt replayed on the CPU over
    the ledger's objectives, the objectives equal to the CPU batch form
    (the bound of (a)), no ``torch._dynamo`` in the process; its wall and
@@ -347,6 +358,21 @@ CUDA toolkit. It drives ``metaopt_tpu_torch`` (never JAX, never
    alone at the ranks' shapes (bound and SDPA beside them). Nothing in it is
    a multi-GPU figure: NCCL across separate GPUs is not exercised on a
    machine with one card.
+22. sweep: the deadline sweep. (b) ``python -m metaopt_tpu_torch hunt
+   --n-chips 1`` under ``run_swept`` with a 25 s deadline; its trial (a
+   script written here) starts a grandchild in a session of its own, and
+   each holds 1 GiB on the card. The trial, the grandchild and the hunt are
+   in three process groups; killing the trial's group (the kill the hunt
+   makes on SIGINT, a timeout or a prune) leaves the grandchild alive and
+   its GiB held (``torch.cuda.mem_get_info`` here, and the card's contexts
+   from ``nvidia-smi --query-compute-apps``). After ``run_swept`` returns:
+   rc None, the hunt's output before the deadline kept, every pid of the
+   tree gone, ``kill_by_env_marker`` finding 0, the card's contexts as
+   before the hunt and free memory within 64 MiB of its value before it.
+   (c) Started with (b), ``run_many_with_deadline`` over two CUDA probes
+   that print the card's name and a sleeper past the 20 s shared deadline:
+   return codes 0, 0 and None, every teed line under its ``[label] ``, the
+   sleeper's tail kept. (b) holds its checks until the probes are gone.
 
 It prints a ``{"kernels": [...]}`` line (K1-K3 and ``tpe_ei``), a ``{"tpe": {...}}`` line, a
 ``{"gp": {...}}`` line, a ``{"hunt": {...}}`` line, an ``{"asha": {...}}``
@@ -354,7 +380,8 @@ line, an ``{"evolution": {...}}`` line, a ``{"wmt": {...}}`` line, a
 ``{"pbt": {...}}`` line, an ``{"algos": {...}}`` line, an ``{"lm": {...}}``
 line, a ``{"batched": {...}}`` line, a ``{"ledger": {...}}`` line, a
 ``{"coord": {...}}`` line, a ``{"shards": {...}}`` line, a ``{"web":
-{...}}`` line, an ``{"analysis": {...}}`` line, a ``{"mesh": {...}}`` line and, last,
+{...}}`` line, an ``{"analysis": {...}}`` line, a ``{"mesh": {...}}`` line, a
+``{"sweep": {...}}`` line and, last,
 the ``{"ok": true, "device": {...}}`` line. The
 ``{"kernels": ...}`` line lists K1-K3 at rate 0 (launches from the [slice]
 run) and at rate 0.1 (times from phase 2, launches from the [wmt] BOHB
@@ -421,14 +448,15 @@ RESNET_SPACE = {  # BASELINE config 3: examples/resnet_cifar.py's docstring
     "epochs": "fidelity(1, 16, base=4)",
 }
 # config 3 through the CLI, cut to fit the script's time limit: epochs
-# fidelity(1, 3, base=3) instead of the example's (1, 16, base=4), and 1024
-# training images (8 steps per epoch) instead of 4096 (32)
-ASHA_FIDELITY, ASHA_BUDGETS, ASHA_N_TRAIN = "fidelity(1, 3, base=3)", (1, 3), 1024
-# the fewest trials with which ASHA (one worker, pool 1) reaches budget 3
-# whatever the objectives: 3 at 1 epoch, then 1 promoted to 3 (the example
+# fidelity(1, 2, base=2) instead of the example's (1, 16, base=4) (fidelity(1,
+# 3, base=3) until phase 22), and 1024 training images (8 steps per epoch)
+# instead of 4096 (32)
+ASHA_FIDELITY, ASHA_BUDGETS, ASHA_N_TRAIN = "fidelity(1, 2, base=2)", (1, 2), 1024
+# the fewest trials with which ASHA (one worker, pool 1) reaches budget 2
+# whatever the objectives: 2 at 1 epoch, then 1 promoted to 2 (the example
 # runs 64; at asha.json's pool of 4 one worker never reaches the top, see
 # examples/resnet_cifar.py)
-ASHA_TRIALS = 4
+ASHA_TRIALS = 3
 RESNET_BATCH, RESNET_TIMED_STEPS, RESNET_TRACED_STEPS = 128, 20, 5
 # a config-3 trial's wall-clock timeout, and its share of the CLI's deadline
 RESNET_TIMEOUT_S, RESNET_TRIAL_S = 300, 40
@@ -448,11 +476,12 @@ PPO_SPACE = {  # BASELINE config 5: examples/ppo_atari.py's docstring
     "gae-lambda": "uniform(0.8, 1.0)",
     "epochs": "fidelity(2, 32, base=2)",
 }
-# two full generations of evolution.json's EvolutionES (seed 0) at population
-# 2 and pool 2 (cut from 10 and 5 to fit the script's time limit, from
-# population 4 to 3 in PR 13 to pay for phase 17, and to 2 to pay for phase
-# 21): 2 trials at 2 iterations, then 2 mutants at 4 (the example runs 60)
-EVOLUTION_TRIALS, POPULATION, EVOLUTION_POOL = 4, 2, 2
+# evolution.json's EvolutionES (seed 0) at population 2 and pool 2 (cut from
+# 10 and 5 to fit the script's time limit, from population 4 to 3 in PR 13 to
+# pay for phase 17, and to 2 to pay for phase 21): 2 trials at 2 iterations,
+# then the first mutant of the second generation at 4 (its second mutant cut
+# to pay for phase 22; the example runs 60)
+EVOLUTION_TRIALS, POPULATION, EVOLUTION_POOL = 3, 2, 2
 # a config-5 trial's wall-clock timeout, and its share of the CLI's deadline
 PPO_TIMEOUT_S, PPO_TRIAL_S = 120, 30
 PPO_TOL = 1e-4          # card against CPU, relative to each tensor's largest entry
@@ -481,12 +510,14 @@ WMT_PRIORS = {  # BASELINE config 4: examples/transformer_wmt.py's docstring
     "warmup": "uniform(100, 4000, discrete=True)",
 }
 # config 4 through the CLI, cut from fidelity(1, 9, base=3) (22 trials) to
-# fidelity(1, 3, base=3): bracket 0 runs 3 trials at 1 epoch and promotes 1
-# to 3, bracket 1 runs 2 at 3 epochs; (bracket, budget, capacity) below
-WMT_CLI_FIDELITY, WMT_CLI_TABLE = "fidelity(1, 3, base=3)", [(0, 1, 3), (0, 3, 1), (1, 3, 2)]
+# fidelity(1, 3, base=3) (6 trials), then to fidelity(1, 2, base=2) to pay
+# for phase 22: bracket 0 runs 2 trials at 1 epoch and promotes 1 to 2,
+# bracket 1 runs 2 at 2 epochs; (bracket, budget, capacity) below
+WMT_CLI_FIDELITY, WMT_CLI_TABLE = "fidelity(1, 2, base=2)", [(0, 1, 2), (0, 2, 1), (1, 2, 2)]
+WMT_CLI_BUDGETS = (1, 2)
 # ... and from 50 steps per epoch to 10, to fit the [lm] phase, then to 5 to
 # pay for phase 18, then to 2 to pay for phase 21
-WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 6, 2
+WMT_CLI_TRIALS, WMT_STEPS_PER_EPOCH = 5, 2
 # a config-4 trial's wall-clock timeout, and its share of the CLI's deadline
 WMT_TIMEOUT_S, WMT_TRIAL_S = 300, 60
 # BOHB in-process: the example's fidelity, one repetition of 22 trials (cut
@@ -504,19 +535,23 @@ GP_TRIALS = 16          # 8 random, 8 by EI
 # GP-BO's stages, card against CPU: f32 forward, the MLL's gradient (relative
 # to its largest entry) and the fitted hyperparameters after 60 Adam steps
 GP_TOL = {"fwd": 1e-5, "grad": 1e-4, "fit": 1e-4}
-# PBT (examples/pbt.yaml: population 6, seed 0, min_cohort 3, exploit quantile
-# 0.25, pool 2) on Transformer-base through the CLI over config 4's priors,
-# with the fidelity the smoke runs (1, 2 and 4 epochs) and 10 steps per epoch
-# (cut from 50)
-PBT_PRIORS = {**WMT_PRIORS, "epochs": "fidelity(1, 4, base=2)"}
+# PBT (examples/pbt.yaml: seed 0, min_cohort 3, exploit quantile 0.25, pool 2)
+# on Transformer-base through the CLI over config 4's priors, at 10 steps per
+# epoch (cut from 50). The population is cut from 6 to 4 and the ladder from
+# 1, 2 and 4 epochs to 1 and 2, to pay for phase 22: 8 trials, all of them
+# PBT's whole run (4 members x 2 rungs), in place of 12 of 18
+PBT_PRIORS = {**WMT_PRIORS, "epochs": "fidelity(1, 2, base=2)"}
 PBT_STEPS_PER_EPOCH = 10
-# the fewest trials that hold an exploit continuation: 12, found by the port's
-# PBT replayed on the CPU over the card's losses of a full 18-trial run (6
-# members x 3 rungs; the exploit is the 12th trial). It depends on the
-# losses: over random objectives the first exploit falls anywhere from the
-# 9th trial to never (8% of 300 streams); the card's losses are fixed by
-# the seeds (init, data, dropout) and far apart.
-PBT_TRIALS = 12
+PBT_POPULATION = 4
+# 8 trials hold an exploit continuation, found by the port's PBT replayed on
+# the CPU over the card's losses: the first 4 members are the first 4 points
+# the 6-member runs drew (the same seed and sampler), whose 1-epoch losses
+# 120.04, 138.75, 122.12 and 143.33 were bit-equal in every run on the card
+# (fixed by the seeds of init, data and dropout). The 4th member finishes
+# last of its rung and worst of a cohort of 4, so the 8th trial, its
+# continuation, takes the best member's weights. Were the 4th not the worst,
+# no exploit would come (12 of the 24 orders of those losses hold one).
+PBT_TRIALS = 8
 PBT_TRIAL_S = 60        # a trial's share of the CLI's deadline
 MOTPE_YAML = {"seed": 0, "n_objectives": 2, "n_initial_points": 12, "gamma": 0.3}
 MOTPE_TRIALS = 24
@@ -559,7 +594,8 @@ BATCHED_POOLS = (64, 256, 1024)   # pools of the MLP zoo timed through BatchedEx
 # trajectory (the reference's own per-trial and vmapped forms differ by up to
 # 41% there); such rows are held to having diverged on the card too (>= 10)
 BATCHED_TOL, BATCHED_DIVERGED = 1e-4, 100.0
-BATCHED_CLI_TRIALS, BATCHED_POPULATION = 512, 64   # 8 CMA-ES generations through the CLI
+# 4 CMA-ES generations through the CLI (8 until phase 22)
+BATCHED_CLI_TRIALS, BATCHED_POPULATION = 256, 64
 # a benchmark study in-process; 30 trials, since TPE's default 20 initial
 # points would leave 20 with no EI launch on the card
 LEDGER_PROCS = 4        # processes racing one experiment in the engine benchmark
@@ -1656,13 +1692,26 @@ def gp_phase(torch, smi: str):
 # phase 8: the hunt CLI with subprocess trials
 
 
+#: (command, processes the marker sweep killed) for every run_cli call
+CLI_SWEEPS = []
+
+
 def run_cli(args, root: Path, env, trials: int = 0, workers: int = 1, trial_s: float = 0.0):
     """``python -m metaopt_tpu_torch ARGS`` in a fresh process: (parsed
     JSON stdout, wall s). Its deadline is ``HUNT_START_S`` plus
     ``trial_s`` for each of the ``trials`` a worker of ``workers`` runs. On
     the deadline the hunt gets SIGINT (it kills its trial's process group
-    and marks the trial interrupted), then SIGKILL."""
+    and marks the trial interrupted), then SIGKILL. Then, deadline or not,
+    every process that carries the call's own ``MTPU_SWEEP_MARKER`` is
+    killed (``kill_by_env_marker``): a trial's children that started a
+    session of their own escape both signals and would keep their CUDA
+    context into the next phase. The count is logged; on a clean run it
+    is 0."""
+    from metaopt_tpu_torch.utils.procs import kill_by_env_marker, with_sweep_marker
+
     deadline_s = HUNT_START_S + trial_s * math.ceil(trials / workers)
+    marker = f"chip-smoke-cli-{os.getpid()}-{time.time_ns()}"
+    env = with_sweep_marker(env, marker)
     t0 = time.perf_counter()
     with open(root / "cli.out", "w+") as out, open(root / "cli.err", "w+") as err:
         proc = subprocess.Popen([sys.executable, "-m", "metaopt_tpu_torch", *args],
@@ -1677,10 +1726,13 @@ def run_cli(args, root: Path, env, trials: int = 0, workers: int = 1, trial_s: f
                 proc.kill()
                 proc.wait()
             rc = None
+        swept = kill_by_env_marker(marker)
         wall = time.perf_counter() - t0
         out.seek(0)
         err.seek(0)
         stdout, stderr = out.read(), err.read()
+    CLI_SWEEPS.append((" ".join(args[:3]), swept))
+    log(f"[cli] {' '.join(args[:3])}: rc {rc}, the marker sweep killed {swept} processes")
     if rc != 0:
         raise AssertionError(f"[hunt] {' '.join(args[:3])} exited {rc} (deadline "
                              f"{deadline_s:.0f} s); stderr tail:\n"
@@ -2014,7 +2066,8 @@ def asha_phase(torch, smi: str):
         if budgets != set(ASHA_BUDGETS):
             problems.append(f"budgets reached {sorted(budgets)}")
         if not all(t.lineage == space.hash_point(t.params) and (
-                t.params["epochs"] == 1 or (t.lineage, t.params["epochs"] // 3) in lineages)
+                t.params["epochs"] == 1 or (t.lineage, t.params["epochs"] // ASHA_BUDGETS[1])
+                in lineages)
                 for t in done):
             problems.append("a promotion without its parent's lineage")
         if not all(st.get("device") == name for st in stats):
@@ -2178,7 +2231,7 @@ def evolution_phase(torch, smi: str):
         replay = make_algorithm(exp.space, exp.algorithm)
         issued = replay.suggest(POPULATION)
         replay.observe([t for t in done if t.params["epochs"] == 2])
-        issued += replay.suggest(POPULATION)
+        issued = (issued + replay.suggest(POPULATION))[:EVOLUTION_TRIALS]
         name = torch.cuda.get_device_name(0)
         stats = [statistics_of(t) for t in done]
         registry = json.loads((root / "metaopt_tpu_torch-gpus-1.json").read_text())
@@ -2193,7 +2246,8 @@ def evolution_phase(torch, smi: str):
         key = (lambda p: json.dumps(p, sort_keys=True))  # noqa: E731
         if sorted(key(t.params) for t in done) != sorted(key(p) for p in issued):
             problems.append("the ledger's points differ from EvolutionES replayed on the CPU")
-        if sorted(t.params["epochs"] for t in done) != [2] * POPULATION + [4] * POPULATION:
+        if sorted(t.params["epochs"] for t in done) != \
+                [2] * POPULATION + [4] * (EVOLUTION_TRIALS - POPULATION):
             problems.append(f"budgets {sorted(t.params['epochs'] for t in done)}")
         if not all(st.get("device") == name for st in stats):
             problems.append(f"devices {sorted({str(st.get('device')) for st in stats})}")
@@ -2224,7 +2278,7 @@ def evolution_phase(torch, smi: str):
             "producer_timings": summary["producer_timings"],
         }
         log(f"[evolution] config 5: {len(done)} trials completed on {name} ({POPULATION} at 2 "
-            f"iterations, {POPULATION} at 4), finite, equal to EvolutionES (seed 0) replayed on the CPU "
+            f"iterations, {EVOLUTION_TRIALS - POPULATION} at 4), finite, equal to EvolutionES (seed 0) replayed on the CPU "
             f"over the ledger's objectives, registry empty, status --json from a fresh process "
             f"agreeing ({status_wall:.2f} s); {wall:.2f} s = {len(done) / wall * 3600:.1f} "
             f"trials/hour; best negated return {summary['best']['objective']:.4f}")
@@ -2232,7 +2286,8 @@ def evolution_phase(torch, smi: str):
             + ", ".join(f"{k[:-2]} {total[k]:.2f} s ({100 * total[k] / total['trial_s']:.1f}%)"
                         for k in keys[1:]))
         for b, m in by_budget.items():
-            log(f"[evolution]   {b} iterations (median of {POPULATION}): trial "
+            n_b = POPULATION if b == 2 else EVOLUTION_TRIALS - POPULATION
+            log(f"[evolution]   {b} iterations (median of {n_b}): trial "
                 f"{m['trial_s']:.2f} s = start -> first CUDA op {m['first_device_op_s']:.2f} + "
                 f"setup {m['setup_s']:.2f} + training {m['train_s']:.2f} "
                 f"({m['ms_per_iteration']:.2f} ms/iteration) + rest {m['rest_s']:.2f}; card {smi}")
@@ -2597,7 +2652,8 @@ def wmt_phase(torch, smi: str):
         total = {k: sum(r[k] for r in rows) for k in keys}
         by_budget = {b: {k: median([r[k] for r in rows if r["epochs"] == b])
                          for k in keys + ("ms_per_step",)} | {
-                         "trials": sum(r["epochs"] == b for r in rows)} for b in (1, 3)}
+                         "trials": sum(r["epochs"] == b for r in rows)}
+                     for b in WMT_CLI_BUDGETS}
         out["config4"] = {
             "trials": len(done), "hunt_wall_s": wall, "trials_per_hour": len(done) / wall * 3600,
             "status_wall_s": status_wall, "rungs": status[0]["rungs"], "sum": total,
@@ -2607,7 +2663,7 @@ def wmt_phase(torch, smi: str):
             "producer_timings": summary["producer_timings"],
         }
         log(f"[wmt] config 4: {len(done)} trials completed on {name} "
-            f"({by_budget[1]['trials']} at 1 epoch, {by_budget[3]['trials']} at 3), finite, "
+            f"({by_budget[1]['trials']} at 1 epoch, {by_budget[2]['trials']} at 2), finite, "
             f"rung table {table} equal to Hyperband replayed over the ledger and to status "
             f"--rungs from a fresh process ({status_wall:.2f} s), every checkpoint published "
             f"({ckpt_bytes / 2**30:.2f} GiB), none half-written, no torch._dynamo in a trial, "
@@ -2673,11 +2729,14 @@ def pbt_phase(torch, smi: str):
     env = dict(os.environ, TMPDIR=str(root))
     env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
     ledger, ckpt = f"file:{root / 'ledger'}", root / "ckpt"
+    cfg = json.loads((examples / "pbt.json").read_text())
+    cfg["algorithm"]["pbt"]["population_size"] = PBT_POPULATION
+    (root / "pbt.json").write_text(json.dumps(cfg))
     try:
         summary, wall = run_cli(
             ["hunt", "-n", "pbt", "--n-chips", "1", "--max-trials", str(PBT_TRIALS),
              "--timeout-s", str(WMT_TIMEOUT_S), "--ledger", ledger, "--ckpt-root", str(ckpt),
-             "--config", str(examples / "pbt.json"), str(examples / "transformer_wmt.py"),
+             "--config", str(root / "pbt.json"), str(examples / "transformer_wmt.py"),
              "--tp", "1", "--steps-per-epoch", str(PBT_STEPS_PER_EPOCH)]
             + [f"--{k}~{v}" for k, v in PBT_PRIORS.items()],
             root, env, PBT_TRIALS, 1, PBT_TRIAL_S)
@@ -6020,6 +6079,282 @@ def mesh_phase(torch, smi: str):
             "launches": launches, "launches_per_step": 18, "times": times, "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the deadline sweep — run_swept, kill_by_env_marker, run_many_with_deadline
+
+SWEEP_DEADLINE_S = 25       # the hunt's deadline under run_swept
+SWEEP_MANY_DEADLINE_S = 20  # run_many_with_deadline's shared deadline
+SWEEP_HOLD_BYTES = 1 << 30  # what the trial and its grandchild each hold on the card
+SWEEP_MEM_TOL = 64 << 20    # free memory back to no less than its value before the hunt, less this
+SWEEP_SETTLE_S = 15         # how long the card's contexts may take to settle before the phase
+SWEEP_TRIAL = r'''
+# A trial whose grandchild escapes its process group: the trial starts a
+# grandchild in a session of its own, then each holds HOLD bytes on the card,
+# writes its pids and sleeps. The hunt's next trial (after the first is
+# killed) touches no card.
+import os, subprocess, sys, time
+
+t_start = time.time()
+out = os.path.join(os.environ["SWEEP_DIR"], "pids")
+flag = os.path.join(os.environ["SWEEP_DIR"], "spawned")
+role = "grandchild" if "--grandchild" in sys.argv else "trial"
+if role == "trial" and os.path.exists(flag):
+    role = "retry"
+else:
+    if role == "trial":
+        open(flag, "w").close()
+        subprocess.Popen([sys.executable, __file__, "--grandchild"], start_new_session=True)
+    import torch
+    held = torch.ones(HOLD // 4, device="cuda")
+    torch.cuda.synchronize()
+with open(out, "a") as f:
+    f.write(f"{role} {os.getpid()} {os.getpgid(0)} {os.getppid()} {t_start} {time.time()}\n")
+print(role, "pid", os.getpid(), "pgid", os.getpgid(0), flush=True)
+time.sleep(600)
+'''
+SWEEP_PROBE = "import torch; print(torch.cuda.get_device_name(), flush=True)"
+SWEEP_SLEEPER = "import time; print('sleeping past the deadline', flush=True); time.sleep(600)"
+
+
+def pid_alive(pid: int) -> bool:
+    """True while ``pid`` runs (a zombie awaiting its reaper is dead)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def wait_until(cond, timeout_s: float, poll_s: float = 0.1) -> bool:
+    end = time.perf_counter() + timeout_s
+    while not cond():
+        if time.perf_counter() > end:
+            return False
+        time.sleep(poll_s)
+    return True
+
+
+class TeeOut:
+    """stdout that also keeps what was written."""
+
+    def __init__(self, real):
+        self.real, self.parts = real, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.real.write(text)
+
+    def flush(self):
+        self.real.flush()
+
+
+def sweep_phase(torch, smi: str):
+    """(b) A ``hunt --n-chips 1`` under ``run_swept`` past its deadline,
+    its trial's grandchild in a session of its own holding the card; (c)
+    ``run_many_with_deadline`` over two CUDA probes and a sleeper, started
+    with (b). (b)'s checks wait until the probes are gone, and (b)'s log
+    lines wait until (c) has ended, since (c) tees to this process's
+    stdout."""
+    import contextlib
+    import threading
+
+    from metaopt_tpu_torch.utils.procs import (kill_by_env_marker, marked_pids,
+                                               run_many_with_deadline, run_swept)
+
+    repo = Path(__file__).resolve().parent
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    trial = root / "trial.py"
+    trial.write_text(SWEEP_TRIAL.replace("HOLD", str(SWEEP_HOLD_BYTES)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    env["SWEEP_DIR"] = str(root)
+    env["TMPDIR"] = str(root)  # the hunt's GPU registry file is this phase's own
+    env["MTPU_SLICE_CHIPS"] = "1"  # the hunt itself touches no card (no device count)
+    marker = f"chip-smoke-sweep-{os.getpid()}-{time.time_ns()}"
+    probe_marker = f"chip-smoke-probe-{os.getpid()}-{time.time_ns()}"
+    argv = [sys.executable, "-m", "metaopt_tpu_torch", "hunt", "-n", "sweep", "--ledger",
+            f"file:{root / 'ledger'}", "--max-trials", "2", "--n-chips", "1", str(trial),
+            "-x~uniform(0, 1)"]
+    py = sys.executable
+    probe_env = dict(env, SWEEP_PROBE=probe_marker)
+    jobs = [("probe0", [py, "-c", SWEEP_PROBE], probe_env),
+            ("probe1", [py, "-c", SWEEP_PROBE], probe_env),
+            ("sleeper", [py, "-c", SWEEP_SLEEPER], env)]
+    out = {"card": smi, "deadline_s": SWEEP_DEADLINE_S, "hold_bytes": SWEEP_HOLD_BYTES}
+    problems, notes = [], []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the checks read the whole card, so they assume that nothing else holds
+    # it: wait until what an earlier phase started (a rank of [mesh] still
+    # exiting) has let go, i.e. two readings a second apart agree
+    last = [None]
+
+    def settled():
+        now = (torch.cuda.mem_get_info()[0], sorted(compute_apps(), key=repr))
+        same, last[0] = now == last[0], now
+        return same
+
+    out["settled"] = wait_until(settled, SWEEP_SETTLE_S, 1.0)
+    free0, apps0 = last[0][0], last[0][1]
+    same_ns = os.getpid() in {p for p, _ in apps0}
+    swept, many = {}, {}
+    tee = TeeOut(sys.stdout)
+
+    def hunt():
+        try:
+            swept["result"] = run_swept(argv, SWEEP_DEADLINE_S, env=env, marker=marker,
+                                        cwd=str(root))
+        except Exception as err:  # read below, on the main thread
+            swept["error"] = err
+
+    def labelled():
+        try:
+            with contextlib.redirect_stdout(tee):
+                many["result"] = run_many_with_deadline(jobs, SWEEP_MANY_DEADLINE_S, poll_s=0.2)
+        except Exception as err:  # read below, on the main thread
+            many["error"] = err
+
+    pids_path = root / "pids"
+
+    def roles():
+        found = {}
+        if pids_path.exists():
+            for line in pids_path.read_text().splitlines():
+                role, pid, pgid, ppid, start, ready = line.split()
+                found[role] = {"pid": int(pid), "pgid": int(pgid), "ppid": int(ppid),
+                               "start_s": float(start) - wall0, "ready_s": float(ready) - wall0}
+        return found
+
+    t0, wall0 = time.perf_counter(), time.time()
+    th = threading.Thread(target=hunt, daemon=True)
+    tc = threading.Thread(target=labelled, daemon=True)
+    th.start()
+    tc.start()
+    tree = {}
+    try:
+        # -- (b) the trial and its grandchild hold the card, the probes gone
+        if not wait_until(lambda: {"trial", "grandchild"} <= set(roles())
+                          and not marked_pids(probe_marker),
+                          SWEEP_DEADLINE_S - 5 - (time.perf_counter() - t0)):
+            th.join(SWEEP_DEADLINE_S + 60)
+            tc.join(SWEEP_MANY_DEADLINE_S + 60)
+            raise AssertionError(f"[sweep] (b) the trial and its grandchild were not on the card, "
+                                 f"or the probes of (c) not gone, {SWEEP_DEADLINE_S - 5} s into "
+                                 f"the hunt: {roles()}; the hunt returned {swept}; (c) {many}")
+        tree = roles()
+        out["ready_s"] = time.perf_counter() - t0
+        # the probes' contexts released: this script's, the trial's, the grandchild's
+        wait_until(lambda: len(compute_apps()) <= len(apps0) + 2, 5, 0.5)
+        hunt_pid = tree["trial"]["ppid"]
+        tree["hunt"] = {"pid": hunt_pid, "pgid": os.getpgid(hunt_pid)}
+        held_ready = free0 - torch.cuda.mem_get_info()[0]
+        apps_ready = compute_apps()
+        groups = {r: v["pgid"] for r, v in tree.items()}
+        if len(set(groups.values())) != 3:
+            problems.append(f"(b) the hunt, the trial and the grandchild share a process "
+                            f"group: {groups}")
+        if held_ready < 2 * SWEEP_HOLD_BYTES or (not same_ns and len(apps_ready) != len(apps0) + 2):
+            problems.append(f"(b) {held_ready} bytes held and contexts {apps_ready} with the "
+                            f"trial and its grandchild up")
+        # the group kill the hunt itself makes (SIGINT, a timeout, a prune):
+        # neither it nor a kill of the hunt's own group reaches the grandchild
+        os.killpg(tree["trial"]["pgid"], signal.SIGKILL)
+        trial_gone = wait_until(lambda: not pid_alive(tree["trial"]["pid"]), 5)
+        wait_until(lambda: free0 - torch.cuda.mem_get_info()[0] < 2 * SWEEP_HOLD_BYTES, 3)
+        held_killed = free0 - torch.cuda.mem_get_info()[0]
+        apps_killed = compute_apps()
+        gc = tree["grandchild"]["pid"]
+        if not trial_gone or not pid_alive(gc):
+            problems.append(f"(b) after killing the trial's group: trial gone {trial_gone}, "
+                            f"grandchild alive {pid_alive(gc)}")
+        if held_killed < SWEEP_HOLD_BYTES:
+            problems.append(f"(b) after the group kill {held_killed} bytes held (want the "
+                            f"grandchild's {SWEEP_HOLD_BYTES} at least)")
+        if same_ns and gc not in {p for p, _ in apps_killed}:
+            problems.append(f"(b) the grandchild {gc} holds no context: {apps_killed}")
+        if not same_ns and len(apps_killed) != len(apps0) + 1:
+            problems.append(f"(b) contexts after the group kill {apps_killed}, before the hunt "
+                            f"{apps0}: want one more")
+        notes.append(
+            f"[sweep] (b) trial and detached grandchild on the card, the probes of (c) gone, "
+            f"{out['ready_s']:.2f} s into the hunt, {held_ready / 2**30:.3f} GiB held; process "
+            f"groups {groups}; after killing the trial's group the grandchild {gc} lives and "
+            f"{held_killed / 2**30:.3f} GiB stay held; contexts {apps_killed} (before the hunt "
+            f"{apps0}); card {smi}")
+
+        # -- (c) labelled children under one shared deadline -----------------
+        tc.join(SWEEP_MANY_DEADLINE_S + 60)
+        for note in notes:
+            log(note)
+        if tc.is_alive() or "error" in many:
+            raise AssertionError(f"[sweep] (c) run_many_with_deadline did not return: "
+                                 f"{many.get('error')}")
+        teed = "".join(tee.parts).splitlines()
+        name = torch.cuda.get_device_name(0)
+        rcs = {label: many["result"][label][0] for label, _, _ in jobs}
+        if rcs != {"probe0": 0, "probe1": 0, "sleeper": None}:
+            problems.append(f"(c) return codes {rcs}")
+        if not all(any(ln.startswith(f"[{label}] ") for ln in teed) for label in rcs) or \
+                not all(ln.startswith(tuple(f"[{label}] " for label in rcs)) for ln in teed):
+            problems.append(f"(c) teed lines without their labels: {teed}")
+        for label in ("probe0", "probe1"):
+            if f"[{label}] {name}" not in teed or name not in many["result"][label][1]:
+                problems.append(f"(c) {label} did not print {name!r}: "
+                                f"{many['result'][label][1]!r}")
+        if "sleeping past the deadline" not in many["result"]["sleeper"][1] or \
+                "[sleeper] sleeping past the deadline" not in teed:
+            problems.append(f"(c) the sleeper's tail is lost: {many['result']['sleeper'][1]!r}")
+        out["many"] = {"deadline_s": SWEEP_MANY_DEADLINE_S, "rcs": rcs, "lines": len(teed)}
+        log(f"[sweep] (c) run_many_with_deadline: return codes {rcs} at its "
+            f"{SWEEP_MANY_DEADLINE_S} s shared deadline, {len(teed)} labelled lines; card {smi}")
+        th.join(SWEEP_DEADLINE_S + 60)
+    finally:
+        left_behind = kill_by_env_marker(marker)  # whatever happens above, no orphan
+        kill_by_env_marker(probe_marker)
+        tree.update({r: v for r, v in roles().items() if r not in tree})  # the retry
+        shutil.rmtree(root, ignore_errors=True)
+    if th.is_alive() or "error" in swept:
+        raise AssertionError(f"[sweep] (b) run_swept did not return: {swept.get('error')}")
+    rc, stdout, stderr = swept["result"]
+    out["wall_s"] = time.perf_counter() - t0
+    if rc is not None:
+        problems.append(f"(b) run_swept returned rc {rc}, not None (the deadline)")
+    if "broken: exit=-9" not in stderr:
+        problems.append(f"(b) the hunt's output before the deadline is lost: {stderr[-2000:]!r}")
+    if left_behind:
+        problems.append(f"(b) kill_by_env_marker found {left_behind} processes after run_swept")
+    pids = {r: v["pid"] for r, v in tree.items()}
+    gone = wait_until(lambda: not any(pid_alive(p) for p in pids.values()), 10)
+    # one-sided: memory that an earlier phase let go of late only adds to it
+    freed = wait_until(lambda: torch.cuda.mem_get_info()[0] >= free0 - SWEEP_MEM_TOL, 15)
+    free_after = torch.cuda.mem_get_info()[0]
+    apps_after = compute_apps()
+    if not gone:
+        problems.append(f"(b) alive after the sweep: {[p for p in pids.values() if pid_alive(p)]}")
+    if not freed:
+        problems.append(f"(b) free memory {free_after} after the sweep, {free0} before the hunt")
+    if (same_ns and set(pids.values()) & {p for p, _ in apps_after}) or \
+            (not same_ns and len(apps_after) > len(apps0)):
+        problems.append(f"(b) contexts after the sweep {apps_after}, before the hunt {apps0}")
+    out.update({
+        "rc": rc, "tree": tree, "same_pid_namespace": same_ns, "free_before": free0,
+        "held_ready": held_ready, "held_after_group_kill": held_killed,
+        "free_after_sweep_minus_before": free_after - free0, "left_by_sweep": left_behind,
+        "contexts": {"before": apps0, "ready": apps_ready, "after_group_kill": apps_killed,
+                     "after_sweep": apps_after},
+        "stderr_tail": stderr[-500:], "stdout_tail": stdout[-500:], "cli_sweeps": CLI_SWEEPS,
+    })
+    if problems:
+        raise AssertionError(f"[sweep] {problems}")
+    log(f"[sweep] (b) run_swept: rc {rc} at its {SWEEP_DEADLINE_S} s deadline, the hunt's "
+        f"output kept ({len(stderr)} bytes of stderr), every pid of the tree {pids} gone, "
+        f"kill_by_env_marker finds {left_behind} after it, free memory {free_after - free0:+d} "
+        f"bytes against before the hunt, contexts {apps_after}; phase wall "
+        f"{out['wall_s']:.2f} s; card {smi}")
+    log(f"[sweep] run_cli's marker sweeps: {CLI_SWEEPS}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6037,10 +6372,13 @@ def main() -> int:
     from metaopt_tpu_torch.ops import attention as att
     from metaopt_tpu_torch.ops import tpe_math as P
     from metaopt_tpu_torch.utils import cuda_build
+    from metaopt_tpu_torch.utils.provenance import provenance
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    smi = nvidia_smi()
+    print(json.dumps({"provenance": provenance(backend="cuda", card=smi)}), flush=True)
 
     phase_s, last = {}, [time.perf_counter()]
 
@@ -6088,7 +6426,6 @@ def main() -> int:
                for drop in ("false", "true") if f"flash_fwd_kernel_mma<{d}, {drop}>" not in ptxas]
     if missing:
         raise AssertionError(f"ptxas compiled no {missing}")
-    smi = nvidia_smi()
     log(smi)
     mark("build")
 
@@ -6309,6 +6646,10 @@ def main() -> int:
     # -- 21. several ranks sharing the card: the meshes, K1-K3 per shard -------
     mesh_stats = mesh_phase(torch, smi)
     mark("mesh")
+
+    # -- 22. the deadline sweep: run_swept, kill_by_env_marker, run_many ------
+    sweep_stats = sweep_phase(torch, smi)
+    mark("sweep")
     log(f"[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}; card {smi}")
 
@@ -6395,6 +6736,7 @@ def main() -> int:
     print(json.dumps({"analysis": analysis_stats}), flush=True)
     mesh_stats.pop("times")
     print(json.dumps({"mesh": mesh_stats}), flush=True)
+    print(json.dumps({"sweep": sweep_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -275,8 +275,9 @@ class BaseAlgorithm(ABC):
         ``observe`` path — so every subclass buffer stays consistent —
         but are counted in ``n_prior`` so acquisition can discount them
         against locally-measured evidence. Must be called before any
-        real ``observe`` (priors occupy the oldest rows). The
-        producer's transfer-prior sourcing (EVC) is not ported yet.
+        real ``observe`` (priors occupy the oldest rows). The producer
+        sources them from ``metadata.transfer_from``
+        (``worker/producer.py``).
         """
         before = len(self._observed)
         self.observe(trials)
@@ -314,9 +315,8 @@ class BaseAlgorithm(ABC):
     @property
     def cohort_size(self) -> Optional[int]:
         """Natural same-fidelity evaluation-pool size, if the algorithm
-        has one (population algorithms: their generation). The reference's
-        batched hunt sizes its pools from this; the port's is not ported
-        yet."""
+        has one (population algorithms: their generation). The batched
+        hunt sizes its pools from this (``worker/loop.py``)."""
         return None
 
     def score(self, point: Dict[str, Any]) -> float:

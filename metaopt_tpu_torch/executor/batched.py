@@ -51,7 +51,8 @@ class BatchedExecutor(Executor):
     tensors on ``device``) and returns a ``(B,)`` value vector; ``space``
     proves the pool is batchable (and does the stacking) before anything
     runs. ``chunk_size`` bounds one launch — heartbeats are re-checked
-    between chunks so a long pool can still abort early.
+    between chunks so a long pool can still abort early. ``result_name``
+    is the name written on each trial's objective result.
     """
 
     def __init__(
@@ -60,6 +61,7 @@ class BatchedExecutor(Executor):
         space: Space,
         *,
         chunk_size: Optional[int] = None,
+        result_name: str = "objective",
         device=None,
     ):
         reason = space.why_not_vectorizable()
@@ -73,6 +75,7 @@ class BatchedExecutor(Executor):
         self.batch_fn = batch_fn
         self.space = space
         self.chunk_size = chunk_size
+        self.result_name = result_name
         # telemetry counters; executors are shared across worker threads
         # in batched hunts, so bookkeeping takes the lock
         self._tel_lock = threading.Lock()
@@ -199,7 +202,7 @@ class BatchedExecutor(Executor):
                 results[i] = ExecutionResult(
                     "completed",
                     results=[{
-                        "name": "objective",
+                        "name": self.result_name,
                         "type": "objective",
                         "value": v,
                     }],

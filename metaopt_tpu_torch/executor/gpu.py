@@ -35,7 +35,9 @@ class GPUExecutor(SubprocessExecutor):
         self,
         template: CommandTemplate,
         n_chips: int = 1,
+        total_chips: Optional[int] = None,
         registry: Optional[ChipRegistry] = None,
+        registry_path: Optional[str] = None,
         allocate_timeout_s: float = 600.0,
         allocate_poll_s: float = 0.5,
         **kwargs,
@@ -46,17 +48,19 @@ class GPUExecutor(SubprocessExecutor):
         super().__init__(template, **kwargs)
         self.n_chips = int(n_chips)
         if registry is None:
-            total = detect_slice_size()
+            total = total_chips or detect_slice_size()
             # round the GPU count down to a power of two: blocks are aligned
             p = 1
             while p * 2 <= total:
                 p *= 2
-            # the flock'd per-host state file: every executor on this host —
-            # other hunt PROCESSES and `--n-workers` threads alike — must
-            # arbitrate the same physical GPUs, not each believe all of them
-            # are free
-            registry = ChipRegistry(p, state_path=os.path.join(
-                tempfile.gettempdir(), f"metaopt_tpu_torch-gpus-{p}.json"))
+            if registry_path is None:
+                # default to the flock'd per-host state file: every executor
+                # on this host — other hunt PROCESSES and `--n-workers`
+                # threads alike — must arbitrate the same physical GPUs, not
+                # each believe all of them are free
+                registry_path = os.path.join(
+                    tempfile.gettempdir(), f"metaopt_tpu_torch-gpus-{p}.json")
+            registry = ChipRegistry(p, state_path=registry_path)
         self.registry = registry
         self.allocate_timeout_s = allocate_timeout_s
         self.allocate_poll_s = allocate_poll_s

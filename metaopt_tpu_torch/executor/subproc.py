@@ -11,7 +11,8 @@ Also kept from the reference:
   algorithm's early-stop hook and stops pruned trials, first through the
   stop sentinel, then by SIGTERM after ``prune_grace_s``,
 - env injection (``METAOPT_TPU_RESULTS_PATH``, ``METAOPT_TPU_TRIAL_INFO``,
-  ``METAOPT_TPU_STOP_PATH``, the profile and checkpoint roots),
+  ``METAOPT_TPU_STOP_PATH``, the profile and checkpoint roots, and the
+  caller's ``extra_env``),
 - the device circuit breaker, keyed on CUDA: after a trial breaks by
   timeout where a card is meant to be visible, the card is probed in a
   disposable child before the next launch, and the executor parks while
@@ -67,6 +68,7 @@ class SubprocessExecutor(Executor):
         heartbeat_every_s: float = 5.0,
         timeout_s: Optional[float] = None,
         prune_grace_s: float = 1.0,
+        extra_env: Optional[Dict[str, str]] = None,
         profile_dir: Optional[str] = None,
         ckpt_root: Optional[str] = None,
         device_probe_timeout_s: float = 90.0,
@@ -81,7 +83,7 @@ class SubprocessExecutor(Executor):
         self.heartbeat_every_s = heartbeat_every_s
         self.timeout_s = timeout_s
         self.prune_grace_s = prune_grace_s
-        self.extra_env: Dict[str, str] = {}
+        self.extra_env: Dict[str, str] = dict(extra_env or {})
         if profile_dir:  # opt-in per-trial torch.profiler traces (client.profiled)
             self.extra_env[PROFILE_DIR_ENV] = profile_dir
         if ckpt_root:  # PBT weight handoff root (client.checkpoint_paths)

@@ -3,11 +3,13 @@
 Port of ``metaopt_tpu/executor/topology.py``. A trial occupies one GPU or
 a power-of-two block of them; a broken trial must hand its GPUs back.
 GPUs are addressed by their index in this host's visible order. Blocks are
-power-of-two sized and size-aligned, so fragmentation is bounded. Every
-allocation goes through a flock-guarded state file (several hunt processes
-or ``--n-workers`` threads on one host share its GPUs), the same doctrine
-as the FileLedger; the reference's in-process ``BuddyAllocator``, which
-only its file-less registry used, is left out.
+power-of-two sized and size-aligned, so a classic **buddy allocator** is
+the right shape: allocate/free are O(log n), fragmentation is bounded, and
+every allocation is aligned. :class:`ChipRegistry` without a state file
+arbitrates in-process through a :class:`BuddyAllocator`; with one (the
+default of ``GPUExecutor``: several hunt processes or ``--n-workers``
+threads on one host share its GPUs) it goes through a flock-guarded JSON
+file, the same doctrine as the FileLedger.
 
 Two functions differ from the reference: :func:`detect_slice_size` counts
 CUDA devices (``MTPU_SLICE_CHIPS`` first) and raises where it finds none,
@@ -20,6 +22,7 @@ from __future__ import annotations
 import fcntl
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -48,38 +51,113 @@ class SubSlice:
         return list(range(self.start, self.start + self.size))
 
 
-class ChipRegistry:
-    """Cross-process GPU accounting for one host.
+class BuddyAllocator:
+    """Power-of-two buddy allocator over ``total`` linearly-ordered GPUs."""
 
-    State file (flock-guarded JSON) maps claimed blocks to (pid, heartbeat).
-    Dead claimants (stale heartbeat or vanished pid) are reaped on every
-    allocate — a broken or killed trial can never leak its block.
+    def __init__(self, total: int):
+        if not _is_pow2(total):
+            raise ValueError(f"total chips must be a power of two, got {total}")
+        self.total = total
+        # free lists per block size
+        self._free: Dict[int, List[int]] = {total: [0]}
+        self._lock = threading.Lock()
+
+    def allocate(self, n: int) -> Optional[SubSlice]:
+        """Allocate an aligned block of next_pow2(n) GPUs, or None if full."""
+        size = next_pow2(max(1, n))
+        if size > self.total:
+            raise ValueError(f"requested {n} chips > slice size {self.total}")
+        with self._lock:
+            return self._alloc_locked(size)
+
+    def _alloc_locked(self, size: int) -> Optional[SubSlice]:
+        s = size
+        while s <= self.total and not self._free.get(s):
+            s *= 2
+        if s > self.total or not self._free.get(s):
+            return None
+        start = self._free[s].pop(0)
+        while s > size:  # split down, keeping the upper buddy free
+            s //= 2
+            self._free.setdefault(s, []).append(start + s)
+        return SubSlice(start, size)
+
+    def free(self, block: SubSlice) -> None:
+        """Return a block; coalesce with its buddy where possible."""
+        with self._lock:
+            start, size = block.start, block.size
+            while size < self.total:
+                buddy = start ^ size
+                lst = self._free.get(size, [])
+                if buddy in lst:
+                    lst.remove(buddy)
+                    start = min(start, buddy)
+                    size *= 2
+                else:
+                    break
+            self._free.setdefault(size, []).append(start)
+            self._free[size].sort()
+
+    @property
+    def n_free_chips(self) -> int:
+        with self._lock:
+            return sum(s * len(lst) for s, lst in self._free.items())
+
+
+class ChipRegistry:
+    """GPU accounting for one host.
+
+    Without ``state_path``, an in-process :class:`BuddyAllocator`. With it,
+    cross-process: the state file (flock-guarded JSON) maps claimed blocks
+    to (pid, heartbeat), and dead claimants (stale heartbeat or vanished
+    pid) are reaped on every allocate — a broken or killed trial can never
+    leak its block.
+
+    The two paths can choose different blocks for the same sequence, as
+    the reference's do: the allocator takes the best fit from its free
+    lists, the file the first free aligned block (with 1 GPU at 3, 2 at 0
+    and 4 at 4 free, ``allocate(1)`` gives 3 in-process and 0 from the
+    file). Only the file path runs in the port, since ``GPUExecutor``
+    always passes a state file; the in-process path keeps the reference's
+    ``ChipRegistry(total)``.
     """
 
-    def __init__(self, total: int, state_path: str, stale_s: float = 120.0):
+    def __init__(self, total: int, state_path: Optional[str] = None,
+                 stale_s: float = 120.0):
         if not _is_pow2(total):
             raise ValueError(f"total chips must be a power of two, got {total}")
         self.total = total
         self.state_path = state_path
         self.stale_s = stale_s
+        self._local = BuddyAllocator(total) if state_path is None else None
 
+    # -- in-process fast path ---------------------------------------------
     def allocate(self, n: int, owner: str = "") -> Optional[SubSlice]:
         """Claim an aligned block of next_pow2(n) GPUs, or None if full."""
+        if self._local is not None:
+            return self._local.allocate(n)
         return self._file_op("alloc", n=n, owner=owner)
 
     def free(self, block: SubSlice) -> None:
+        if self._local is not None:
+            self._local.free(block)
+            return
         self._file_op("free", start=block.start, size=block.size)
 
     def heartbeat(self, block: SubSlice) -> None:
-        self._file_op("beat", start=block.start, size=block.size)
+        if self._local is None:
+            self._file_op("beat", start=block.start, size=block.size)
 
     @property
     def n_free_chips(self) -> int:
+        if self._local is not None:
+            return self._local.n_free_chips
         state = self._file_op("read")
         # block size lives in the claim KEY ("start:size"), not the value
         used = sum(int(key.split(":")[1]) for key in state["claims"])
         return self.total - used
 
+    # -- file-backed path --------------------------------------------------
     def _file_op(self, op: str, **kw):
         os.makedirs(os.path.dirname(self.state_path) or ".", exist_ok=True)
         with open(self.state_path + ".lock", "a+") as lockf:

@@ -1,16 +1,17 @@
 """Synthetic on-device datasets (port of ``metaopt_tpu/models/data.py``).
 
-Trimmed to :func:`synthetic_images` (the MLP objective's data),
-:func:`synthetic_seq2seq` (the Transformer's) and :func:`synthetic_lm` (the
-decoder-only LM's). Data is generated directly
-on the device with an explicit ``torch.Generator``; it keeps the
-reference's semantics but not its bits (torch's generators, not
-threefry), so tests feed both packages the same numpy data.
+:func:`synthetic_images` (the MLP objective's data), :func:`synthetic_seq2seq`
+(the Transformer's), :func:`synthetic_lm` (the decoder-only LM's) and
+:func:`batches`, a shuffled epoch over any of them. Data is generated
+directly on the device with an explicit ``torch.Generator`` (or a seed) in
+place of the reference's JAX key; it keeps the reference's semantics but
+not its bits (torch's generators, not threefry), so tests feed both
+packages the same numpy data.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Iterator, Tuple, Union
 
 import torch
 
@@ -84,3 +85,16 @@ def synthetic_lm(
         tok = perm[tok - 2]
         cols.append(tok)
     return torch.stack(cols, dim=1)
+
+
+def batches(
+    x: torch.Tensor, y: torch.Tensor, batch_size: int, generator: torch.Generator
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Shuffled epoch of static-shaped batches (drop remainder): a
+    permutation drawn from ``generator`` on the tensors' device, cut into
+    ``n // batch_size`` batches."""
+    n = x.shape[0]
+    idx = torch.randperm(n, generator=generator, device=x.device)
+    for i in range(n // batch_size):
+        sl = idx[i * batch_size : (i + 1) * batch_size]
+        yield x[sl], y[sl]

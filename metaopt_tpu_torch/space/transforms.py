@@ -3,8 +3,7 @@
 Port of ``metaopt_tpu/space/transforms.py`` (``UnitCube``), host numpy and
 scipy as there: every searchable dimension maps to one column in [0, 1], so
 the surrogate (TPE's Parzen estimators) is plain array math. The same
-points give bit-identical vectors in both packages. Left out:
-``transform_many``, which nothing on the ported paths calls.
+points give bit-identical vectors in both packages.
 
 Column semantics per dimension type:
 
@@ -115,6 +114,13 @@ class UnitCube:
                 value = arr[idx]
             out.append(self._fwd_one(d, value))
         return np.asarray(out)
+
+    def transform_many(self, points: Sequence[Mapping[str, Any]]) -> np.ndarray:
+        """Points → ``(n, n_dims)``, row i being ``transform(points[i])``;
+        ``(0, n_dims)`` for no points."""
+        if not points:
+            return np.zeros((0, self.n_dims))
+        return np.stack([self.transform(p) for p in points])
 
     def transform_columns(
         self, cols: Mapping[str, Sequence[Any]], n: int

@@ -1,6 +1,6 @@
 """Producer: the algorithm-facing pump.
 
-Port of ``metaopt_tpu/worker/producer.py``, trimmed to the local
+Port of ``metaopt_tpu/worker/producer.py``. The local
 :class:`Producer` cycle: warm start once (transfer priors from
 ``metadata.transfer_from`` through ``observe_prior``, then the EVC branch
 parent through the :class:`~metaopt_tpu_torch.ledger.evc.TrialAdapter`,

@@ -174,3 +174,28 @@ def test_auto_batch_size_reads_the_cohort_and_needs_execute_batch():
     ex = BatchedExecutor(task.batch, space, device="cpu")
     stats = workon(rnd, ex, batch_size="auto")
     assert stats.completed == 12 and max(e["pool"] for e in stats.events) == 8
+
+
+def test_result_name_reaches_the_ledger_as_the_references():
+    """``result_name`` is the name on each trial's objective row in the
+    ledger, in both packages, for the same pool."""
+    algorithm, name, kw = CMA
+    rows = {}
+    for label, pkg, make in (
+            ("port", PORT, lambda fn, s: BatchedExecutor(fn, s, device="cpu",
+                                                          result_name="loss")),
+            ("ref", REF, lambda fn, s: RefBatchedExecutor(fn, s, result_name="loss"))):
+        build, Ledger, Exp, make_algo, work, _, tasks = pkg
+        task = tasks.get(name)(**kw)
+        space = build(dict(task.space))
+        ledger = Ledger()
+        ledger.create_experiment({"name": "e", "space": dict(task.space),
+                                  "algorithm": algorithm, "max_trials": 8})
+        exp = Exp("e", ledger, space=space, algorithm=algorithm, max_trials=8)
+        work(exp, make(task.batch, space), algorithm=make_algo(space, algorithm),
+             batch_size=8, max_idle_cycles=50, max_broken=5)
+        rows[label] = [(t.id, t.status, [(r.name, r.type) for r in t.results])
+                       for t in sorted(ledger.fetch("e", None), key=lambda t: t.id)]
+    assert rows["port"] == rows["ref"]
+    assert len(rows["port"]) == 8
+    assert all(results == [("loss", "objective")] for _, _, results in rows["port"])

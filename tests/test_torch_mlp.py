@@ -20,10 +20,11 @@ import torch
 
 import metaopt_tpu_torch
 from metaopt_tpu.models import mlp as jm
+from metaopt_tpu.models.data import batches as ref_batches
 from metaopt_tpu.models.data import synthetic_images as ref_synthetic_images
 from metaopt_tpu_torch.algo import make_algorithm
 from metaopt_tpu_torch.models import mlp as tm
-from metaopt_tpu_torch.models.data import synthetic_images
+from metaopt_tpu_torch.models.data import batches, synthetic_images
 
 CONFIG2_SPACE = {
     "lr": "loguniform(1e-4, 1e-1)",
@@ -145,6 +146,35 @@ def test_synthetic_images_label_by_a_teacher_keyed_alone():
     x1, _ = synthetic_images(64, seed=1, device="cpu")
     assert not torch.equal(x0, x1)
     assert len(torch.unique(synthetic_images(4096, seed=2, device="cpu")[1])) == 10
+
+
+@pytest.mark.parametrize("n,batch_size", [(64, 16), (70, 16), (7, 8), (9, 1)])
+def test_batches_are_a_shuffled_epoch_with_the_remainder_dropped(n, batch_size):
+    """Like the reference's: ``n // batch_size`` static-shaped batches of
+    (x, y) rows kept together, every row at most once; the same generator
+    seed gives the same batches, another seed another order."""
+    x = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
+    y = np.arange(n)
+
+    def epoch(fn, key):
+        return [(np.asarray(bx), np.asarray(by)) for bx, by in fn(x_in, y_in, batch_size, key)]
+
+    x_in, y_in = jnp.asarray(x), jnp.asarray(y)
+    ref = epoch(ref_batches, jax.random.PRNGKey(0))
+    x_in, y_in = torch.from_numpy(x), torch.from_numpy(y)
+    port = epoch(batches, torch.Generator().manual_seed(0))
+    for got in (ref, port):
+        assert len(got) == n // batch_size
+        rows = np.concatenate([by for _, by in got]) if got else np.zeros(0, int)
+        assert len(set(rows.tolist())) == len(rows) == (n // batch_size) * batch_size
+        for bx, by in got:
+            assert bx.shape == (batch_size, 3) and by.shape == (batch_size,)
+            assert np.array_equal(bx, x[by])
+    again = epoch(batches, torch.Generator().manual_seed(0))
+    assert all(np.array_equal(a[1], b[1]) for a, b in zip(port, again))
+    if n // batch_size > 1:
+        other = epoch(batches, torch.Generator().manual_seed(1))
+        assert not all(np.array_equal(a[1], b[1]) for a, b in zip(port, other))
 
 
 def test_train_and_eval_learns_on_cpu():

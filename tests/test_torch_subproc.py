@@ -106,6 +106,39 @@ def test_reference_black_box_runs_under_the_port_executor(tmp_path):
         assert t.objective == (t.params["x"] - 1.0) ** 2
 
 
+ENV_REPORT = '''
+import argparse, os
+from metaopt_tpu_torch.client import report_results
+p = argparse.ArgumentParser()
+p.add_argument("-x", type=float, required=True)
+p.parse_args()
+report_results([{"name": "objective", "type": "objective", "value": 0.0},
+                {"name": "env", "type": "statistic", "value": {
+                    k: os.environ.get(k) for k in ("MTPU_EXTRA", "METAOPT_TPU_CKPT_ROOT",
+                                                   "METAOPT_TPU_RESULTS_PATH")}}])
+'''
+
+
+def test_extra_env_reaches_every_trial(tmp_path):
+    """``extra_env`` is merged into each trial's environment, as the
+    reference merges it: beside the checkpoint root, and under the
+    protocol's own variables, which it cannot override."""
+    rep = script(tmp_path, "env.py", ENV_REPORT)
+    exp, template = experiment(tmp_path, "env", [rep, "-x~uniform(0, 1)"],
+                               {"random": {"seed": 0}}, 2)
+    ex = SubprocessExecutor(template, interpreter=[sys.executable], poll_interval_s=0.02,
+                            extra_env={"MTPU_EXTRA": "on", "METAOPT_TPU_RESULTS_PATH": "/x"},
+                            ckpt_root=str(tmp_path / "ckpt"))
+    assert ex.extra_env["MTPU_EXTRA"] == "on"
+    stats = workon(exp, ex, "w0")
+    assert stats.completed == 2
+    for t in exp.fetch_completed_trials():
+        (env,) = [r.value for r in t.results if r.name == "env"]
+        assert env["MTPU_EXTRA"] == "on"
+        assert env["METAOPT_TPU_CKPT_ROOT"] == str(tmp_path / "ckpt")
+        assert env["METAOPT_TPU_RESULTS_PATH"] != "/x"
+
+
 def test_broken_trial_keeps_exit_code_and_stderr(tmp_path):
     quad = script(tmp_path, "quad.py", QUAD)
     exp, template = experiment(tmp_path, "brk", [quad, "-x~uniform(-5, 5)", "--fail-above=0"],
@@ -322,11 +355,13 @@ def test_workon_refuses_the_coordinator_producer(tmp_path):
 
 def test_run_with_deadline_kills_a_hung_child():
     t0 = time.time()
-    assert procs.run_with_deadline([sys.executable, "-c", "import time; time.sleep(30)"],
-                                   timeout_s=1.0, poll_s=0.05) is None
+    rc, _ = procs.run_with_deadline([sys.executable, "-c", "import time; time.sleep(30)"],
+                                    timeout_s=1.0, poll_s=0.05)
+    assert rc is None
     assert time.time() - t0 < 10
-    assert procs.run_with_deadline([sys.executable, "-c", "raise SystemExit(3)"],
-                                   timeout_s=30, poll_s=0.05) == 3
+    rc, _ = procs.run_with_deadline([sys.executable, "-c", "raise SystemExit(3)"],
+                                    timeout_s=30, poll_s=0.05)
+    assert rc == 3
 
 
 def test_cuda_probe_is_false_without_a_card(monkeypatch):

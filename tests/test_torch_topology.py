@@ -1,9 +1,11 @@
-"""GPU trial placement: the flock'd GPU registry, the pinning env and the
-GPU executor.
+"""GPU trial placement: the buddy allocator, the GPU registry (in-process
+and flock'd), the pinning env and the GPU executor.
 
 The contracts of the reference's ``tests/unit/test_topology.py`` restated
-against the port (its buddy-allocator cases against the registry's state
-file, the port's only allocator), plus what changed for the GPU: ``CUDA_VISIBLE_DEVICES``
+against the port (its buddy-allocator cases against ``BuddyAllocator``,
+the registry without a state file and the registry's state file), 1000
+seeded allocate and free operations through both packages' allocators
+with identical answers at every step, plus what changed for the GPU: ``CUDA_VISIBLE_DEVICES``
 mapped through this process's own list, ``detect_slice_size`` raising
 where it finds no GPU, and ``GPUExecutor`` returning its block on every
 exit path (completed, broken, pruned by the judge, timed out, SIGINT, an
@@ -17,11 +19,14 @@ import sys
 import tempfile
 import threading
 
+import numpy as np
 import pytest
 import torch
 
+from metaopt_tpu.executor import topology as ref_topology
 from metaopt_tpu_torch.executor import GPUExecutor, SubprocessExecutor
 from metaopt_tpu_torch.executor.topology import (
+    BuddyAllocator,
     ChipRegistry,
     SubSlice,
     chip_env,
@@ -41,6 +46,117 @@ def own_tmpdir(tmp_path, monkeypatch):
 
 def registry(tmp_path, total):
     return ChipRegistry(total, state_path=str(tmp_path / "gpus.json"))
+
+
+class TestBuddyAllocator:
+    """The reference's buddy cases, against the allocator and against the
+    registry without a state file (which runs on it)."""
+
+    @pytest.fixture(params=["BuddyAllocator", "ChipRegistry"])
+    def make(self, request):
+        return BuddyAllocator if request.param == "BuddyAllocator" else ChipRegistry
+
+    def test_allocate_aligned_contiguous(self, make):
+        a = make(8)
+        blocks = [a.allocate(4), a.allocate(2), a.allocate(2)]
+        assert {tuple(b.chips) for b in blocks} == {(0, 1, 2, 3), (4, 5), (6, 7)}
+        assert a.n_free_chips == 0
+        assert a.allocate(1) is None
+
+    def test_rounds_up_to_pow2(self, make):
+        b = make(8).allocate(3)  # 3 -> 4
+        assert b.size == 4 and b.start % 4 == 0
+
+    def test_free_coalesces_buddies(self, make):
+        a = make(8)
+        blocks = [a.allocate(1) for _ in range(8)]
+        for b in blocks:
+            a.free(b)
+        assert a.n_free_chips == 8
+        whole = a.allocate(8)  # only possible if every buddy re-merged
+        assert whole.start == 0 and whole.size == 8
+
+    def test_oversized_request_raises(self, make):
+        with pytest.raises(ValueError):
+            make(4).allocate(5)
+        with pytest.raises(ValueError):
+            make(3)  # not a power of two
+
+    def test_a_registry_without_a_state_file_is_in_process(self, tmp_path, monkeypatch):
+        monkeypatch.chdir(tmp_path)
+        r = ChipRegistry(4)
+        assert r.state_path is None
+        b = r.allocate(2, owner="t")
+        r.heartbeat(b)  # a lease needs no beat in-process
+        assert r.n_free_chips == 2
+        r.free(b)
+        assert r.n_free_chips == 4
+        assert list(tmp_path.iterdir()) == []  # no state file, no lock file
+
+    def test_threads_never_share_a_block(self):
+        a = BuddyAllocator(16)
+        held, lock, errors = set(), threading.Lock(), []
+
+        def worker(seed):
+            rng = np.random.default_rng(seed)
+            for _ in range(200):
+                b = a.allocate(int(rng.integers(1, 5)))
+                if b is None:
+                    continue
+                with lock:
+                    if held & set(b.chips):
+                        errors.append(b)
+                    held.update(b.chips)
+                with lock:
+                    held.difference_update(b.chips)
+                a.free(b)
+
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads)
+        assert errors == []
+        assert a.n_free_chips == 16 and a.allocate(16) == SubSlice(0, 16)
+
+
+@pytest.mark.parametrize("kind", ["BuddyAllocator", "ChipRegistry"])
+@pytest.mark.parametrize("total", [1, 2, 8, 32])
+def test_allocations_equal_the_references(kind, total):
+    """1000 seeded allocate and free operations through both packages'
+    allocators: the same blocks, the same Nones, the same refusals of
+    oversized requests and the same free counts at every step."""
+    ref = getattr(ref_topology, kind)(total)
+    port = BuddyAllocator(total) if kind == "BuddyAllocator" else ChipRegistry(total)
+    rng = np.random.default_rng(total)
+    held = []
+    for step in range(1000):
+        if held and rng.random() < 0.45:
+            i = int(rng.integers(len(held)))
+            r_block, p_block = held.pop(i)
+            ref.free(r_block)
+            port.free(p_block)
+        else:
+            n = int(rng.integers(1, 2 * total + 1))
+            try:
+                r_block = ref.allocate(n)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    port.allocate(n)
+                continue
+            p_block = port.allocate(n)
+            if r_block is None:
+                assert p_block is None, step
+            else:
+                assert (p_block.start, p_block.size) == (r_block.start, r_block.size), step
+                held.append((r_block, p_block))
+        assert port.n_free_chips == ref.n_free_chips, step
 
 
 class TestAlignedBlocks:
@@ -296,6 +412,19 @@ def test_no_block_within_the_deadline_interrupts(own_tmpdir, monkeypatch, script
     ex.registry.allocate(1, owner="other")
     res = ex.execute(reserved_trial())
     assert res.status == "interrupted" and "no 1-GPU block" in res.note
+
+
+def test_total_chips_and_registry_path_as_the_reference_takes_them(own_tmpdir, monkeypatch,
+                                                                    script):
+    # no device count is asked for when the caller gives the total
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.delenv("MTPU_SLICE_CHIPS", raising=False)
+    path = str(own_tmpdir / "gpus.json")
+    ex = make_executor(script, total_chips=6, registry_path=path)
+    assert ex.registry.total == 4  # rounded down to a power of two
+    assert ex.registry.state_path == path
+    assert make_executor(script, total_chips=2).registry.state_path == os.path.join(
+        str(own_tmpdir), "metaopt_tpu_torch-gpus-2.json")
 
 
 def test_default_registry_is_shared_per_host(own_tmpdir, monkeypatch, script):

@@ -81,6 +81,18 @@ def test_unit_cube_matches_reference_bit_for_bit():
     assert all(map(same_point, port.untransform_many(vecs), ref.untransform_many(vecs)))
 
 
+def test_transform_many_matches_reference_bit_for_bit():
+    ref_space, space = ref_build_space(CUBE_SPACE), build_space(CUBE_SPACE)
+    ref, port = RefCube(ref_space), UnitCube(space)
+    points = space.sample(40, seed=4)
+    got, want = port.transform_many(points), ref.transform_many(points)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(got, np.stack([port.transform(p) for p in points]))
+    empty = port.transform_many([])
+    assert empty.shape == ref.transform_many([]).shape == (0, port.n_dims)
+    assert empty.dtype == ref.transform_many([]).dtype
+
+
 def test_pad_pow2_matches_reference():
     for n in list(range(0, 300)) + [4095, 4096, 4097, 8191, 10001, 12289, 50000]:
         for minimum in (1, 8):
