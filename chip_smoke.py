@@ -18,7 +18,9 @@ counted (``kill_by_env_marker``; 0 on a clean run):
    source, started together, prints ptxas's registers and spills per
    kernel (and fails if the bf16 K1 ``flash_fwd_kernel_mma`` is missing
    for a head dim, with or without dropout, or ``tpe_ei_kernel`` for one or
-   two candidates a lane), and prints the card's name and power limit;
+   two candidates a lane), counts each bf16 K2 and K3's HGMMA (wgmma)
+   instructions in ``cuobjdump -sass`` (and fails if one has none, or if
+   one spills at D 64), and prints the card's name and power limit;
 2. kernels: holds each kernel (K1 forward, K2 dK/dV, K3 dQ) against its
    plain PyTorch version on the same inputs, at the Transformer's shapes
    (B 32, S 64, H 8, D 64, bf16; padding, causal and cross masks), at
@@ -27,7 +29,12 @@ counted (``kill_by_env_marker``; 0 on a clean run):
    cross shape (B 3, Sq 96, Sk 200, H 4, D 64, bf16, broadcast padding
    mask), at the long shape (B 8, S 512, H 8, D 64, bf16, causal) and at
    (B 2, Sq 200, Sk 330, H 4, D 64, bf16) under tril(Sq, Sk), where K1
-   skips whole masked K tiles; runs ``flash_attention`` forward and
+   skips whole masked K tiles, and at the LM's (B 32, S 512, H 8, D 64,
+   bf16, causal in memory) with dropout 0.1; reads every dropout bit K2
+   and K3 drew over a causal S 512 launch back through their outputs
+   (``keep_bit_probe``) and fails on one that differs from
+   ``philox_keep``; times the host's encoding of a K2 or K3 launch's four
+   TMA tensor maps; runs ``flash_attention`` forward and
    backward through autograd at the slice's shape (bf16, causal), so K2
    and K3 take K1's own lse, against the same call on the CPU; then times
    the kernel, the plain version and ``scaled_dot_product_attention`` (a
@@ -679,6 +686,26 @@ def ptxas_summary(text: str, kernel_name=flash_kernel_name):
     return out
 
 
+def sass_hgmma(lib: Path):
+    """{kernel: HGMMA instructions in its SASS} of flash_attention.cu's
+    library, from ``cuobjdump -sass`` (next to nvcc): the proof that a
+    kernel's products run on wgmma."""
+    from metaopt_tpu_torch.utils import cuda_build
+
+    tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = flash_kernel_name("'" + line.split("Function :")[1].strip())
+            if cur:
+                out[cur] = 0
+        elif cur and "HGMMA" in line:
+            out[cur] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # timing
 
@@ -774,6 +801,9 @@ def make_case(torch, name, b, sq, sk, h, d, dtype, kind, gen):
     elif kind == "tril":                        # causal, unpadded: a broadcast view, and
         # whole K tiles masked for a Q tile when Sk > Sq or Sq > 64
         mask = torch.tril(torch.ones(sq, sk, dtype=torch.bool, device=dev))[None]
+    elif kind == "lm":                          # the LM's: causal, no pad, (b, q, k) in memory
+        mask = torch.tril(torch.ones(sq, sk, dtype=torch.bool, device=dev))[None].expand(
+            b, sq, sk).contiguous()
     elif kind == "causal+empty":
         causal = torch.tril(torch.ones(sq, sk, dtype=torch.bool, device=dev))
         mask = (causal[None] & torch.ones(b, 1, 1, dtype=torch.bool, device=dev)).clone()
@@ -872,11 +902,74 @@ def check_autograd(torch, att, case, rate: float = 0.0):
     return errs
 
 
+def keep_bit_probe(torch, att, b: int = 2, s: int = 512, h: int = 2,
+                   rate: float = WMT_TIMED_RATE):
+    """K2's and K3's dropout bits, read back through their outputs over a
+    causal (b, s, s) launch and held bit for bit against ``philox_keep``.
+
+    Q = 0 and lse = 0 make p = 1 on every pair the mask keeps. K2 with dO
+    one-hot by query row within Q tile t gives dV[key c, i] = keep(64 t + i,
+    c) / keep_prob; K3 with dO = V = e_0 (so dP = 1), delta = 0 and K one-hot
+    by key within K tile t gives dQ[query r, i] = keep(r, 64 t + i) /
+    keep_prob. One launch of each kernel per tile t (D = 64 = the tile).
+    Every nonzero output must also be 1 / keep_prob to bf16. Returns wrong
+    bits and bits read per kernel; these launches do not count."""
+    dev, bf, tile = "cuda", torch.bfloat16, 64
+    saved = dict(att.launches), dict(att.dropout_launches)
+    drop = dict(dropout_rate=rate, seed=DROPOUT_SEED, offset=DROPOUT_OFFSET)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    zeros = torch.zeros(b, s, h, tile, dtype=bf, device=dev)
+    noise = torch.randn(b, s, h, tile, generator=gen, device=dev).to(bf)
+    lse = torch.zeros(b, h, s, device=dev)
+    delta = torch.zeros(b, h, s, device=dev)
+    causal = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))
+    mask = causal.to(torch.int8)[None].expand(b, s, s).contiguous()
+    want = att.philox_keep(DROPOUT_SEED, DROPOUT_OFFSET, range(b * h), range(s), range(s),
+                           rate, device=dev) & causal
+    eye = torch.eye(tile, dtype=bf, device=dev)[None, :, None, :]   # (1, i, 1, d)
+    e0 = zeros.clone()
+    e0[..., 0] = 1
+    scale = torch.tensor(1.0 / att.keep_prob(rate)).to(bf).float().item()
+    got = {"flash_bwd_dkv": torch.zeros_like(want), "flash_bwd_dq": torch.zeros_like(want)}
+    bad_value = {n: 0 for n in got}
+    for t in range(s // tile):
+        rows = slice(t * tile, (t + 1) * tile)
+        g = zeros.clone()
+        g[:, rows] = eye                                 # query 64 t + i -> column i
+        _, dv = att.flash_bwd_dkv(zeros, noise, noise, g, lse, delta, mask, **drop)
+        kt = zeros.clone()
+        kt[:, rows] = eye                                # key 64 t + i -> column i
+        dq = att.flash_bwd_dq(zeros, kt, e0, e0, lse, delta, mask, **drop)
+        for name, out, view in (
+                ("flash_bwd_dkv", dv, lambda o: o.permute(0, 2, 3, 1).reshape(b * h, tile, s)),
+                ("flash_bwd_dq", dq, lambda o: o.permute(0, 2, 1, 3).reshape(b * h, s, tile))):
+            o = view(out.float())
+            nz = o != 0
+            bad_value[name] += int((nz & ((o - scale).abs() > 1e-2 * scale)).sum())
+            if name == "flash_bwd_dkv":
+                got[name][:, rows, :] = nz
+            else:
+                got[name][:, :, rows] = nz
+    torch.cuda.synchronize()
+    att.launches.update(saved[0])
+    att.dropout_launches.update(saved[1])
+    res = {n: {"wrong_bits": int((got[n] != want).sum()), "kept_bits": int(want.sum()),
+               "bits_read": b * h * s * (s + 1) // 2, "wrong_values": bad_value[n]}
+           for n in got}
+    for n, r in res.items():
+        log(f"  keep-bit probe {n}: {r['wrong_bits']} wrong of {r['bits_read']} causal bits "
+            f"({r['kept_bits']} kept; (b, s, h) = ({b}, {s}, {h}), rate {rate}); "
+            f"{r['wrong_values']} kept outputs off 1/keep_prob")
+    if any(r["wrong_bits"] or r["wrong_values"] for r in res.values()):
+        raise AssertionError(f"keep-bit probe: {res}")
+    return res
+
+
 def time_case(torch, att, case, lse_delta, rate: float = 0.0):
     """Per kernel: its time, its bound, the plain version's and SDPA's
-    (with ``dropout_p=rate``). The
-    bound counts the matrix products' operations; dropout's Philox rounds
-    are integer work outside it."""
+    (with ``dropout_p=rate``). The bound counts the matrix products'
+    operations over the pairs the mask keeps; dropout's Philox rounds are
+    integer work outside it."""
     import torch.nn.functional as F
 
     q, k, v, g, m = case["q"], case["k"], case["v"], case["g"], case["mask"]
@@ -889,22 +982,25 @@ def time_case(torch, att, case, lse_delta, rate: float = 0.0):
     # over the query axis, as the padding mask is) holds b * sk of them
     mask_b = math.prod(n for n, st in zip(m.shape, m.stride()) if st != 0)
     row_f32 = b * h * sq * 4
+    # the products' work is what this mask needs: its kept (query, key)
+    # pairs, per head (a causal mask keeps about half of sq * sk)
+    pairs = int((m != 0).sum()) * h
     work = {
         "flash_fwd": (
             lambda: att.flash_fwd(q, k, v, m, **drop),
             lambda: att.flash_fwd_plain(q, k, v, m, **drop),
             4 * q.numel() * esz + mask_b + row_f32,           # q k v o, mask, lse
-            4.0 * b * h * sq * sk * d),
+            4.0 * pairs * d),
         "flash_bwd_dkv": (
             lambda: att.flash_bwd_dkv(q, k, v, g, lse, delta, m, **drop),
             lambda: att.flash_bwd_dkv_plain(q, k, v, g, lse, delta, m, **drop),
             6 * q.numel() * esz + mask_b + 2 * row_f32,       # q k v dO dk dv
-            8.0 * b * h * sq * sk * d),
+            8.0 * pairs * d),
         "flash_bwd_dq": (
             lambda: att.flash_bwd_dq(q, k, v, g, lse, delta, m, **drop),
             lambda: att.flash_bwd_dq_plain(q, k, v, g, lse, delta, m, **drop),
             5 * q.numel() * esz + mask_b + 2 * row_f32,       # q k v dO dq
-            6.0 * b * h * sq * sk * d),
+            6.0 * pairs * d),
     }
     # the library yardstick: one SDPA call on the same inputs (never used
     # by the port); its backward computes dq, dk and dv together
@@ -3113,17 +3209,21 @@ def lm_attention_yardstick(torch):
         return F.scaled_dot_product_attention(q, k, v, dropout_p=rate, is_causal=True)
 
     out = sdpa()
-    fwd = device_ms(torch, sdpa, n=20)[0]
-    bwd = device_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
-                    n=20)[0]
+    # SDPA launches several kernels a call, so the profiler's sum has no
+    # count to correct a dropped record by: the CUDA-event time (host gaps
+    # included) stands beside it
+    fwd, _, fwd_ev = device_ms(torch, sdpa, n=20)
+    bwd, _, bwd_ev = device_ms(
+        torch, lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), n=20)
     rows = {}
     for name, (nbytes, flops) in work.items():
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        rows[name] = {"bound_ms": bnd, "bound_by": by,
-                      "library_ms": fwd if name == "flash_fwd" else bwd}
+        lib, lib_ev = (fwd, fwd_ev) if name == "flash_fwd" else (bwd, bwd_ev)
+        rows[name] = {"bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                      "library_events_ms": lib_ev}
         log(f"[lm] at the LM's attention shape (32, 512, 8, 64) causal, dropout {rate}: "
             f"{name} bound {bnd:.4f} ms by {by}; SDPA {'fwd' if name == 'flash_fwd' else 'bwd'} "
-            f"{rows[name]['library_ms']:.4f} ms")
+            f"{lib:.4f} ms (profiler), {lib_ev:.4f} ms (CUDA events)")
     return rows
 
 
@@ -6426,6 +6526,18 @@ def main() -> int:
                for drop in ("false", "true") if f"flash_fwd_kernel_mma<{d}, {drop}>" not in ptxas]
     if missing:
         raise AssertionError(f"ptxas compiled no {missing}")
+    # K2 and K3 in bf16 run their products on wgmma: their SASS holds HGMMA
+    hgmma = sass_hgmma(lib)
+    bwd_mma = [f"flash_bwd_{n}_kernel_mma<{d}, {drop}>" for n in ("dkv", "dq")
+               for d in att.SUPPORTED_HEAD_DIMS for drop in ("false", "true")]
+    log("[build] HGMMA instructions per kernel (cuobjdump -sass): "
+        + ", ".join(f"{k} {hgmma.get(k)}" for k in bwd_mma))
+    if not all(hgmma.get(k, 0) > 0 for k in bwd_mma):
+        raise AssertionError(f"[build] K2/K3 without HGMMA in their SASS: {hgmma}")
+    spills64 = {k: ptxas[k] for k in bwd_mma if "<64," in k
+                and (ptxas.get(k, {}).get("spill_stores") or ptxas.get(k, {}).get("spill_loads"))}
+    if spills64:
+        raise AssertionError(f"[build] K2/K3 spill at D 64: {spills64}")
     log(smi)
     mark("build")
 
@@ -6461,6 +6573,21 @@ def main() -> int:
             case_err[n][case["name"]] = e
         lse_delta.append(stats)
     at = {c["name"].split(" ")[0]: i for i, c in enumerate(cases)}
+    # the LM's attention: B 32 x S 512, causal in memory, dropout 0.1
+    lm_case = make_case(torch, "lm-causal bf16 (32,512,8,64)", LM_BATCH, LM_SEQ, LM_SEQ, 8, 64,
+                        bf16, "lm", gen)
+    for n, e in check_case(torch, att, lm_case, WMT_TIMED_RATE)[0].items():
+        case_err[n][f"{lm_case['name']} dropout {WMT_TIMED_RATE}"] = e
+    del lm_case
+    log("[kernels] K2's and K3's dropout bits against philox_keep:")
+    probe = keep_bit_probe(torch, att)
+    lm_q = torch.empty(LM_BATCH, LM_SEQ, 8, 64, dtype=bf16, device="cuda")
+    map_ns = att.build().flash_tensor_map_ns(lm_q.data_ptr(), LM_BATCH, LM_SEQ, 8, 64, 10000)
+    del lm_q
+    log(f"[kernels] host ns to encode a K2 or K3 launch's four TMA tensor maps at the LM's "
+        f"shape: {map_ns}")
+    if map_ns < 0:
+        raise AssertionError(f"cuTensorMapEncodeTiled refused the LM's tensors ({map_ns})")
     log("[kernels] the slice's shape through autograd, K1's lse feeding K2 and K3:")
     autograd_err = check_autograd(torch, att, cases[at["slice-causal"]])
     log("[kernels] times at the slice's shapes (B 32, S 64, H 8, D 64, bf16, padding mask):")
@@ -6714,6 +6841,7 @@ def main() -> int:
     })
     log(f"[tpe_ei] launches by phase {ei_by_phase}; card {smi}")
     print(json.dumps({"kernels": kernels, "bwd_over_sdpa": bwd_ratio, "ptxas": ptxas,
+                      "hgmma": hgmma, "keep_bit_probe": probe, "tensor_map_ns": map_ns,
                       "phase_s": phase_s,
                       "autograd_max_abs_err": autograd_err, "slice": {
         "ms_per_step": ms_step, "tokens_per_s": warm["tokens_per_step"] / ms_step * 1e3,

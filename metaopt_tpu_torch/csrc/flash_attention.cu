@@ -1,21 +1,27 @@
-// Flash attention for the demo Transformer, written for Hopper (sm_90a).
+// Flash attention for the demo Transformer and the LM, written for Hopper
+// (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of metaopt_tpu/ops/attention.py:
-//   flash_fwd_kernel_mma      <- _flash_fwd_kernel     (launched by _pallas_forward), bf16
-//   flash_bwd_dkv_kernel_mma  <- _flash_bwd_dkv_kernel (pass 1 of _pallas_backward), bf16
-//   flash_bwd_dq_kernel_mma   <- _flash_bwd_dq_kernel  (pass 2 of _pallas_backward), bf16
+//   flash_fwd_kernel_mma      <- _flash_fwd_kernel     (:77, launched at :159), bf16
+//   flash_bwd_dkv_kernel_mma  <- _flash_bwd_dkv_kernel (:181, pass 1 of _pallas_backward,
+//                                launched at :321), bf16
+//   flash_bwd_dq_kernel_mma   <- _flash_bwd_dq_kernel  (:238, pass 2, launched at :358), bf16
 //   flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel: the same for f32
 // and, inside all six, the attention dropout that the reference runs in its
 // XLA chunked twin (_chunked_forward / _chunked_backward with _dropout_tile),
 // drawn in registers (see Dropout below).
 //
-// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense). At the
-// demo Transformer's shape (B 32, S 64, H 8, D 64, bf16, padding mask) each
-// call moves 8-13 MB and does 0.3-0.5 GFLOP, so all three are bound by
-// bytes: K1 2.5 us, K2 3.8 us, K3 3.2 us. At the Transformer's longest
-// sequence (B 8, S 512, H 8, D 64, causal mask) the work per byte grows
-// with S: K2 is bound by operations (8.6 GFLOP, 8.7 us), K3 and K1 still
-// by bytes (7.0 and 5.7 us). chip_smoke.py computes these bounds.
+// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense), counting
+// each input read once, each output written once and the products over the
+// (query, key) pairs the mask keeps (chip_smoke.py computes these bounds):
+//   - the slice's shape (B 32, S 64, H 8, D 64, padding mask): 8-13 MB a
+//     call, bound by bytes: K1 2.5 us, K2 3.8 us, K3 3.2 us;
+//   - the long shape (B 8, S 512, H 8, D 64, causal): still by bytes, K2
+//     8.2 us, K3 7.0 us, K1 5.7 us; the causal pairs' products alone would
+//     take K2 4.4 us;
+//   - the LM's shape (B 32, S 512, H 8, D 64, causal in memory, dropout
+//     0.1): by bytes, K1 22.7 us, K2 32.9 us, K3 27.9 us. Philox's integer
+//     rounds are outside both bounds.
 //
 // Common design: the (Sq, Sk) score matrix never reaches device memory.
 // Each block owns a 64-row tile of one (batch, head), streams 64-row tiles
@@ -23,25 +29,22 @@
 // chip; tensors are read straight from the (B, S, H, D) layout through
 // strides, so no transposed or padded copies are made.
 //
-// In bf16 all three run on the tensor cores, FlashAttention-2 style: four
-// warps of 16 owned rows, tiles copied to shared memory as bf16 with
-// cp.async, two stages so the next tile's copy overlaps this tile's math,
-// and every product as mma.sync m16n8k16 fed by ldmatrix. Score, P and dP
-// tiles stay in registers, and their accumulator layout is the A-fragment
-// layout of the next product, so P and dS never touch shared memory. Bound
-// by bytes, K1 reads Q, K and V once each, as bf16, with 16-byte copies
-// that overlap the math of the tile before, reads the mask 16 bytes a load
-// (keep_tile), and writes O through 16-byte stores; its online softmax
-// runs on the score fragments, the row max and sum shared by the row's
-// four lanes with two shuffles. K tiles whose keep flags are all zero for
-// the block's Q tile (a causal mask's upper triangle, padded keys) are
-// skipped whole: 28 of the 64 tile pairs of a causal 512 x 512 mask. At
-// S = 64 a block does one tile step and needs
-// 32 KB (K1, D = 64) to 41 KB (K2) of shared memory, and registers (see
-// ptxas -v) let two or more blocks share an SM, so the slice's 256 blocks
-// are resident in one wave on 132 SMs and one block's loads overlap
-// another's math. wgmma and TMA are left for long sequences, where the
-// tensor cores, not latency, should set the time.
+// In bf16 all three run on the tensor cores with four warps (one
+// warpgroup) of 16 owned rows each. K1 is FlashAttention-2 style: tiles
+// copied to shared memory with cp.async, two stages so the next tile's copy
+// overlaps this tile's math, every product mma.sync m16n8k16 fed by
+// ldmatrix, P kept in registers, where its accumulator layout is the next
+// product's A fragment; K tiles whose keep flags are all zero for the
+// block's Q tile are skipped (__syncthreads_or). K2 and K3 are built for
+// long causal sequences with dropout, where the LM runs them six times a
+// step (see "K2 and K3 for bf16 inputs" below): a live-tile list built
+// before the loop, so a dead tile pair (28 of the 64 of a causal 512 x 512
+// mask) is never copied, multiplied or drawn for; one Philox call per four
+// elements, shared across lanes by shuffles; and every product a wgmma on
+// 128B-swizzled tiles that TMA fills into a two-stage mbarrier ring, with P
+// and dS fed back from registers. At S = 64 a block does one tile step, and
+// registers (see ptxas -v) let two or more blocks share an SM, so the
+// slice's 256 blocks are resident in one wave on 132 SMs.
 //
 // f32 stays on the CUDA cores (scalar f32 FMAs from f32 tiles in shared
 // memory): f32 attention is off the Transformer's path and held to 1e-5
@@ -67,16 +70,22 @@
 // rounding of 2^-9 per term of dS, or of P (which moves O, and through
 // delta = rowsum(dO * O) every dS), leaves dQ outside the bf16 bound.
 //
-// Each entry point returns cudaGetLastError() after its launch.
+// Each entry point returns cudaGetLastError() after its launch, or, for K2
+// and K3 in bf16, kMapError (+ the driver's CUresult) where no TMA tensor
+// map could be made of its tensors.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <chrono>
 #include <type_traits>
 
 #include "warp_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -128,10 +137,10 @@ __device__ __forceinline__ float group_sum(float x) {
 // Each kernel takes the dropout as a template flag: without it (rate 0)
 // it compiles to the code it had before dropout existed. With it, Philox's
 // ten rounds (~75 integer instructions a call) are ALU work outside the
-// byte and tensor-core bounds: K1 and K3 make one call per two elements (a
-// thread's fragment holds column pairs), K2 one per element (its fragment
-// holds two key rows per query column, in different counter words), which
-// is why K2 pays the most; chip_smoke.py times each against rate 0.
+// byte and tensor-core bounds: K1 makes one call per two elements (a
+// thread's fragment holds column pairs); K2 and K3 one per four, the lanes
+// that hold a call's four columns sharing it by shuffles (dkv_keep_bits,
+// dq_keep_bits); chip_smoke.py times each against rate 0.
 struct Dropout {
     uint32_t k0, k1, offset;
     unsigned long long thr;  // keep when the word is below this
@@ -434,11 +443,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K2 and K3 for bf16 inputs, on the tensor cores. Four warps per block; each
-// warp owns 16 rows of the block's 64-row tile and computes, per 16-row
-// chunk of the streamed tile, both score products with mma.sync into
-// registers, the probabilities and dS there, and feeds them, rounded to
-// bf16 (dS as head + tail), straight into the next products as A fragments.
+// The bf16 kernels' shared pieces: 64-row tiles, four warps of 16 owned rows
+// each (one warpgroup), keep-flag tiles. K1 (below) runs mma.sync fed by
+// ldmatrix from cp.async tiles (the helpers up to store_strip); K2 and K3
+// run wgmma on TMA tiles (after them).
 
 constexpr int kTile = 64;                 // rows of an owned or streamed tile
 constexpr int kMmaThreads = 128;          // four warps of 16 owned rows each
@@ -613,39 +621,377 @@ __device__ __forceinline__ void store_strip(bf16* dst, bf16* tile, const float (
     }
 }
 
-// K2 on the tensor cores. One block per (b*h, 64-row K tile); Q/dO tiles,
-// their keep flags, lse and delta stream through two shared stages, the
-// copy of tile i + 1 in flight while tile i is computed. Per warp and per
-// 16 query rows: S^T = K_w Q^T and dP^T = V_w dO^T (16 x 16 each), then
-// P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta), and dV_w += P^T dO,
-// dK_w += dS^T Q with P^T and dS^T (two terms) as bf16 A fragments.
+// K2 and K3 for bf16 inputs: one warpgroup on wgmma, tiles by TMA.
+//
+// Each block owns a 64-row tile (K2: keys, K3: queries) and walks the
+// streamed axis (K2: Q tiles, K3: K tiles) through the list of tiles that
+// its keep flags leave alive, built before the main loop:
+//
+// 1. Live tiles. The block scans its strip of the mask, 16 bytes a load,
+//    several tiles' loads in flight at once, and keeps for each streamed
+//    tile whether any of its 64 x 64 flags against the owned tile is set
+//    and whether all are. A tile with none set is never copied, multiplied
+//    or drawn for: its p is exp(-1e30 - lse) = 0 in every element, so it
+//    adds exactly zero, and skipping it changes no bit. A tile with all set
+//    takes no flag loads in the loop. The scan reads the mask as given
+//    (padding, causal, cross, random or fully masked rows), never assuming
+//    a shape. A block with no live tile writes zeros.
+// 2. Dropout. An element's keep bit is word col % 4 of Philox4x32-10 on the
+//    counter (col / 4, row, b*h, offset), so one call serves four
+//    consecutive columns. K2's lanes 4a + y (y = 0..3) of one t hold keys
+//    4a + y of a query: each draws one call in four and passes its words on
+//    with two shuffles. K3's lanes t and t ^ 1 hold columns 2t, 2t + 1 of
+//    rows g and g + 8: each draws one row's call and trades its half with
+//    one shuffle. One call per four elements in both kernels; the bits are
+//    the same as ops/attention.py::philox_keep's.
+// 3. Products. Per streamed tile, S (K2: S^T = K Q^T) and dP (K2: dP^T =
+//    V dO^T) are m64n64k16 wgmmas from shared memory; P and dS are formed in
+//    the accumulators and go, rounded to bf16 (P as one term for dV, dS as
+//    head + tail for dK and dQ), as register A operands into dV += P^T dO,
+//    dK += dS^T Q (K2) or dQ += dS K (K3), B read MN-major from the same
+//    tiles. The streamed tiles arrive by TMA into two stages, each
+//    completing on its mbarrier, the next tile's copy (and its flags, lse
+//    and delta) in flight while this one is computed. The first tile is
+//    guessed (K3: tile 0; K2: tile 0 for a mask broadcast over queries,
+//    the diagonal tile k0 / 64 otherwise) and copied together with the
+//    owned tiles before the scan ends; a wrong guess costs one copy.
+
+constexpr int kScanBatch = 8;  // streamed tiles whose mask loads the scan keeps in flight
+
+template <int D> __host__ __device__ constexpr int tma_tile_bytes() { return kTile * D * 2; }
+__host__ __device__ constexpr int align_1k(int x) { return (x + 1023) & ~1023; }
+
+// Shared bytes of a stage: K2's Q and dO tiles, keep flags, lse and delta;
+// K3's K and V tiles and keep flags.
 template <int D> __host__ __device__ constexpr int dkv_stage_bytes() {
-    return 2 * tile_bytes<D>() + kTile * kKeepLd + 2 * kTile * (int)sizeof(float);
+    return align_1k(2 * tma_tile_bytes<D>() + kTile * kKeepLd + 2 * kTile * (int)sizeof(float));
+}
+template <int D> __host__ __device__ constexpr int dq_stage_bytes() {
+    return align_1k(2 * tma_tile_bytes<D>() + kTile * kKeepLd);
 }
 
+// Shared bytes after the stages: two mbarriers, the count, the scan's words
+// (two per 32 streamed tiles) and the list (one int per streamed tile).
+__host__ __device__ constexpr int live_bytes(int n_tiles) {
+    return 32 + 8 * ((n_tiles + 31) / 32) + 4 * n_tiles;
+}
+
+// The whole dynamic shared memory of K2 or K3: 1 KB of slack to align the
+// tiles to the 128B swizzle's 1024-byte period, the two owned tiles, one or
+// two stages, then the barriers and the list.
+template <int D>
+int bwd_smem_bytes(int stage_bytes, int n_tiles) {
+    return 1024 + 2 * tma_tile_bytes<D>() + (n_tiles > 1 ? 2 : 1) * stage_bytes +
+           live_bytes(n_tiles);
+}
+
+struct LiveList {
+    uint64_t* full;   // [2] one mbarrier per stage
+    int* count;
+    uint32_t* words;  // [2 * ceil(n_tiles / 32)]: some flag set, some flag clear
+    int* list;        // [n_tiles]: j * 2 + (all flags set)
+
+    __device__ LiveList(unsigned char* p, int n_tiles) {
+        full = reinterpret_cast<uint64_t*>(p);
+        count = reinterpret_cast<int*>(p + 16);
+        words = reinterpret_cast<uint32_t*>(p + 32);
+        list = reinterpret_cast<int*>(words + 2 * ((n_tiles + 31) / 32));
+    }
+};
+
+// Copy one 64-row tile (rows row..row + 63 of head h of batch b) into
+// shared memory, one TMA box per panel, completing on `bar`.
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                         int row, int b) {
+    constexpr int P = panel_cols<D>();
+#pragma unroll
+    for (int p = 0; p < D / P; ++p) tma_load_4d(dst + p * kTile * P, map, bar, p * P, h, row, b);
+}
+
+__device__ __forceinline__ uint32_t bytes_clear(uint32_t w) {  // any byte zero
+    return __vcmpeq4(w, 0u) != 0;
+}
+
+// The 16-byte mask chunks this thread reads of the 64 x 64 tile pair at
+// (q0, k0): rows r and r + 32 (r = tid / 4), columns 16 (tid % 4)..; rows
+// past Sq are zero. The layout of keep_tile's fast path.
+__device__ __forceinline__ void mask_chunks(uint4 (&f)[2], const int8_t* mb, long long msq, int q0,
+                                            int Sq, int k0) {
+    const int r = threadIdx.x >> 2, c = (threadIdx.x & 3) * 16;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        const int qi = q0 + r + 32 * u;
+        f[u] = qi < Sq ? __ldg(reinterpret_cast<const uint4*>(mb + qi * msq + k0 + c))
+                       : make_uint4(0, 0, 0, 0);
+    }
+}
+
+// Of the flags a thread read: bit 0 if one is set, bit 1 if one is clear.
+__device__ __forceinline__ uint32_t chunk_bits(const uint4 (&f)[2]) {
+    uint32_t set = 0, clr = 0;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        set |= (f[u].x | f[u].y | f[u].z | f[u].w) != 0;
+        clr |= bytes_clear(f[u].x) | bytes_clear(f[u].y) | bytes_clear(f[u].z) |
+               bytes_clear(f[u].w);
+    }
+    return set | clr << 1;
+}
+
+__device__ __forceinline__ void store_chunks(uint8_t* keep, const uint4 (&f)[2]) {
+    const int r = threadIdx.x >> 2, c = (threadIdx.x & 3) * 16;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        uint32_t* dst = reinterpret_cast<uint32_t*>(keep + (r + 32 * u) * kKeepLd + c);
+        dst[0] = f[u].x;
+        dst[1] = f[u].y;
+        dst[2] = f[u].z;
+        dst[3] = f[u].w;
+    }
+}
+
+// The flags of one tile pair element by element (any strides, ragged
+// edges, or no mask); writes them to keep unless it is null.
+__device__ __forceinline__ uint32_t scan_slow(uint8_t* keep, const int8_t* mb, long long msq,
+                                              long long msk, int q0, int Sq, int k0, int Sk) {
+    uint32_t set = 0, clr = 0;
+    for (int i = threadIdx.x; i < kTile * kTile; i += kMmaThreads) {
+        const int r = i / kTile, c = i % kTile, qi = q0 + r, kc = k0 + c;
+        bool ok = qi < Sq && kc < Sk;
+        if (ok && mb != nullptr) ok = mb[qi * msq + kc * msk] != 0;
+        if (keep != nullptr) keep[r * kKeepLd + c] = ok;
+        set |= ok;
+        clr |= !ok;
+    }
+    return set | clr << 1;
+}
+
+// Whether the tile pair with keys k0..k0 + 63 reads its flags 16 bytes a
+// load: its keys lie within Sk and the mask's rows are contiguous and
+// 16-byte aligned (the Transformer's and the LM's masks).
+__device__ __forceinline__ bool flags_fast(const int8_t* mb, long long msq, long long msk, int k0,
+                                           int Sk) {
+    return mb != nullptr && msk == 1 && k0 + kTile <= Sk && msq % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(mb + k0) % 16 == 0;
+}
+
+// A streamed tile's flags (and K2's lse and delta) fetched into registers
+// one tile ahead, stored to its stage after this tile's products.
+struct Ahead {
+    uint4 f[2];
+    float lse, delta;
+};
+
+// Build the block's live list (see 1. above) and return its length. Tile j
+// of the streamed axis meets the owned tile at origin(j) = (q0, k0); the
+// flags of tile `guess` are also written to `keep`. Every thread calls it.
+template <typename Origin>
+__device__ int live_tiles(const LiveList& ll, int n_tiles, const int8_t* mb, long long msq,
+                          long long msk, int Sq, int Sk, Origin origin, int guess,
+                          uint8_t* keep) {
+    const int tid = threadIdx.x, lane = tid & 31;
+    auto fast = [&](int k0) { return flags_fast(mb, msq, msk, k0, Sk); };
+    for (int c0 = 0; c0 < n_tiles; c0 += 32) {
+        const int n = min(32, n_tiles - c0);
+        uint32_t set = 0, clr = 0;
+        for (int u0 = 0; u0 < n; u0 += kScanBatch) {
+            uint4 f[kScanBatch][2];
+#pragma unroll
+            for (int u = 0; u < kScanBatch; ++u) {
+                const int2 o = origin(c0 + u0 + u);
+                if (u0 + u < n && fast(o.y)) mask_chunks(f[u], mb, msq, o.x, Sq, o.y);
+            }
+#pragma unroll
+            for (int u = 0; u < kScanBatch; ++u) {
+                const int j = c0 + u0 + u;
+                if (u0 + u >= n) break;
+                const int2 o = origin(j);
+                uint32_t bits;
+                if (fast(o.y)) {
+                    bits = chunk_bits(f[u]);
+                    if (j == guess) store_chunks(keep, f[u]);
+                } else if (mb == nullptr && o.x + kTile <= Sq && o.y + kTile <= Sk) {
+                    bits = 1;  // no mask, all in range: every flag set
+                } else {
+                    bits = scan_slow(j == guess ? keep : nullptr, mb, msq, msk, o.x, Sq, o.y, Sk);
+                }
+                set |= (bits & 1u) << (u0 + u);
+                clr |= (bits >> 1) << (u0 + u);
+            }
+        }
+        set = __reduce_or_sync(0xffffffffu, set);
+        clr = __reduce_or_sync(0xffffffffu, clr);
+        if (lane == 0) {
+            atomicOr(&ll.words[2 * (c0 / 32)], set);
+            atomicOr(&ll.words[2 * (c0 / 32) + 1], clr);
+        }
+    }
+    __syncthreads();
+    if (tid < 32) {
+        int n = 0;
+        for (int c0 = 0; c0 < n_tiles; c0 += 32) {
+            const uint32_t set = ll.words[2 * (c0 / 32)], clr = ll.words[2 * (c0 / 32) + 1];
+            const bool live = (set >> lane) & 1u;
+            const uint32_t bal = __ballot_sync(0xffffffffu, live);
+            if (live)
+                ll.list[n + __popc(bal & ((1u << lane) - 1))] =
+                    (c0 + lane) * 2 + !((clr >> lane) & 1u);
+            n += __popc(bal);
+        }
+        if (lane == 0) *ll.count = n;
+    }
+    __syncthreads();
+    return *ll.count;
+}
+
+__device__ __forceinline__ uint32_t keep_nibble(const uint4 w, const Dropout& dr) {
+    return (uint32_t)(w.x < dr.thr) | (uint32_t)(w.y < dr.thr) << 1 |
+           (uint32_t)(w.z < dr.thr) << 2 | (uint32_t)(w.w < dr.thr) << 3;
+}
+
+// K2's keep bits for the S^T accumulator of one tile pair: bit i is the bit
+// of d[i] = (key k0 + 16 warp + g + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2)
+// + 2 t + (i & 1)). Key 4a + y of a query is word y of one call, and lanes
+// 16a + 4y + t (y = 0..3) hold those four keys: in round r lane y draws
+// element 4r + y's call, whose word y' is lane y''s bit; two rounds share
+// two shuffles that gather the four nibbles, and each lane keeps its word.
+__device__ __forceinline__ uint32_t dkv_keep_bits(const Dropout& dr, int bh, int q0, int k0,
+                                                  int warp, int gi, int ti) {
+    const int y = gi & 3;
+    const uint32_t key4 = (uint32_t)(k0 >> 2) + 4 * warp + 2 * (y >> 1) + (gi >> 2);
+    uint32_t out = 0;
+#pragma unroll
+    for (int r0 = 0; r0 < 8; r0 += 2) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+            const int row = q0 + 8 * (r0 + rr) + 2 * ti + (y & 1);
+            const uint4 w = philox4x32_10(
+                make_uint4(key4, (uint32_t)row, (uint32_t)bh, dr.offset), dr.k0, dr.k1);
+            v |= keep_nibble(w, dr) << (16 * rr + 4 * y);
+        }
+        v |= __shfl_xor_sync(0xffffffffu, v, 4);
+        v |= __shfl_xor_sync(0xffffffffu, v, 8);
+        // bits 16 rr + 4 x + y: element 4 (r0 + rr) + x of this lane
+        uint32_t u = (v >> y) & 0x11111111u;
+        u = (u | (u >> 3)) & 0x03030303u;
+        u = (u | (u >> 6)) & 0x000F000Fu;
+        u = (u | (u >> 12)) & 0xFFu;
+        out |= u << (4 * r0);
+    }
+    return out;
+}
+
+// K3's keep bits for the S accumulator of one tile pair: bit i is the bit
+// of d[i] = (query q0 + 16 warp + g + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2)
+// + 2 t + (i & 1)). Lanes t and t ^ 1 hold the four keys of one call in rows
+// g and g + 8: lane t draws row g + 8 (t & 1), keeps its own two words and
+// trades the other two with one shuffle.
+__device__ __forceinline__ uint32_t dq_keep_bits(const Dropout& dr, int bh, int q0, int k0,
+                                                 int warp, int gi, int ti) {
+    const int odd = ti & 1;
+    const uint32_t row = (uint32_t)(q0 + 16 * warp + gi + 8 * odd);
+    uint32_t own = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const uint32_t key4 = (uint32_t)(k0 >> 2) + 2 * j + (ti >> 1);
+        own |= keep_nibble(philox4x32_10(make_uint4(key4, row, (uint32_t)bh, dr.offset), dr.k0,
+                                         dr.k1),
+                           dr)
+               << (4 * j);
+    }
+    const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);
+    return odd ? ((other >> 2) & 0x33333333u) | (own & 0xCCCCCCCCu)
+               : (own & 0x33333333u) | ((other & 0x33333333u) << 2);
+}
+
+// Write a 64 x D accumulator (d[4j + i] = rows r0 + g (+ 8 for i >= 2),
+// cols 8j + 2t (+ 1)) of rows row0.. as bf16: each warp rounds its own 16
+// rows into `tile` (a staging area, D + 8 columns a row) and stores them 16
+// bytes a lane; rows past n are not written.
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* dst, bf16* tile, const float (&acc)[D / 2],
+                                          int row0, int n, long long rs) {
+    constexpr int LD = D + 8, CPR = D / 8;
+    const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+    const int g = lane >> 2, t = lane & 3;
+    __syncwarp();  // the warp's earlier reads of these rows are done
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+        bf16* p = tile + (r0 + g) * LD + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(p + 8 * LD) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 16 * CPR / 32; ++j) {
+        const int i = lane + 32 * j, r = r0 + i / CPR, c = (i % CPR) * 8;
+        if (row0 + r < n)
+            *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * rs + c) =
+                *reinterpret_cast<const uint4*>(tile + r * LD + c);
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void zero_rows(bf16* dst, int row0, int n, long long rs) {
+    constexpr int CPR = D / 8;
+    for (int i = threadIdx.x; i < kTile * CPR; i += kMmaThreads) {
+        const int r = i / CPR, c = (i % CPR) * 8;
+        if (row0 + r < n)
+            *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * rs + c) =
+                make_uint4(0, 0, 0, 0);
+    }
+}
+
+// P and dS of one element: p = exp(s - lse) (s masked to -1e30 where the flag
+// is clear; one ex2 a term); under dropout dV takes the dropped p and dS the
+// dropped dP.
+template <bool kDrop>
+__device__ __forceinline__ void p_ds(float& p, float& ds, float s, float dp, float lse,
+                                     float delta, bool kb, const Dropout& dr) {
+    const float pv = exp2f((s - lse) * 1.4426950408889634f);
+    if constexpr (kDrop) {
+        ds = pv * (dropped(kb, dp, dr) - delta);
+        p = dropped(kb, pv, dr);
+    } else {
+        ds = pv * (dp - delta);
+        p = pv;
+    }
+}
+
+// K2: one block per (b*h, 64-row K tile). Per live Q tile: S^T = K Q^T and
+// dP^T = V dO^T (m64n64, from shared memory), then P^T, dS^T, and dV += P^T
+// dO, dK += dS^T Q (m64nD, A from registers).
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+flash_bwd_dkv_kernel_mma(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const int8_t* __restrict__ mask, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int H, int Sq, int Sk, long long msb,
                          long long msq, long long msk, Dropout dr) {
-    extern __shared__ __align__(16) unsigned char smem_mma[];
-    bf16* sK = reinterpret_cast<bf16*>(smem_mma);
-    bf16* sV = reinterpret_cast<bf16*>(smem_mma + tile_bytes<D>());
-    unsigned char* stages = smem_mma + 2 * tile_bytes<D>();
+    constexpr int TB = tma_tile_bytes<D>(), SB = dkv_stage_bytes<D>();
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+    bf16* sK = reinterpret_cast<bf16*>(smem);
+    bf16* sV = reinterpret_cast<bf16*>(smem + TB);
+    unsigned char* stages = smem + 2 * TB;
+    const int n_tiles = (Sq + kTile - 1) / kTile;
+    const LiveList ll(stages + (n_tiles > 1 ? 2 : 1) * SB, n_tiles);
     struct Stage {
         bf16 *q, *g;
         uint8_t* keep;
         float *lse, *delta;
     };
     auto stage = [&](int s) {
-        unsigned char* p = stages + s * dkv_stage_bytes<D>();
+        unsigned char* p = stages + s * SB;
         Stage st;
         st.q = reinterpret_cast<bf16*>(p);
-        st.g = reinterpret_cast<bf16*>(p + tile_bytes<D>());
-        st.keep = p + 2 * tile_bytes<D>();
+        st.g = reinterpret_cast<bf16*>(p + TB);
+        st.keep = p + 2 * TB;
         st.lse = reinterpret_cast<float*>(st.keep + kTile * kKeepLd);
         st.delta = st.lse + kTile;
         return st;
@@ -653,203 +999,361 @@ flash_bwd_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
     const int k0 = blockIdx.y * kTile;
-    const int lane = threadIdx.x & 31, kw = (threadIdx.x >> 5) * 16;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gi = lane >> 2, ti = lane & 3;
     const long long rs = (long long)H * D;
-    const bf16* qb = q + (long long)b * Sq * rs + (long long)h * D;
-    const bf16* gb = g + (long long)b * Sq * rs + (long long)h * D;
     const int8_t* mb = mask ? mask + b * msb : nullptr;
     const float* lse_b = lse + (long long)bh * Sq;
     const float* delta_b = delta + (long long)bh * Sq;
 
-    auto load_q_tile = [&](int it) {
-        const Stage st = stage(it & 1);
-        const int q0 = it * kTile;
-        cp_tile<D>(st.q, qb, rs, q0, Sq);
-        cp_tile<D>(st.g, gb, rs, q0, Sq);
-        cp_async_commit();
-        keep_tile(st.keep, mb, msq, msk, q0, Sq, k0, Sk);
-        if (threadIdx.x < kTile) {
-            const int qi = q0 + threadIdx.x;
-            st.lse[threadIdx.x] = qi < Sq ? lse_b[qi] : INFINITY;
-            st.delta[threadIdx.x] = qi < Sq ? delta_b[qi] : 0.f;
+    if (tid == 0) {
+        mbar_init(&ll.full[0], 1);
+        mbar_init(&ll.full[1], 1);
+        mbar_fence_init();
+    }
+    for (int i = tid; i < 2 * ((n_tiles + 31) / 32); i += kMmaThreads) ll.words[i] = 0;
+    __syncthreads();
+
+    // Stage s gets Q tile j's copy by TMA (and K, V with `own`) ...
+    auto copy = [&](int s, int j, bool own) {
+        if (tid == 0) {
+            const Stage st = stage(s);
+            mbar_expect_tx(&ll.full[s], (own ? 4 : 2) * TB);
+            if (own) {
+                tma_tile<D>(sK, &tm_k, &ll.full[s], h, k0, b);
+                tma_tile<D>(sV, &tm_v, &ll.full[s], h, k0, b);
+            }
+            tma_tile<D>(st.q, &tm_q, &ll.full[s], h, j * kTile, b);
+            tma_tile<D>(st.g, &tm_g, &ll.full[s], h, j * kTile, b);
         }
     };
-
-    cp_tile<D>(sK, k + (long long)b * Sk * rs + (long long)h * D, rs, k0, Sk);
-    cp_tile<D>(sV, v + (long long)b * Sk * rs + (long long)h * D, rs, k0, Sk);
-    load_q_tile(0);  // one group: K, V and the first Q/dO tile
-
-    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
-    Strip<D> fk, fv;
-    const int n_tiles = (Sq + kTile - 1) / kTile;
-    for (int it = 0; it < n_tiles; ++it) {
-        if (it + 1 < n_tiles) {
-            load_q_tile(it + 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+    // ... and its flags (for a partial tile), lse and delta: fetched into
+    // registers, then stored
+    auto fetch = [&](int j, bool flags) {
+        Ahead a;
+        if (flags && flags_fast(mb, msq, msk, k0, Sk)) mask_chunks(a.f, mb, msq, j * kTile, Sq, k0);
+        const int qi = j * kTile + tid;
+        a.lse = tid < kTile && qi < Sq ? lse_b[qi] : INFINITY;
+        a.delta = tid < kTile && qi < Sq ? delta_b[qi] : 0.f;
+        return a;
+    };
+    auto put = [&](int s, int j, bool flags, const Ahead& a) {
+        const Stage st = stage(s);
+        if (flags) {
+            if (flags_fast(mb, msq, msk, k0, Sk))
+                store_chunks(st.keep, a.f);
+            else
+                scan_slow(st.keep, mb, msq, msk, j * kTile, Sq, k0, Sk);
         }
-        __syncthreads();
-        if (it == 0) {
-            fk.init(sK, kw, lane);
-            fv.init(sV, kw, lane);
+        if (tid < kTile) {
+            st.lse[tid] = a.lse;
+            st.delta[tid] = a.delta;
         }
-        const Stage st = stage(it & 1);
+    };
+    // a mask broadcast over queries (padding) first meets tile 0, a causal
+    // one the diagonal
+    const int guess = mb != nullptr && msq != 0 ? min(k0 / kTile, n_tiles - 1) : 0;
+    copy(0, guess, true);
+    const Ahead first = fetch(guess, false);  // in flight during the scan
+    const int n_live = live_tiles(
+        ll, n_tiles, mb, msq, msk, Sq, Sk, [&](int j) { return make_int2(j * kTile, k0); }, guess,
+        stage(0).keep);
+    const long long off = (long long)b * Sk * rs + (long long)h * D;
+    if (n_live == 0) {
+        mbar_wait(&ll.full[0], 0);  // the guessed copies land before the block exits
+        zero_rows<D>(dk + off, k0, Sk, rs);
+        zero_rows<D>(dv + off, k0, Sk, rs);
+        return;
+    }
+    put(0, guess, false, first);
+    const int base = (ll.list[0] >> 1) == guess ? 0 : 1;  // entry i in stage (i + base) & 1
+    uint32_t phase = 0;                                    // bit s: parity stage s waits for
+    if (base) {  // the guess missed (so there are two stages): the first entry goes to stage 1
+        const int j = ll.list[0] >> 1;
+        const bool flags = !(ll.list[0] & 1);
+        copy(1, j, false);
+        put(1, j, flags, fetch(j, flags));
+        mbar_wait(&ll.full[0], 0);  // K, V and the unused guess
+        phase ^= 1u;
+    }
+    __syncthreads();  // the first entry's flags, lse and delta are in place
+
+    float dka[D / 2] = {}, dva[D / 2] = {};
+    for (int i = 0; i < n_live; ++i) {
+        const int s = (i + base) & 1;
+        const int j = ll.list[i] >> 1;
+        const bool partial = !(ll.list[i] & 1);
+        const bool more = i + 1 < n_live;
+        const int jn1 = more ? ll.list[i + 1] >> 1 : 0;
+        const bool flags1 = more && !(ll.list[i + 1] & 1);
+        Ahead ahead;
+        if (more) {
+            copy(s ^ 1, jn1, false);
+            ahead = fetch(jn1, flags1);
+        }
+        const Stage st = stage(s);
+        mbar_wait(&ll.full[s], (phase >> s) & 1u);
+        phase ^= 1u << s;
+
+        float sa[32] = {}, dpa[32] = {};
+        fence_regs(sa);
+        fence_regs(dpa);
+        wgmma_fence();
 #pragma unroll
-        for (int qc = 0; qc < kTile; qc += 16) {
-            float s[2][4] = {}, dp[2][4] = {};
-            strip_dot_rows<D>(s, fk, st.q, qc, lane);
-            strip_dot_rows<D>(dp, fv, st.g, qc, lane);
-            uint32_t pa[1][4], da[2][4];
+        for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(sa, desc_k<D>(sK, kk), desc_k<D>(st.q, kk));
 #pragma unroll
-            for (int n = 0; n < 2; ++n) {
-                float p[4], ds[4];
+        for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(dpa, desc_k<D>(sV, kk), desc_k<D>(st.g, kk));
+        wgmma_commit();
+        uint32_t kbits = 0;  // drawn while the tensor cores work
+        if constexpr (kDrop) kbits = dkv_keep_bits(dr, bh, j * kTile, k0, warp, gi, ti);
+        wgmma_wait<0>();
+        fence_regs(sa);
+        fence_regs(dpa);
+
+        // d[i] = (key 16 warp + g + 8 ((i >> 1) & 1), query 8 (i >> 2) + 2 t + (i & 1))
+        if (partial) {
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const int qr = qc + 8 * n + 2 * ti + (i & 1), kr = kw + gi + 8 * (i >> 1);
-                    const float sv = st.keep[qr * kKeepLd + kr] ? s[n][i] : kNegBig;
-                    p[i] = expf(sv - st.lse[qr]);
-                    if constexpr (kDrop) {  // dV takes the dropped P, dS the dropped dP
-                        const bool kb = keep_bit(dr, bh, it * kTile + qr, k0 + kr);
-                        ds[i] = p[i] * (dropped(kb, dp[n][i], dr) - st.delta[qr]);
-                        p[i] = dropped(kb, p[i], dr);
-                    } else {
-                        ds[i] = p[i] * (dp[n][i] - st.delta[qr]);
-                    }
-                }
-                pa[0][2 * n] = pack_bf16(p[0], p[1]);
-                pa[0][2 * n + 1] = pack_bf16(p[2], p[3]);
-                pack_bf16_split(ds[0], ds[1], da[0][2 * n], da[1][2 * n]);
-                pack_bf16_split(ds[2], ds[3], da[0][2 * n + 1], da[1][2 * n + 1]);
+            for (int i = 0; i < 32; ++i) {
+                const int qr = 8 * (i >> 2) + 2 * ti + (i & 1);
+                const int kr = 16 * warp + gi + 8 * ((i >> 1) & 1);
+                if (!st.keep[qr * kKeepLd + kr]) sa[i] = kNegBig;
             }
-            strip_acc<D>(dva, pa, st.g, qc, lane);
-            strip_acc<D>(dka, da, st.q, qc, lane);
         }
-        __syncthreads();  // the stage is refilled next iteration
+        uint32_t pa[4][4], ha[4][4], ta[4][4];
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+            const float2 l2 = *reinterpret_cast<const float2*>(st.lse + 8 * jn + 2 * ti);
+            const float2 d2 = *reinterpret_cast<const float2*>(st.delta + 8 * jn + 2 * ti);
+            float p[4], ds[4];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+                const int i4 = 4 * jn + x;
+                p_ds<kDrop>(p[x], ds[x], sa[i4], dpa[i4], (x & 1) ? l2.y : l2.x,
+                            (x & 1) ? d2.y : d2.x, (kbits >> i4) & 1u, dr);
+            }
+            const int kk = jn >> 1, half = jn & 1;
+            pa[kk][2 * half] = pack_bf16(p[0], p[1]);
+            pa[kk][2 * half + 1] = pack_bf16(p[2], p[3]);
+            pack_bf16_split(ds[0], ds[1], ha[kk][2 * half], ta[kk][2 * half]);
+            pack_bf16_split(ds[2], ds[3], ha[kk][2 * half + 1], ta[kk][2 * half + 1]);
+        }
+        fence_regs(dka);
+        fence_regs(dva);
+        fence_regs(pa);
+        fence_regs(ha);
+        fence_regs(ta);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dva, pa[kk], desc_mn<D>(st.g, kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            wgmma_rs<D>(dka, ha[kk], desc_mn<D>(st.q, kk));
+            wgmma_rs<D>(dka, ta[kk], desc_mn<D>(st.q, kk));
+        }
+        wgmma_commit();
+        if (more) put(s ^ 1, jn1, flags1, ahead);  // while the tensor cores work
+        wgmma_wait<0>();
+        fence_regs(dka);
+        fence_regs(dva);
+        fence_regs(pa);
+        fence_regs(ha);
+        fence_regs(ta);
+        __syncthreads();  // stage s is refilled next iteration; stage s ^ 1 is in place
     }
 
-    const long long off = (long long)b * Sk * rs + (long long)h * D;
-    store_strip<D>(dk + off, sK, dka, kw, k0, Sk, rs, lane);
-    store_strip<D>(dv + off, sV, dva, kw, k0, Sk, rs, lane);
+    fence_proxy_async();  // the staging below overwrites bytes TMA wrote
+    bf16* staging = stage(0).q;
+    store_acc<D>(dk + off, staging, dka, k0, Sk, rs);
+    store_acc<D>(dv + off, staging, dva, k0, Sk, rs);
 }
 
-// K3 on the tensor cores. One block per (b*h, 64-row Q tile); K/V tiles and
-// their keep flags stream through two shared stages. Per warp and per 16
-// keys: S = Q_w K^T and dP = dO_w V^T, P = exp(S - lse), dS = P (dP - delta),
-// and dQ_w += dS K with dS as two bf16 A fragments.
-template <int D> __host__ __device__ constexpr int dq_stage_bytes() {
-    return 2 * tile_bytes<D>() + kTile * kKeepLd;
-}
-
+// K3: one block per (b*h, 64-row Q tile). Per live K tile: S = Q K^T and
+// dP = dO V^T (m64n64, from shared memory), then P, dS, and dQ += dS K
+// (m64nD, dS as two bf16 A operands from registers).
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+flash_bwd_dq_kernel_mma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_g,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const int8_t* __restrict__ mask, bf16* __restrict__ dq, int H, int Sq,
                         int Sk, long long msb, long long msq, long long msk, Dropout dr) {
-    extern __shared__ __align__(16) unsigned char smem_mma[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-    bf16* sG = reinterpret_cast<bf16*>(smem_mma + tile_bytes<D>());
-    unsigned char* stages = smem_mma + 2 * tile_bytes<D>();
+    constexpr int TB = tma_tile_bytes<D>(), SB = dq_stage_bytes<D>();
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+    bf16* sQ = reinterpret_cast<bf16*>(smem);
+    bf16* sG = reinterpret_cast<bf16*>(smem + TB);
+    unsigned char* stages = smem + 2 * TB;
+    const int n_tiles = (Sk + kTile - 1) / kTile;
+    const LiveList ll(stages + (n_tiles > 1 ? 2 : 1) * SB, n_tiles);
     struct Stage {
         bf16 *k, *v;
         uint8_t* keep;
     };
     auto stage = [&](int s) {
-        unsigned char* p = stages + s * dq_stage_bytes<D>();
+        unsigned char* p = stages + s * SB;
         Stage st;
         st.k = reinterpret_cast<bf16*>(p);
-        st.v = reinterpret_cast<bf16*>(p + tile_bytes<D>());
-        st.keep = p + 2 * tile_bytes<D>();
+        st.v = reinterpret_cast<bf16*>(p + TB);
+        st.keep = p + 2 * TB;
         return st;
     };
 
     const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
     const int q0 = blockIdx.y * kTile;
-    const int lane = threadIdx.x & 31, qw = (threadIdx.x >> 5) * 16;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gi = lane >> 2, ti = lane & 3;
     const long long rs = (long long)H * D;
-    const bf16* kb = k + (long long)b * Sk * rs + (long long)h * D;
-    const bf16* vb = v + (long long)b * Sk * rs + (long long)h * D;
     const int8_t* mb = mask ? mask + b * msb : nullptr;
-    float lse_r[2], delta_r[2];  // of the thread's rows qw + gi and qw + gi + 8
+
+    if (tid == 0) {
+        mbar_init(&ll.full[0], 1);
+        mbar_init(&ll.full[1], 1);
+        mbar_fence_init();
+    }
+    for (int i = tid; i < 2 * ((n_tiles + 31) / 32); i += kMmaThreads) ll.words[i] = 0;
+    __syncthreads();
+
+    auto copy = [&](int s, int j, bool own) {
+        if (tid == 0) {
+            const Stage st = stage(s);
+            mbar_expect_tx(&ll.full[s], (own ? 4 : 2) * TB);
+            if (own) {
+                tma_tile<D>(sQ, &tm_q, &ll.full[s], h, q0, b);
+                tma_tile<D>(sG, &tm_g, &ll.full[s], h, q0, b);
+            }
+            tma_tile<D>(st.k, &tm_k, &ll.full[s], h, j * kTile, b);
+            tma_tile<D>(st.v, &tm_v, &ll.full[s], h, j * kTile, b);
+        }
+    };
+    auto fetch = [&](int j, bool flags) {
+        Ahead a;
+        if (flags && flags_fast(mb, msq, msk, j * kTile, Sk))
+            mask_chunks(a.f, mb, msq, q0, Sq, j * kTile);
+        return a;
+    };
+    auto put = [&](int s, int j, bool flags, const Ahead& a) {
+        if (!flags) return;
+        const Stage st = stage(s);
+        if (flags_fast(mb, msq, msk, j * kTile, Sk))
+            store_chunks(st.keep, a.f);
+        else
+            scan_slow(st.keep, mb, msq, msk, q0, Sq, j * kTile, Sk);
+    };
+    copy(0, 0, true);  // the guess: K tile 0
+    float lse_r[2], delta_r[2];  // of the thread's rows 16 warp + g and + 8
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        const int qi = q0 + qw + gi + 8 * i;
+        const int qi = q0 + 16 * warp + gi + 8 * i;
         lse_r[i] = qi < Sq ? lse[(long long)bh * Sq + qi] : INFINITY;
         delta_r[i] = qi < Sq ? delta[(long long)bh * Sq + qi] : 0.f;
     }
-
-    auto load_k_tile = [&](int it) {
-        const Stage st = stage(it & 1);
-        const int k0 = it * kTile;
-        cp_tile<D>(st.k, kb, rs, k0, Sk);
-        cp_tile<D>(st.v, vb, rs, k0, Sk);
-        cp_async_commit();
-        keep_tile(st.keep, mb, msq, msk, q0, Sq, k0, Sk);
-    };
-
+    const int n_live = live_tiles(
+        ll, n_tiles, mb, msq, msk, Sq, Sk, [&](int j) { return make_int2(q0, j * kTile); }, 0,
+        stage(0).keep);
     const long long off = (long long)b * Sq * rs + (long long)h * D;
-    cp_tile<D>(sQ, q + off, rs, q0, Sq);
-    cp_tile<D>(sG, g + off, rs, q0, Sq);
-    load_k_tile(0);  // one group: Q, dO and the first K/V tile
-
-    float dqa[D / 8][4] = {};
-    Strip<D> fq, fg;
-    const int n_tiles = (Sk + kTile - 1) / kTile;
-    for (int it = 0; it < n_tiles; ++it) {
-        if (it + 1 < n_tiles) {
-            load_k_tile(it + 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
+    if (n_live == 0) {
+        mbar_wait(&ll.full[0], 0);
+        zero_rows<D>(dq + off, q0, Sq, rs);
+        return;
+    }
+    const int base = (ll.list[0] >> 1) == 0 ? 0 : 1;
+    uint32_t phase = 0;
+    if (base) {
+        const int j = ll.list[0] >> 1;
+        const bool flags = !(ll.list[0] & 1);
+        copy(1, j, false);
+        put(1, j, flags, fetch(j, flags));
+        mbar_wait(&ll.full[0], 0);
+        phase ^= 1u;
         __syncthreads();
-        if (it == 0) {
-            fq.init(sQ, qw, lane);
-            fg.init(sG, qw, lane);
-        }
-        const Stage st = stage(it & 1);
-#pragma unroll
-        for (int kc = 0; kc < kTile; kc += 16) {
-            float s[2][4] = {}, dp[2][4] = {};
-            strip_dot_rows<D>(s, fq, st.k, kc, lane);
-            strip_dot_rows<D>(dp, fg, st.v, kc, lane);
-            uint32_t da[2][4];
-#pragma unroll
-            for (int n = 0; n < 2; ++n) {
-                if constexpr (kDrop) {  // dS takes the dropped dP
-                    // rows q0 + qw + gi (+ 8), keys it * kTile + kc + 8 n + 2 ti (+ 1)
-                    const int row = q0 + qw + gi, col = it * kTile + kc + 8 * n + 2 * ti;
-                    bool kb[4];
-                    keep_pair(dr, bh, row, col, kb[0], kb[1]);
-                    keep_pair(dr, bh, row + 8, col, kb[2], kb[3]);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) dp[n][i] = dropped(kb[i], dp[n][i], dr);
-                }
-                float ds[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const int qr = qw + gi + 8 * (i >> 1), kr = kc + 8 * n + 2 * ti + (i & 1);
-                    const float sv = st.keep[qr * kKeepLd + kr] ? s[n][i] : kNegBig;
-                    const float p = expf(sv - lse_r[i >> 1]);
-                    ds[i] = p * (dp[n][i] - delta_r[i >> 1]);
-                }
-                pack_bf16_split(ds[0], ds[1], da[0][2 * n], da[1][2 * n]);
-                pack_bf16_split(ds[2], ds[3], da[0][2 * n + 1], da[1][2 * n + 1]);
-            }
-            strip_acc<D>(dqa, da, st.k, kc, lane);
-        }
-        __syncthreads();  // the stage is refilled next iteration
     }
 
-    store_strip<D>(dq + off, sQ, dqa, qw, q0, Sq, rs, lane);
+    float dqa[D / 2] = {};
+    for (int i = 0; i < n_live; ++i) {
+        const int s = (i + base) & 1;
+        const int j = ll.list[i] >> 1;
+        const bool partial = !(ll.list[i] & 1);
+        const bool more = i + 1 < n_live;
+        const int jn1 = more ? ll.list[i + 1] >> 1 : 0;
+        const bool flags1 = more && !(ll.list[i + 1] & 1);
+        Ahead ahead;
+        if (more) {
+            copy(s ^ 1, jn1, false);
+            ahead = fetch(jn1, flags1);
+        }
+        const Stage st = stage(s);
+        mbar_wait(&ll.full[s], (phase >> s) & 1u);
+        phase ^= 1u << s;
+
+        float sa[32] = {}, dpa[32] = {};
+        fence_regs(sa);
+        fence_regs(dpa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(sa, desc_k<D>(sQ, kk), desc_k<D>(st.k, kk));
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(dpa, desc_k<D>(sG, kk), desc_k<D>(st.v, kk));
+        wgmma_commit();
+        uint32_t kbits = 0;
+        if constexpr (kDrop) kbits = dq_keep_bits(dr, bh, q0, j * kTile, warp, gi, ti);
+        wgmma_wait<0>();
+        fence_regs(sa);
+        fence_regs(dpa);
+
+        // d[i] = (query 16 warp + g + 8 ((i >> 1) & 1), key 8 (i >> 2) + 2 t + (i & 1))
+        if (partial) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                const int qr = 16 * warp + gi + 8 * ((i >> 1) & 1);
+                const int kr = 8 * (i >> 2) + 2 * ti + (i & 1);
+                if (!st.keep[qr * kKeepLd + kr]) sa[i] = kNegBig;
+            }
+        }
+        uint32_t ha[4][4], ta[4][4];
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+            float ds[4];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+                const int i4 = 4 * jn + x;
+                float p;
+                p_ds<kDrop>(p, ds[x], sa[i4], dpa[i4], lse_r[x >> 1], delta_r[x >> 1],
+                            (kbits >> i4) & 1u, dr);
+            }
+            const int kk = jn >> 1, half = jn & 1;
+            pack_bf16_split(ds[0], ds[1], ha[kk][2 * half], ta[kk][2 * half]);
+            pack_bf16_split(ds[2], ds[3], ha[kk][2 * half + 1], ta[kk][2 * half + 1]);
+        }
+        fence_regs(dqa);
+        fence_regs(ha);
+        fence_regs(ta);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            wgmma_rs<D>(dqa, ha[kk], desc_mn<D>(st.k, kk));
+            wgmma_rs<D>(dqa, ta[kk], desc_mn<D>(st.k, kk));
+        }
+        wgmma_commit();
+        if (more) put(s ^ 1, jn1, flags1, ahead);
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        fence_regs(ha);
+        fence_regs(ta);
+        __syncthreads();
+    }
+
+    fence_proxy_async();
+    store_acc<D>(dq + off, stage(0).k, dqa, q0, Sq, rs);
 }
 
 // K1 on the tensor cores. One block per (b*h, 64-row Q tile); K/V tiles and
-// their keep flags stream through two shared stages, as in K3. Per warp and
+// their keep flags stream through two shared stages by cp.async. Per warp and
 // per K tile: S = Q_w K^T (16 x 64) in registers, the online softmax on its
 // accumulator fragments (each row's four lanes share its max by shuffles),
 // and acc = alpha acc + P V with P as two bf16 A fragments (head + tail) in
@@ -1022,10 +1526,68 @@ cudaError_t allow_smem(Kernel plain, Kernel drop, int bytes) {
                : cudaFuncSetAttribute(drop, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. The
-// tensor-core kernels take one stage of streamed tiles when there is only
-// one tile to stream, two otherwise (the opt-in covers two). A rate above
-// 0 selects the instantiation that draws the dropout.
+// ---------------------------------------------------------------------------
+// TMA tensor maps of the (B, S, H, D) bf16 tensors, as they lie in memory:
+// dims (D, H, S, B) innermost first, row stride H*D, no copy. A box is one
+// panel of a 64-row tile of one (batch, head); rows past S read as zero.
+// cuTensorMapEncodeTiled is a driver function, reached through the runtime's
+// entry-point query, so the library links no -lcuda. Encoding is host work
+// on every launch (four maps a launch; flash_tensor_map_ns times it).
+
+// Returned by an entry point when no tensor map could be made: the driver
+// lacks the encoder, or it refused the tensor (kMapError + its CUresult).
+constexpr int kMapError = 1000;
+constexpr int kMaxSmem = 232448;  // 227 KB: a block's most shared memory on sm_90
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeTiled tensor_map_encoder() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                               cudaEnableDefault, &q);
+        return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+template <int D>
+int tile_map(CUtensorMap* map, const void* base, int B, int S, int H) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return kMapError;
+    constexpr int P = panel_cols<D>();
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                   (cuuint64_t)S * H * D * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)P, 1, (cuuint32_t)kTile, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
+// The four maps of one K2 or K3 launch.
+template <int D>
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* g,
+             int B, int H, int Sq, int Sk) {
+    int e = tile_map<D>(&m[0], q, B, Sq, H);
+    if (e == 0) e = tile_map<D>(&m[1], k, B, Sk, H);
+    if (e == 0) e = tile_map<D>(&m[2], v, B, Sk, H);
+    if (e == 0) e = tile_map<D>(&m[3], g, B, Sq, H);
+    return e;
+}
+
+// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. K1 takes
+// one stage of streamed tiles when there is only one tile to stream, two
+// otherwise (the opt-in covers two); K2 and K3 size their shared memory by
+// the streamed tiles' count (bwd_smem_bytes; the opt-in covers 227 KB). A
+// rate above 0 selects the instantiation that draws the dropout.
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                void* lse, int B, int H, int Sq, int Sk, long long msb, long long msq,
@@ -1065,19 +1627,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
                unsigned long long seed, unsigned long long offset, cudaStream_t stream) {
     const Dropout dr = make_dropout(rate, seed, offset);
     if constexpr (std::is_same_v<T, bf16>) {
-        constexpr int fixed = 2 * tile_bytes<D>(), per_stage = dkv_stage_bytes<D>();
-        static const cudaError_t attr =
-            allow_smem(flash_bwd_dkv_kernel_mma<D, false>, flash_bwd_dkv_kernel_mma<D, true>,
-                       fixed + 2 * per_stage);
+        static const cudaError_t attr = allow_smem(
+            flash_bwd_dkv_kernel_mma<D, false>, flash_bwd_dkv_kernel_mma<D, true>, kMaxSmem);
         if (attr != cudaSuccess) return (int)attr;
-        const int smem = fixed + (Sq > kTile ? 2 : 1) * per_stage;
+        const int smem = bwd_smem_bytes<D>(dkv_stage_bytes<D>(), (Sq + kTile - 1) / kTile);
+        if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+        CUtensorMap m[4];
+        const int e = bwd_maps<D>(m, q, k, v, g, B, H, Sq, Sk);
+        if (e != 0) return e;
         dim3 grid(B * H, (Sk + kTile - 1) / kTile);
         auto kernel = rate > 0.f ? flash_bwd_dkv_kernel_mma<D, true>
                                  : flash_bwd_dkv_kernel_mma<D, false>;
         kernel<<<grid, kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)lse,
-            (const float*)delta, (const int8_t*)mask, (bf16*)dk, (bf16*)dv, H, Sq, Sk, msb,
-            msq, msk, dr);
+            m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (const int8_t*)mask,
+            (bf16*)dk, (bf16*)dv, H, Sq, Sk, msb, msq, msk, dr);
         return (int)cudaGetLastError();
     } else {
         constexpr int smem = dkv_smem<D>();
@@ -1101,18 +1664,20 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g, const 
               unsigned long long offset, cudaStream_t stream) {
     const Dropout dr = make_dropout(rate, seed, offset);
     if constexpr (std::is_same_v<T, bf16>) {
-        constexpr int fixed = 2 * tile_bytes<D>(), per_stage = dq_stage_bytes<D>();
-        static const cudaError_t attr =
-            allow_smem(flash_bwd_dq_kernel_mma<D, false>, flash_bwd_dq_kernel_mma<D, true>,
-                       fixed + 2 * per_stage);
+        static const cudaError_t attr = allow_smem(
+            flash_bwd_dq_kernel_mma<D, false>, flash_bwd_dq_kernel_mma<D, true>, kMaxSmem);
         if (attr != cudaSuccess) return (int)attr;
-        const int smem = fixed + (Sk > kTile ? 2 : 1) * per_stage;
+        const int smem = bwd_smem_bytes<D>(dq_stage_bytes<D>(), (Sk + kTile - 1) / kTile);
+        if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+        CUtensorMap m[4];
+        const int e = bwd_maps<D>(m, q, k, v, g, B, H, Sq, Sk);
+        if (e != 0) return e;
         dim3 grid(B * H, (Sq + kTile - 1) / kTile);
         auto kernel = rate > 0.f ? flash_bwd_dq_kernel_mma<D, true>
                                  : flash_bwd_dq_kernel_mma<D, false>;
         kernel<<<grid, kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)lse,
-            (const float*)delta, (const int8_t*)mask, (bf16*)dq, H, Sq, Sk, msb, msq, msk, dr);
+            m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (const int8_t*)mask,
+            (bf16*)dq, H, Sq, Sk, msb, msq, msk, dr);
         return (int)cudaGetLastError();
     } else {
         constexpr int smem = dq_smem<D>();
@@ -1170,6 +1735,26 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g, con
                  unsigned long long seed, unsigned long long offset, void* stream) {
     FLASH_DISPATCH(launch_dq, q, k, v, g, lse, delta, mask, dq, B, H, Sq, Sk, msb, msq, msk,
                    rate, seed, offset, (cudaStream_t)stream)
+}
+
+// Mean nanoseconds of encoding one K2 or K3 launch's four tensor maps over
+// n repetitions, for a (B, S, H, D) bf16 tensor at `base` (a device
+// allocation: the driver checks it) standing for q, k, v and dO: the host
+// cost the TMA design adds to every launch. Negative if a map is refused.
+int flash_tensor_map_ns(const void* base, int B, int S, int H, int D, int n) {
+    CUtensorMap m[4];
+    tensor_map_encoder();  // the one-time entry-point query is not timed
+    const auto t0 = std::chrono::steady_clock::now();
+    for (int i = 0; i < n; ++i) {
+        const int e = D == 32    ? bwd_maps<32>(m, base, base, base, base, B, H, S, S)
+                      : D == 64  ? bwd_maps<64>(m, base, base, base, base, B, H, S, S)
+                      : D == 128 ? bwd_maps<128>(m, base, base, base, base, B, H, S, S)
+                                 : (int)cudaErrorInvalidValue;
+        if (e != 0) return -e;
+    }
+    const auto t1 = std::chrono::steady_clock::now();
+    return (int)(std::chrono::duration_cast<std::chrono::nanoseconds>(t1 - t0).count() /
+                 (n > 0 ? n : 1));
 }
 
 }  // extern "C"

@@ -1,19 +1,30 @@
-"""Flash attention for the demo Transformer: Hopper kernels + plain twins.
+"""Flash attention for the demo Transformer and the LM: Hopper kernels + plain twins.
 
 Port of ``metaopt_tpu/ops/attention.py``'s Pallas route. Three kernels,
 written in CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), replace
 the three Pallas TPU kernels:
 
-- K1 ``flash_fwd``     ← ``_flash_fwd_kernel``: blocked online-softmax
-  attention emitting O and the per-row logsumexp;
-- K2 ``flash_bwd_dkv`` ← ``_flash_bwd_dkv_kernel``: dK and dV, one block per
-  K tile;
-- K3 ``flash_bwd_dq``  ← ``_flash_bwd_dq_kernel``: dQ, one block per Q tile.
+- K1 ``flash_fwd``     ← ``_flash_fwd_kernel`` (:77, launched at :159):
+  blocked online-softmax attention emitting O and the per-row logsumexp;
+- K2 ``flash_bwd_dkv`` ← ``_flash_bwd_dkv_kernel`` (:181, launched at
+  :321): dK and dV, one block per K tile;
+- K3 ``flash_bwd_dq``  ← ``_flash_bwd_dq_kernel`` (:238, launched at
+  :358): dQ, one block per Q tile.
 
-For bf16 all three run on the tensor cores (``mma.sync``, with P and dS
-rounded to bf16 operands in registers: P as one term for dV, P for O and
-dS as two terms, head + tail); K1 skips K tiles that its mask hides from
-a whole 64-row Q tile. For f32 they compute in f32 on the CUDA cores.
+For bf16 all three run on the tensor cores, with P and dS rounded to bf16
+operands in registers: P as one term for dV, P for O and dS as two terms,
+head + tail. K1 runs ``mma.sync`` on ``cp.async`` tiles and skips K tiles
+that its mask hides from a whole 64-row Q tile. K2 and K3 are built for
+the LM's long causal sequences with dropout, where both are bound by bytes
+(32.9 and 27.9 µs at B 32 × S 512, H 8, D 64; 3.8 and 3.2 µs at the
+slice's S 64; chip_smoke.py computes the bounds): each block first lists
+the streamed tiles its mask leaves alive (a causal 512 × 512 mask kills 28
+of 64 tile pairs, which are then neither copied, multiplied nor drawn
+for), draws one Philox call per four elements and shares its words across
+lanes, and runs every product as a ``wgmma`` on 128B-swizzled tiles that
+TMA copies into a two-stage ring (tensor maps of the (B, S, H, D) tensors
+as they lie, encoded on the host at each launch). For f32 they compute in
+f32 on the CUDA cores.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
 tensor it runs the plain PyTorch version beside it (``*_plain``: the same
@@ -160,6 +171,8 @@ _SIGNATURES = {
     "flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 3 + _DROPOUT + [_P],
     "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_L] * 3 + _DROPOUT + [_P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_L] * 3 + _DROPOUT + [_P],
+    # K2's and K3's host cost: ns to encode one launch's four TMA tensor maps
+    "flash_tensor_map_ns": [_P] + [_I] * 5,
 }
 
 

@@ -19,12 +19,15 @@ import torch
 
 from metaopt_tpu.ops.attention import (
     _block_and_pad,
+    _chunked_forward,
+    _pallas_backward,
     _pallas_forward,
     _reference_attention,
     flash_attention as jax_flash,
 )
 from metaopt_tpu_torch.ops import attention as att
 from metaopt_tpu_torch.utils.cuda_build import CSRC_DIR
+from test_torch_dropout import reference_bits
 
 
 def make_inputs(seed, b, sq, sk, h, d, mask_kind):
@@ -234,6 +237,133 @@ def test_mma_forward_model_feeds_the_backward_within_the_bound():
     for mine, ref in zip(*grads):
         np.testing.assert_allclose(mine.float().numpy(), ref.float().numpy(),
                                    atol=3e-2, rtol=3e-2)
+
+
+def mma_backward_model(q, k, v, g, lse, delta, keep, drop=None, skip_dead_tiles=True):
+    """Test-only model of the arithmetic of the bf16 K2 and K3
+    (``flash_bwd_dkv_kernel_mma`` and ``flash_bwd_dq_kernel_mma`` in
+    csrc/flash_attention.cu), which no CPU test can run: 64 x 64 tile pairs;
+    S and dP in f32 from the bf16 operands; masked scores -1e30, p = exp(s -
+    lse); under dropout (``drop`` = (bits (B,H,Sq,Sk), keep_prob)) dV takes
+    the dropped p and dS the dropped dP, scaled by 1 / keep_prob in f32; P
+    enters dV = P^T dO as one bf16 term, dS enters dK = dS^T Q and dQ = dS K
+    as two, head + tail; f32 accumulation over the tiles in order. With
+    ``skip_dead_tiles``, a tile pair whose keep flags are all zero adds
+    nothing (the kernels leave it out of their live-tile lists). Returns (dq,
+    dk, dv) bf16 (B,S,H,D) and the number of (batch, head, Q tile, K tile)
+    pairs skipped."""
+    qf, kf, vf, gf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, g))
+    b, h, sq, d = qf.shape
+    sk = kf.shape[2]
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    n_skipped = 0
+    for q0 in range(0, sq, KERNEL_TILE):
+        for k0 in range(0, sk, KERNEL_TILE):
+            rows, cols = slice(q0, q0 + KERNEL_TILE), slice(k0, k0 + KERNEL_TILE)
+            kt = keep[:, None, rows, cols]                               # (B, 1, Tq, Tk)
+            s = torch.where(kt, qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2), -1e30)
+            p = torch.exp(s - lse[:, :, rows, None])
+            dp = gf[:, :, rows] @ vf[:, :, cols].transpose(-1, -2)
+            pd = p
+            if drop is not None:
+                bits, kp = drop
+                kb = bits[:, :, rows, cols]
+                scale = torch.tensor(1.0) / torch.tensor(kp, dtype=torch.float32)
+                dp = torch.where(kb, dp * scale, 0.0)
+                pd = torch.where(kb, p * scale, 0.0)
+            ds = p * (dp - delta[:, :, rows, None])
+            head = ds.bfloat16().float()
+            ds = head + (ds - head).bfloat16().float()
+            terms = ((dv, cols, pd.bfloat16().float().transpose(-1, -2) @ gf[:, :, rows]),
+                     (dk, cols, ds.transpose(-1, -2) @ qf[:, :, rows]),
+                     (dq, rows, ds @ kf[:, :, cols]))
+            live = torch.ones((b, 1, 1, 1), dtype=torch.bool)
+            if skip_dead_tiles:
+                live = kt.flatten(1).any(-1)[:, None, None, None]
+                n_skipped += h * int((~live).sum())
+            for acc, idx, term in terms:
+                acc[:, :, idx] = torch.where(live, acc[:, :, idx] + term, acc[:, :, idx])
+    out = tuple(t.bfloat16().permute(0, 2, 1, 3) for t in (dq, dk, dv))
+    return (*out, n_skipped)
+
+
+def padded_reference(arrays, g, block, run):
+    """Pad q, k, v, g and the mask to the reference's blocks, as its
+    ``flash_attention`` pads them, call ``run(q, k, v, g, mask, bq, bk)``, and
+    cut every returned (B, S, ...) or (B, H, S) array back: Sq rows for out,
+    lse and dq, Sk rows for dk and dv."""
+    q, k, v, mask = arrays
+    sq, sk = q.shape[1], k.shape[1]
+    bq, sq_p = _block_and_pad(sq, block)
+    bk, sk_p = _block_and_pad(sk, block)
+    pad = lambda t, n, s: jnp.pad(t, ((0, 0), (0, n - s), (0, 0), (0, 0)))  # noqa: E731
+    out, lse, dq, dk, dv = run(pad(q, sq_p, sq), pad(k, sk_p, sk), pad(v, sk_p, sk),
+                               pad(g, sq_p, sq),
+                               jnp.pad(mask, ((0, 0), (0, sq_p - sq), (0, sk_p - sk))), bq, bk)
+    cut = lambda t, rows: None if t is None else np.array(t, np.float32)[rows]  # noqa: E731
+    return (cut(out, np.s_[:, :sq]), cut(lse, np.s_[..., :sq]), cut(dq, np.s_[:, :sq]),
+            cut(dk, np.s_[:, :sk]), cut(dv, np.s_[:, :sk]))
+
+
+MMA_BWD_RATES = (0.0, 0.1)
+
+
+@pytest.mark.parametrize("rate", MMA_BWD_RATES)
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("mask_kind", MMA_MODEL_MASKS)
+def test_mma_backward_model_matches_the_reference(mask_kind, d, rate):
+    """The bf16 K2's and K3's numerics (live tiles only, P as one bf16 term,
+    dS as head + tail, f32 accumulation) at a ragged multi-tile shape (two Q
+    tiles, three K tiles), fed the reference's own forward (out, lse), at the
+    bf16 bound: at rate 0 against the Pallas backward in interpret mode; with
+    dropout, on the reference's own keep bits, against jax.vjp of its chunked
+    twin. Skipping the dead tile pairs changes no bit, and the causal masks
+    skip some."""
+    b, sq, sk, h = 2, 80, 150, 2
+    arrays = make_inputs(zlib.crc32(f"mma-bwd-{mask_kind}-{d}".encode()) % 1000, b, sq, sk, h, d,
+                         mask_kind)
+    g_np = np.random.default_rng(d).standard_normal((b, sq, h, d)).astype(np.float32)
+    jq, jk, jv, jm = to_jax(*arrays, dtype=jnp.bfloat16)
+    jg = jnp.asarray(g_np, jnp.bfloat16)
+    if rate == 0.0:
+        def run(q, k, v, g, mask, bq, bk):
+            out, lse = _pallas_forward(q, k, v, mask, bq, bk, True)
+            return (out, lse, *_pallas_backward(q, k, v, mask, out, lse, g, bq, bk, True))
+
+        jout, jlse, jdq, jdk, jdv = padded_reference((jq, jk, jv, jm), jg, 128, run)
+        drop = None
+    else:
+        block, key = 16, jax.random.PRNGKey(d)
+
+        def run(q, k, v, g, mask, bq, bk):
+            out, lse = _chunked_forward(q, k, v, mask, bk, rate, key)
+            return (out, lse, None, None, None)
+
+        jout, jlse, *_ = padded_reference((jq, jk, jv, jm), jg, block, run)
+        ref = lambda qq, kk, vv: jax_flash(qq, kk, vv, jm, dropout_rate=rate,  # noqa: E731
+                                           dropout_key=key, block_q=block, block_k=block,
+                                           impl="chunked")
+        vout, vjp = jax.vjp(ref, jq, jk, jv)
+        np.testing.assert_array_equal(np.asarray(vout, np.float32), jout)
+        jdq, jdk, jdv = (np.asarray(t, np.float32) for t in vjp(jg))
+        bits = torch.from_numpy(reference_bits(key, rate, b, h, sq, sk, block, block))
+        drop = (bits, att.keep_prob(rate))
+
+    q, k, v, mask = to_torch(*arrays, dtype=torch.bfloat16)
+    g = torch.from_numpy(g_np).bfloat16()
+    lse = torch.from_numpy(jlse)
+    delta = att.attention_delta(g, torch.from_numpy(jout).bfloat16())
+    dq, dk, dv, n_skipped = mma_backward_model(q, k, v, g, lse, delta, mask, drop)
+    *all_tiles, none_skipped = mma_backward_model(q, k, v, g, lse, delta, mask, drop,
+                                                  skip_dead_tiles=False)
+    assert none_skipped == 0
+    if mask_kind in ("causal", "empty_rows"):
+        assert n_skipped > 0  # the skip is exercised, so the comparison below means something
+    for mine, full in zip((dq, dk, dv), all_tiles):
+        assert torch.equal(mine.view(torch.int16), full.view(torch.int16))
+    for mine, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert mine.dtype == torch.bfloat16 and torch.isfinite(mine.float()).all()
+        np.testing.assert_allclose(mine.float().numpy(), want, atol=3e-2, rtol=3e-2)
 
 
 GRAD_CASES = {
